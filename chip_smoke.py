@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Builds the port's CUDA kernels from `pathtracer_tpu_torch/kernels/csrc`,
+holds each against its plain PyTorch twin on the card, then drives the main
+path once: `render_regen` renders the Cornell chip scene (Cornell box, a
+dispersive glass sphere, a rough conductor sphere and an icosahedron) at
+1080x1080, 16 spp, through the fused bounce-round kernel, and writes the film
+to `output/`. Last, the dispersive hero-wavelength furnace must come out
+uniform. Every phase prints one JSON line; any failure raises and the script
+exits non-zero. The last line is the device summary:
+
+    {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
+
+Run from the repository root:  python3 chip_smoke.py
+Without a CUDA device, or without the repository beside it, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def emit(phase, **kw):
+    print(json.dumps(dict(phase=phase, **kw)), flush=True)
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean milliseconds of `fn` on the card (CUDA events, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         count=torch.cuda.device_count())
+    return smi
+
+
+def phase_build(torch):
+    from pathtracer_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.library()
+    secs = time.perf_counter() - t0
+    import ctypes
+
+    attrs = {}
+    for c in (1, 4):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        rc = lib.fused_round_attrs(c, ctypes.byref(regs), ctypes.byref(local))
+        check(rc == 0, f"fused_round_attrs: CUDA error {rc}")
+        attrs[f"C{c}"] = dict(regs=regs.value, local_bytes=local.value)
+    log = _build.BUILD_INFO.get("log", "")
+    usage = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln.lower() or "spill" in ln.lower()
+             or "Function properties" in ln or "Compiling entry" in ln]
+    os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
+    with open(os.path.join(ROOT, "output", "nvcc_resource_usage.txt"),
+              "w") as f:
+        f.write(log)
+    emit("build", seconds=round(secs, 2), flags=_build.NVCC_FLAGS,
+         fused_round=attrs, resource_usage=usage[:40])
+
+
+def _rays(torch, n, gen, dev, tmax=None):
+    o = torch.rand((3, n), generator=gen, device=dev) * 1.4 - 0.2
+    d = torch.randn((3, n), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=0, keepdim=True)
+    tmin = torch.full((1, n), 1e-6, device=dev)
+    tm = torch.full((1, n), 1e9, device=dev) if tmax is None else tmax
+    return torch.cat([o, d, tmin, tm]).contiguous()
+
+
+def phase_sweep(torch, dev, n_rays):
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels.megakernel import build_mega_scene
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+
+    chip = scenes.chip_scene(SceneBuilder(), spectral).build()
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA)
+    rnd = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
+                              n_each=100).build()
+    p = rnd.prims
+    tabs = {
+        "chip": build_mega_scene(chip, cam, dev).dense_tab,
+        "random": torch.as_tensor(dense.pack_prims_np(
+            p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+            p.pc.numpy()), device=dev),
+    }
+    gen = torch.Generator(device=dev).manual_seed(11)
+    res = {}
+    for name, tab in tabs.items():
+        rays = _rays(torch, n_rays, gen, dev)
+        k = dense.sweep_closest(rays, tab)
+        pl = dense.sweep_closest_plain(rays, tab)
+        torch.cuda.synchronize()
+        hit_k, hit_p = k[1] >= 0, pl[1] >= 0
+        check(torch.equal(hit_k, hit_p), f"sweep {name}: hit masks differ "
+              f"on {int((hit_k != hit_p).sum())} rays")
+        check(torch.equal(k[1], pl[1]), f"sweep {name}: prim ids differ on "
+              f"{int((k[1] != pl[1]).sum())} rays")
+        tk, tp = k[0][hit_k], pl[0][hit_p]
+        check(torch.allclose(tk, tp, rtol=1e-5, atol=0.0),
+              f"sweep {name}: t differs beyond rtol 1e-5")
+        err = float((tk - tp).abs().max()) if tk.numel() else 0.0
+        tmax = torch.rand((1, n_rays), generator=gen, device=dev) * 1.45 + 0.05
+        rays_a = _rays(torch, n_rays, gen, dev, tmax)
+        ka, pa = dense.sweep_any(rays_a, tab), dense.sweep_any_plain(rays_a,
+                                                                     tab)
+        check(torch.equal(ka, pa), f"sweep {name}: any-hit masks differ on "
+              f"{int((ka != pa).sum())} rays")
+        ms = cuda_ms(torch, lambda: dense.sweep_closest(rays, tab), 20)
+        plain_ms = cuda_ms(torch, lambda: dense.sweep_closest_plain(rays, tab),
+                           3)
+        ms_any = cuda_ms(torch, lambda: dense.sweep_any(rays_a, tab), 20)
+        plain_any = cuda_ms(torch, lambda: dense.sweep_any_plain(rays_a, tab),
+                            3)
+        res[name] = dict(prims=int(tab.shape[0]), rays=n_rays,
+                         hit_frac=float(hit_k.float().mean()),
+                         max_abs_err_t=err, closest_ms=ms,
+                         closest_plain_ms=plain_ms, any_ms=ms_any,
+                         any_plain_ms=plain_any,
+                         any_frac=float(ka.mean()))
+    emit("sweep", **res)
+    return res
+
+
+def compare_round(torch, mk, out_k, out_p):
+    """Discrete rows (alive, bounce, samples left, counters) must be equal
+    on >= 99.99% of lanes; on those lanes the continuous rows must be within
+    rtol 1e-4, atol 1e-5."""
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+            mk.O4_CAMERA_CT, mk.O4_SHADOW_CT, mk.O4_ENV_CT]
+    match = (out_k[disc] == out_p[disc]).all(dim=0)
+    frac = float(match.float().mean())
+    cont = [r for r in range(mk.NS) if r not in disc]
+    a, b = out_k[cont][:, match], out_p[cont][:, match]
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5)
+    bad_rows = {int(cont[i]): int((~close[i]).sum())
+                for i in range(len(cont)) if not bool(close[i].all())}
+    err = float((a - b).abs().max())
+    rel = float(((a - b).abs() / b.abs().clamp(min=1e-30))[~close].max()) \
+        if bad_rows else 0.0
+    return frac, bad_rows, err, rel
+
+
+def phase_round(torch, dev, width):
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+
+    world = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    n = width * width
+    n_pad = -(-n // mk.TILE) * mk.TILE
+    res = {}
+    for c in (1, 4):
+        settings = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
+                              russian_roulette=True, hwss=c == 4)
+        scene = mk.build_mega_scene(world, cam, dev)
+        a = mk.RoundArgs.make(scene.consts, settings, width, width)
+        gen = torch.Generator(device=dev).manual_seed(5 + c)
+        state0, _ = mk.mega_init(
+            cam, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+            n_pad, 16)
+        nu = mk.nu_rows(a.light_samples)
+        sk = sp = state0
+        rounds = []
+        for r in range(3):
+            u = torch.rand((nu, n_pad), generator=gen, device=dev)
+            ok = mk.fused_round(u, sk, scene, a)
+            op = mk.fused_round_plain(u, sp, scene.dense_tab, scene.prim_tab,
+                                      scene.mat_tab, scene.light_tab,
+                                      scene.spec_tab, a)
+            torch.cuda.synchronize()
+            frac, bad, err, rel = compare_round(torch, mk, ok, op)
+            rounds.append(dict(match_frac=frac, bad_rows=bad,
+                               max_abs_err=err, max_rel_err_bad=rel,
+                               alive=float(ok[mk.S_ALIVE].sum())))
+            sk, sp = ok[:mk.NS], op[:mk.NS]
+        u = torch.rand((nu, n_pad), generator=gen, device=dev)
+        ms = cuda_ms(torch, lambda: mk.fused_round(u, state0, scene, a), 10)
+        plain_ms = cuda_ms(torch, lambda: mk.fused_round_plain(
+            u, state0, scene.dense_tab, scene.prim_tab, scene.mat_tab,
+            scene.light_tab, scene.spec_tab, a), 2)
+        res[f"C{c}"] = dict(lanes=n_pad, rounds=rounds, ms=ms,
+                            plain_ms=plain_ms)
+    emit("fused_round", **res)
+    for key, r in res.items():
+        for i, rd in enumerate(r["rounds"]):
+            check(rd["match_frac"] >= 0.9999,
+                  f"fused round {key} #{i}: discrete rows match on only "
+                  f"{rd['match_frac']:.6f} of lanes")
+            check(not rd["bad_rows"],
+                  f"fused round {key} #{i}: continuous rows beyond rtol 1e-4 "
+                  f"atol 1e-5: {rd['bad_rows']}")
+    return res
+
+
+def phase_render(torch, dev, width, spp):
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    world = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    settings = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
+                          russian_roulette=True, hwss=False)
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    torch.cuda.synchronize()
+    mk.FUSED_LAUNCHES = 0
+    mk.PLAIN_CALLS = 0
+    dense.LAUNCHES = 0
+    stats = {}
+    film, profile, elapsed = render_regen(world, cam, settings, width, width,
+                                          spp, generator=gen, device=dev,
+                                          stats=stats)
+    launches = mk.FUSED_LAUNCHES
+    plain_calls = mk.PLAIN_CALLS
+    film_h = film.cpu()
+    check(launches > 0 and launches == stats["rounds"],
+          f"fused kernel launches {launches} != rounds {stats.get('rounds')}")
+    check(plain_calls == 0, f"the plain round ran {plain_calls} times on the "
+          "main path")
+    check(bool(torch.isfinite(film_h).all()), "film has non-finite pixels")
+    mean_y = float(film_h[..., 1].mean())
+    check(mean_y > 0.0, "film is black")
+    exr, png = output_film(film_h, f"chip_cornell_{width}", Reinhard0(),
+                           output_dir=os.path.join(ROOT, "output"))
+    rays = profile.total_rays
+    emit("main_path", width=width, height=width, spp=spp, rounds=stats[
+        "rounds"], wall_s=elapsed, mrays_per_s=rays / elapsed / 1e6,
+        camera_rays=profile.camera_rays, bounce_rays=profile.bounce_rays,
+        shadow_rays=profile.shadow_rays, env_hits=profile.env_hits,
+        mean_y=mean_y, fused_launches=launches, plain_calls=plain_calls,
+        exr=os.path.relpath(exr, ROOT), png=os.path.relpath(png, ROOT))
+    return dict(launches=launches, rounds=stats["rounds"])
+
+
+def phase_furnace(torch, dev):
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+
+    world = scenes.dispersive_furnace(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.FURNACE_CAMERA, device=dev)
+    settings = PTSettings(max_bounces=24, min_bounces=4, light_samples=0,
+                          russian_roulette=False, hwss=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    film, _, elapsed = render_regen(world, cam, settings, 16, 16, 64,
+                                    generator=gen, device=dev)
+    y = film[..., 1].cpu()
+    center = y[5:11, 5:11].mean()
+    corner = torch.cat([y[:3, :3].reshape(-1), y[-3:, -3:].reshape(-1)]).mean()
+    ratio = float(center / corner)
+    emit("furnace", ratio=ratio, wall_s=elapsed)
+    check(abs(ratio - 1.0) < 0.12, f"dispersive furnace ratio {ratio}")
+
+
+WIDTH = 1080        # the headline film, 1080 x 1080
+SPP = 16
+SWEEP_RAYS = 1 << 20
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import pathtracer_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_device(torch)
+    phase_build(torch)
+    sweep = phase_sweep(torch, dev, SWEEP_RAYS)
+    rnd = phase_round(torch, dev, WIDTH)
+    main_path = phase_render(torch, dev, WIDTH, SPP)
+    phase_furnace(torch, dev)
+    c1 = rnd["C1"]
+    err = max(rd["max_abs_err"] for r in rnd.values() for rd in r["rounds"])
+    kernels = {"kernels": [dict(
+        name="fused_round", route="cuda",
+        source="pathtracer_tpu_torch/kernels/csrc/fused_round.cu",
+        replaces="pathtracer_tpu/kernels/megakernel.py:3218",
+        launches=main_path["launches"], max_abs_err=err, ms=c1["ms"],
+        plain_ms=c1["plain_ms"])],
+        # kernel 1 is the fused round's inlined sweep code, launched on its
+        # own only by this check (the main path runs it inside fused_round)
+        "inlined": [dict(
+            name="dense_sweep", route="cuda",
+            source="pathtracer_tpu_torch/kernels/csrc/dense_sweep.cu",
+            replaces="pathtracer_tpu/kernels/dense.py:608",
+            inlined_in="fused_round",
+            max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
+            ms=sweep["chip"]["closest_ms"],
+            plain_ms=sweep["chip"]["closest_plain_ms"])]}
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

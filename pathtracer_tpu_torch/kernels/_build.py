@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+`library()` compiles every `csrc/*.cu` file with `nvcc` for `sm_90a` into
+one shared library with a plain C interface, at first use, and loads it
+with `ctypes`. The build lands in `kernels/_build/<hash of the sources>/`,
+so a changed source rebuilds and an unchanged one is loaded as it is.
+Nothing here runs at import time.
+
+`--fmad=false` keeps nvcc from contracting `a*b - c*d` into FMAs: the
+watertight triangle's edge functions must round like the plain twin's
+separate multiplies and subtracts, or shared-edge hits change prim ids.
+IEEE division and sqrt stay on (no `--use_fast_math`): the sweep and the
+GGX D depend on them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_ROOT = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "--resource-usage"]
+
+_LIB = None
+BUILD_INFO: dict = {}
+
+
+def _sources():
+    names = sorted(f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+    return [os.path.join(CSRC, f) for f in names]
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def build():
+    """Compile the kernels (if the sources changed) -> path of the library."""
+    srcs = _sources()
+    h = hashlib.sha256()
+    for p in srcs:
+        with open(p, "rb") as f:
+            h.update(os.path.basename(p).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, "libpt_kernels.so")
+    if os.path.exists(lib_path):
+        BUILD_INFO.update(path=lib_path, seconds=0.0, cached=True)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+           *[p for p in srcs if p.endswith(".cu")]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + log)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, lib_path)
+    BUILD_INFO.update(path=lib_path, seconds=secs, cached=False, log=log)
+    return lib_path
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (rays, tab, n, p_rows, out, stream)
+    "dense_sweep_closest": [_P, _P, _I, _I, _P, _P],
+    "dense_sweep_any": [_P, _P, _I, _I, _P, _P],
+    # (u, nu, state, out, n, dense, p_dense, prim, p_pad, mat, light, spec,
+    #  spec_rows, args*, stream)
+    "fused_round_launch": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
+                           _I, _P, _P],
+    # (c_lanes, regs*, local_bytes*)
+    "fused_round_attrs": [_I, _P, _P],
+    "fused_round_args_size": [],
+    "pt_error_string": [_I],
+}
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_char_p if name == "pt_error_string" else _I
+        _LIB = lib
+    return _LIB
+
+
+def error_string(rc: int) -> str:
+    return library().pt_error_string(rc).decode()

@@ -1,0 +1,270 @@
+"""Dense ray × primitive sweep, closest hit and any hit (counterpart of
+`pathtracer_tpu.kernels.dense`).
+
+The packed primitive table is the JAX package's `[P_pad, 128]` f32 layout
+(`pack_prims_np`): columns 0..10 hold ptype, valid, pa, pb, pc; the rest is
+zero. Rays are `[8, N]` rows: origin (3), direction (3), tmin, tmax.
+
+`sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
+on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
+`sweep_any_plain`) on CPU tensors. The closest hit is the minimum t, ties
+to the minimum prim id, exactly as the JAX sweep reduces its chunks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pathtracer_tpu_torch.geometry.soa import PRIM_DISK, PRIM_RECT, PRIM_SPHERE
+
+# packed prim-table columns (table is [P_pad, 128]; cols 11.. are padding)
+_C_PTYPE, _C_VALID = 0, 1
+_C_PA, _C_PB, _C_PC = 2, 5, 8
+_N_COLS = 128
+PBF = 32  # prim rows are padded to a multiple of this block
+
+# kernel launches of the CUDA sweep (both entry points); the plain twin
+# never counts
+LAUNCHES = 0
+
+
+def pack_prims_np(ptype, valid, pa, pb, pc):
+    """[P_pad, 128] f32 transposed primitive table (P_pad a multiple of 32)."""
+    p = len(ptype)
+    p_pad = -(-p // 32) * 32
+    tab = np.zeros((p_pad, _N_COLS), np.float32)
+    tab[:p, _C_PTYPE] = ptype
+    tab[:p, _C_VALID] = valid
+    tab[:p, _C_PA:_C_PA + 3] = pa
+    tab[:p, _C_PB:_C_PB + 3] = pb
+    tab[:p, _C_PC:_C_PC + 3] = pc
+    return tab
+
+
+# ------------------------------------------------------------- plain twin
+
+
+def chunk_t(ch, ox, oy, oz, dx, dy, dz, t_min, t_max):
+    """t of every ray against every prim of a chunk -> [N, B] (inf = miss).
+
+    `ch` maps the table's attribute names to [1, B] prim columns; rays are
+    [N, 1] columns. Every prim type is evaluated and selected by ptype."""
+    ptype = ch["ptype"]
+    valid = ch["valid"] > 0.5
+    pax, pay, paz = ch["pax"], ch["pay"], ch["paz"]
+    pbx, pby, pbz = ch["pbx"], ch["pby"], ch["pbz"]
+    pcx, pcy, pcz = ch["pcx"], ch["pcy"], ch["pcz"]
+    inf = float("inf")
+
+    # ---- watertight triangle: cyclic axis permutation, shear into ray
+    # space, edge functions
+    ax, ay, az = torch.abs(dx), torch.abs(dy), torch.abs(dz)
+    kz_x = (ax > ay) & (ax > az)
+    kz_y = ~kz_x & (ay > az)
+
+    def cyc(vx, vy, vz):
+        c_kz = torch.where(kz_x, vx, torch.where(kz_y, vy, vz))
+        c_kx = torch.where(kz_x, vy, torch.where(kz_y, vz, vx))
+        c_ky = torch.where(kz_x, vz, torch.where(kz_y, vx, vy))
+        return c_kx, c_ky, c_kz
+
+    dx_, dy_, dz_ = cyc(dx, dy, dz)
+    inv_dz = 1.0 / torch.where(torch.abs(dz_) > 1e-30, dz_, 1.0)
+    sx = -dx_ * inv_dz
+    sy = -dy_ * inv_dz
+
+    def project(vx, vy, vz):
+        px, py, pz = cyc(vx - ox, vy - oy, vz - oz)
+        return px + sx * pz, py + sy * pz, pz * inv_dz
+
+    x0, y0, z0 = project(pax, pay, paz)
+    x1, y1, z1 = project(pbx, pby, pbz)
+    x2, y2, z2 = project(pcx, pcy, pcz)
+    e0 = x1 * y2 - y1 * x2
+    e1 = x2 * y0 - y2 * x0
+    e2 = x0 * y1 - y0 * x1
+    det = e0 + e1 + e2
+    inside = ~(((e0 < 0) | (e1 < 0) | (e2 < 0))
+               & ((e0 > 0) | (e1 > 0) | (e2 > 0)))
+    t_scaled = e0 * z0 + e1 * z1 + e2 * z2
+    t_tri = t_scaled / torch.where(torch.abs(det) > 1e-30, det, 1.0)
+    ok_tri = (inside & (torch.abs(det) > 1e-30) & (t_tri > t_min)
+              & (t_tri < t_max))
+    t_tri = torch.where(ok_tri, t_tri, inf)
+
+    # ---- sphere: two-root quadratic
+    ocx, ocy, ocz = ox - pax, oy - pay, oz - paz
+    a = dx * dx + dy * dy + dz * dz
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    r = pbx
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = half_b * half_b - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv_a = 1.0 / torch.clamp(a, min=1e-20)
+    t0 = (-half_b - sq) * inv_a
+    t1 = (-half_b + sq) * inv_a
+    t0_ok = (disc > 0.0) & (t0 > t_min) & (t0 < t_max)
+    t1_ok = (disc > 0.0) & (t1 > t_min) & (t1 < t_max)
+    t_sph = torch.where(t0_ok, t0, torch.where(t1_ok, t1, inf))
+
+    # ---- rect: pa center, pb/pc half-edges
+    nx = pby * pcz - pbz * pcy
+    ny = pbz * pcx - pbx * pcz
+    nz = pbx * pcy - pby * pcx
+    nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
+    denom_r = dx * nx + dy * ny + dz * nz
+    t_r = ((pax - ox) * nx + (pay - oy) * ny + (paz - oz) * nz) / torch.where(
+        torch.abs(denom_r) > 1e-12, denom_r, 1.0)
+    rx = ox + t_r * dx - pax
+    ry = oy + t_r * dy - pay
+    rz = oz + t_r * dz - paz
+    bb = torch.clamp(pbx * pbx + pby * pby + pbz * pbz, min=1e-20)
+    cc = torch.clamp(pcx * pcx + pcy * pcy + pcz * pcz, min=1e-20)
+    ra = (rx * pbx + ry * pby + rz * pbz) / bb
+    rb_ = (rx * pcx + ry * pcy + rz * pcz) / cc
+    ok_r = ((torch.abs(denom_r) > 1e-12) & (torch.abs(ra) <= 1.0)
+            & (torch.abs(rb_) <= 1.0) & (t_r > t_min) & (t_r < t_max))
+    t_rec = torch.where(ok_r, t_r, inf)
+
+    # ---- disk: pa center, pb unit normal, pc[0] radius
+    denom_d = dx * pbx + dy * pby + dz * pbz
+    t_d = ((pax - ox) * pbx + (pay - oy) * pby
+           + (paz - oz) * pbz) / torch.where(
+        torch.abs(denom_d) > 1e-12, denom_d, 1.0)
+    qx = ox + t_d * dx - pax
+    qy = oy + t_d * dy - pay
+    qz = oz + t_d * dz - paz
+    r2 = qx * qx + qy * qy + qz * qz
+    rad = pcx
+    ok_d = ((torch.abs(denom_d) > 1e-12) & (r2 <= rad * rad)
+            & (t_d > t_min) & (t_d < t_max))
+    t_dsk = torch.where(ok_d, t_d, inf)
+
+    t = t_tri
+    t = torch.where(ptype == PRIM_SPHERE, t_sph, t)
+    t = torch.where(ptype == PRIM_RECT, t_rec, t)
+    t = torch.where(ptype == PRIM_DISK, t_dsk, t)
+    return torch.where(valid, t, inf)
+
+
+def _chunk_cols(tab_blk):
+    """[1, B] prim attribute columns of a [B, 128] table block."""
+    def a(col):
+        return tab_blk[:, col][None, :]
+
+    return dict(
+        ptype=a(_C_PTYPE), valid=a(_C_VALID),
+        pax=a(_C_PA), pay=a(_C_PA + 1), paz=a(_C_PA + 2),
+        pbx=a(_C_PB), pby=a(_C_PB + 1), pbz=a(_C_PB + 2),
+        pcx=a(_C_PC), pcy=a(_C_PC + 1), pcz=a(_C_PC + 2),
+    )
+
+
+def _ray_cols(rays):
+    return [rays[i][:, None] for i in range(8)]
+
+
+def sweep_closest_cols(tab, ox, oy, oz, dx, dy, dz, t_min, t_max):
+    """Closest hit of [N, 1] ray columns -> (t [N], prim id [N] f32, -1 on
+    a miss). Prims are reduced in blocks of PBF: per block the minimum t and
+    the minimum id among equal t; a later block wins only if strictly
+    closer."""
+    n = ox.shape[0]
+    inf = float("inf")
+    best_t = torch.full((n,), inf, dtype=torch.float32, device=ox.device)
+    best_id = torch.full((n,), inf, dtype=torch.float32, device=ox.device)
+    for b0 in range(0, tab.shape[0], PBF):
+        blk = tab[b0:b0 + PBF]
+        t = chunk_t(_chunk_cols(blk), ox, oy, oz, dx, dy, dz, t_min, t_max)
+        ids = torch.arange(b0, b0 + blk.shape[0], dtype=torch.float32,
+                           device=ox.device)[None, :]
+        ct = torch.amin(t, dim=1)
+        cid = torch.amin(torch.where(t == ct[:, None], ids, inf), dim=1)
+        better = ct < best_t
+        best_t = torch.where(better, ct, best_t)
+        best_id = torch.where(better, cid, best_id)
+    return best_t, torch.where(torch.isfinite(best_t), best_id, -1.0)
+
+
+def sweep_any_cols(tab, ox, oy, oz, dx, dy, dz, t_min, t_max):
+    """Any hit within (t_min, t_max) of [N, 1] ray columns -> bool [N]."""
+    blocked = torch.zeros((ox.shape[0],), dtype=torch.bool, device=ox.device)
+    for b0 in range(0, tab.shape[0], PBF):
+        t = chunk_t(_chunk_cols(tab[b0:b0 + PBF]), ox, oy, oz, dx, dy, dz,
+                    t_min, t_max)
+        blocked = blocked | torch.isfinite(t).any(dim=1)
+    return blocked
+
+
+def sweep_closest_plain(rays, tab):
+    """rays [8, N], tab [P_pad, 128] -> [2, N] (t, prim id or -1)."""
+    t, pid = sweep_closest_cols(tab, *_ray_cols(rays))
+    return torch.stack([t, pid])
+
+
+def sweep_any_plain(rays, tab):
+    """rays [8, N], tab [P_pad, 128] -> [1, N] f32 0/1 blocked mask."""
+    return sweep_any_cols(tab, *_ray_cols(rays)).to(torch.float32)[None, :]
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _check(rays, tab):
+    for name, x in (("rays", rays), ("tab", tab)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+    if rays.shape[0] != 8:
+        raise ValueError(f"rays must be [8, N], got {tuple(rays.shape)}")
+    if tab.shape[1] != _N_COLS or tab.shape[0] % PBF:
+        raise ValueError(f"tab must be [P_pad (x{PBF}), {_N_COLS}], got "
+                         f"{tuple(tab.shape)}")
+    if rays.device != tab.device:
+        raise ValueError("rays and tab must be on one device")
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rays.device}")
+
+
+def _launch(fn_name, rays, tab, out):
+    from pathtracer_tpu_torch.kernels import _build
+
+    global LAUNCHES
+    lib = _build.library()
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    rc = getattr(lib, fn_name)(
+        ctypes.c_void_p(rays.data_ptr()), ctypes.c_void_p(tab.data_ptr()),
+        ctypes.c_int(rays.shape[1]), ctypes.c_int(tab.shape[0]),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+    LAUNCHES += 1
+    return out
+
+
+def sweep_closest(rays, tab):
+    """Closest hit -> [2, N] (t, prim id or -1): the CUDA kernel on a CUDA
+    tensor, the plain twin on a CPU tensor."""
+    _check(rays, tab)
+    if rays.device.type == "cpu":
+        return sweep_closest_plain(rays, tab)
+    out = torch.empty((2, rays.shape[1]), dtype=torch.float32,
+                      device=rays.device)
+    return _launch("dense_sweep_closest", rays, tab, out)
+
+
+def sweep_any(rays, tab):
+    """Any hit -> [1, N] f32 0/1: the CUDA kernel on a CUDA tensor, the
+    plain twin on a CPU tensor."""
+    _check(rays, tab)
+    if rays.device.type == "cpu":
+        return sweep_any_plain(rays, tab)
+    out = torch.empty((1, rays.shape[1]), dtype=torch.float32,
+                      device=rays.device)
+    return _launch("dense_sweep_any", rays, tab, out)

@@ -1,0 +1,47 @@
+"""Fixed-pixel sample-regeneration renderer (counterpart of
+`renderer/persistent.py:render_regen`, megakernel branch)."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from pathtracer_tpu_torch.kernels.megakernel import (
+    TorchUniforms,
+    mega_available,
+    pt_trace_regen_mega,
+)
+from pathtracer_tpu_torch.utils.profile import Profile
+
+
+def render_regen(world, camera, settings, width: int, height: int,
+                 min_samples: int, generator: torch.Generator | None = None,
+                 uniforms=None, device=None, stats: dict | None = None):
+    """Render `min_samples` samples per pixel with one lane per pixel.
+    Returns (film [H, W, 3] XYZ, Profile, elapsed seconds); the elapsed time
+    ends with the counters' host fetch, which waits for the device.
+
+    Random numbers come from `uniforms` (an object with `init` and `round`,
+    see kernels/megakernel.TorchUniforms) or else from `generator`, which
+    must live on `device`. A `stats` dict, if given, gets the number of
+    bounce rounds run under "rounds"."""
+    if not mega_available(world, camera, settings):
+        raise NotImplementedError(
+            "scenes outside the fused-round gate need the two-program round "
+            "or the regen integrator without kernels (ROADMAP §2 item 4, "
+            "§1 item 5)")
+    device = torch.device(device) if device is not None \
+        else world.prims.pa.device
+    if uniforms is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        uniforms = TorchUniforms(generator)
+    t0 = time.perf_counter()
+    acc, counters = pt_trace_regen_mega(world, camera, settings, width,
+                                        height, min_samples, uniforms,
+                                        device=device, stats=stats)
+    film = (acc / float(min_samples)).reshape(height, width, 3)
+    profile = Profile().add_device_counts(counters.cpu().tolist())
+    elapsed = time.perf_counter() - t0
+    return film, profile, elapsed

@@ -1,0 +1,91 @@
+"""World: the flattened scene as torch tensors (counterpart of
+`world/world.py`).
+
+`world_from_numpy` is the single intake path: it takes the JAX `World`'s
+leaves as numpy arrays under their JAX field names (`prims.pa`,
+`mats.mtype`, `bank.values`, `env.kind`, `lights`, `n_lights`, ...) and
+places them on a device. The port's own `SceneBuilder.build()` goes
+through it too. The BVH, the two-level accelerator and the medium table are
+not part of the port yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pathtracer_tpu_torch.core.spectral import CurveBank
+from pathtracer_tpu_torch.geometry.soa import Primitives
+from pathtracer_tpu_torch.materials.tables import Materials
+from pathtracer_tpu_torch.textures.texture import Textures
+from pathtracer_tpu_torch.world.environment import ENV_CONSTANT, Environment
+
+_GROUPS = (("prims", Primitives), ("mats", Materials), ("tex", Textures),
+           ("bank", CurveBank), ("env", Environment))
+_TOP = ("lights", "n_lights", "env_sampling_probability", "center", "radius")
+_HOST_FLOATS = ("bank.lam_lo", "bank.lam_hi")
+
+
+def field_names() -> list:
+    """Every World field the port keeps, under the JAX field names."""
+    names = [f"{g}.{f.name}" for g, cls in _GROUPS
+             for f in dataclasses.fields(cls)]
+    return names + list(_TOP)
+
+
+@dataclasses.dataclass
+class World:
+    prims: Primitives
+    mats: Materials
+    tex: Textures
+    bank: CurveBank
+    env: Environment
+    lights: torch.Tensor  # i32[L_pad] prim indices tagged Light
+    n_lights: torch.Tensor  # i32 actual count
+    env_sampling_probability: torch.Tensor  # f32
+    center: torch.Tensor  # f32[3] scene bound center
+    radius: torch.Tensor  # f32 scene bound radius
+
+    def numpy_fields(self) -> dict:
+        """The inverse of `world_from_numpy`."""
+        out = {}
+        for name in field_names():
+            obj = self
+            for part in name.split("."):
+                obj = getattr(obj, part)
+            out[name] = (obj.detach().cpu().numpy()
+                         if isinstance(obj, torch.Tensor) else obj)
+        return out
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    return torch.as_tensor(a.copy(), device=device)
+
+
+def world_from_numpy(fields: dict, device="cpu") -> World:
+    """Build the port's `World` from numpy arrays keyed by JAX field name."""
+    missing = [n for n in field_names() if n not in fields]
+    if missing:
+        raise KeyError(f"world_from_numpy: missing fields {missing}")
+    if int(np.asarray(fields["env.kind"])) != ENV_CONSTANT:
+        raise NotImplementedError(
+            "Sun and HDR environments are not ported yet "
+            "(ROADMAP §1 item 8, the rest of PT)")
+    groups = {}
+    for g, cls in _GROUPS:
+        kw = {}
+        for f in dataclasses.fields(cls):
+            name = f"{g}.{f.name}"
+            kw[f.name] = (float(np.asarray(fields[name]))
+                          if name in _HOST_FLOATS
+                          else _tensor(fields[name], device))
+        groups[g] = cls(**kw)
+    top = {n: _tensor(fields[n], device) for n in _TOP}
+    return World(**groups, **top)

@@ -1,0 +1,102 @@
+"""The CUDA kernels against their plain twins on the card (marker `gpu`;
+skipped where torch sees no CUDA device). chip_smoke.py runs the same
+checks at the main path's full shapes; these are the small-shape version:
+
+    python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
+
+(`--noconftest`: tests/conftest.py configures JAX, which the card's machine
+need not have.)
+
+The sweep must match exactly (hit, prim id, t, any-hit mask). The fused
+round and its twin run the same operations in the same order (the twin
+divides by constants as IEEE divisions, and the kernels are built without
+FMA contraction), so the discrete rows must be equal on >= 99.99% of lanes
+and the continuous rows within rtol 1e-4, atol 1e-5 on those lanes."""
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_tpu_torch import scenes
+from pathtracer_tpu_torch.camera import make_projective_camera
+from pathtracer_tpu_torch.core import spectral
+from pathtracer_tpu_torch.integrator.pt import PTSettings
+from pathtracer_tpu_torch.kernels import dense
+from pathtracer_tpu_torch.kernels import megakernel as mk
+from pathtracer_tpu_torch.parsing import SceneBuilder
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda:0")
+
+
+def _rays(n, gen, dev, tmax=None):
+    o = torch.rand((3, n), generator=gen, device=dev) * 1.4 - 0.2
+    d = torch.randn((3, n), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=0, keepdim=True)
+    t0 = torch.full((1, n), 1e-6, device=dev)
+    t1 = torch.full((1, n), 1e9, device=dev) if tmax is None else tmax
+    return torch.cat([o, d, t0, t1]).contiguous()
+
+
+@pytest.mark.parametrize("table", ["chip", "random"])
+def test_sweep_kernel_matches_plain(dev, table):
+    if table == "chip":
+        w = scenes.chip_scene(SceneBuilder(), spectral).build()
+    else:
+        w = scenes.random_prims(SceneBuilder(), spectral, seed=2, grid=20,
+                                n_each=100).build()
+    p = w.prims
+    tab = torch.as_tensor(dense.pack_prims_np(
+        p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+        p.pc.numpy()), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rays = _rays(1 << 16, gen, dev)
+    launches = dense.LAUNCHES
+    k, pl = dense.sweep_closest(rays, tab), dense.sweep_closest_plain(rays,
+                                                                      tab)
+    assert dense.LAUNCHES == launches + 1
+    assert torch.equal(k[1], pl[1])
+    hit = k[1] >= 0
+    assert torch.allclose(k[0][hit], pl[0][hit], rtol=1e-5, atol=0.0)
+    rays_a = _rays(1 << 16, gen, dev,
+                   torch.rand((1, 1 << 16), generator=gen, device=dev) + 0.05)
+    assert torch.equal(dense.sweep_any(rays_a, tab),
+                       dense.sweep_any_plain(rays_a, tab))
+
+
+@pytest.mark.parametrize("recipe", [scenes.chip_scene, scenes.cornell_sharp],
+                         ids=["chip", "sharp"])
+@pytest.mark.parametrize("c_lanes", [1, 4])
+def test_fused_round_kernel_matches_plain(dev, c_lanes, recipe):
+    world = recipe(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4)
+    scene = mk.build_mega_scene(world, cam, dev)
+    a = mk.RoundArgs.make(scene.consts, s, 128, 128)
+    n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 128 * 128,
+                            n_pad, 4)
+    sk = sp = state
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+            mk.O4_CAMERA_CT, mk.O4_SHADOW_CT, mk.O4_ENV_CT]
+    for _ in range(3):
+        u = torch.rand((mk.nu_rows(2), n_pad), generator=gen, device=dev)
+        ok = mk.fused_round(u, sk, scene, a)
+        op = mk.fused_round_plain(u, sp, scene.dense_tab, scene.prim_tab,
+                                  scene.mat_tab, scene.light_tab,
+                                  scene.spec_tab, a)
+        match = (ok[disc] == op[disc]).all(dim=0)
+        assert float(match.float().mean()) >= 0.9999
+        cont = [r for r in range(mk.NS) if r not in disc]
+        assert torch.allclose(ok[cont][:, match], op[cont][:, match],
+                              rtol=1e-4, atol=1e-5)
+        sk, sp = ok[:mk.NS], op[:mk.NS]
+    assert np.isfinite(sk.cpu().numpy()).all()

@@ -1,0 +1,127 @@
+"""The whole slice on the CPU: the port's `render_regen` (plain fused round)
+against the JAX package's `pt_trace_regen_mega` (Pallas interpret mode) on
+the chip scene at 64x64 @ 4 spp, then the HWSS furnace and the film files.
+
+- Uniforms replayed from JAX: the films must agree — mean within 1e-2
+  relative and >= 99% of pixels within rtol 1e-3 (only the few lanes whose
+  RR or shadow decision flips on f32 op order may diverge).
+- The port's own torch.Generator: film mean within rtol 0.2 and counters
+  within rtol 0.08 of the JAX render, the JAX package's own standard for two
+  sample streams (tests/test_kernels_pallas.py:78-119).
+"""
+
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pathtracer_tpu.kernels import megakernel as jm
+from pathtracer_tpu import tonemap as jax_tm
+from pathtracer_tpu.tonemap import read_exr
+from pathtracer_tpu.tonemap import tonemap_to_rgb as jax_tonemap
+from pathtracer_tpu.tonemap.io_png import read_png
+from pathtracer_tpu_torch.renderer.output import output_film
+from pathtracer_tpu_torch.renderer.persistent import render_regen
+from pathtracer_tpu_torch import tonemap as torch_tm
+from pathtracer_tpu_torch.tonemap import Reinhard0, tonemap_to_rgb
+
+from torch_ref_helpers import (
+    FURNACE_SETTINGS,
+    NEE_SETTINGS,
+    JaxReplay,
+    both_settings,
+    both_worlds,
+)
+
+torch.set_num_threads(2)
+
+W = H = 64
+SPP = 4
+
+
+@pytest.fixture(scope="module")
+def chip():
+    jw, tw, jc, tc = both_worlds("chip")
+    js, ts = both_settings(**NEE_SETTINGS)
+    key = jax.random.PRNGKey(3)
+    acc, counters = jm.pt_trace_regen_mega(jw, jc, js, W, H, SPP, key,
+                                           interpret=True)
+    ref = np.asarray(acc).reshape(H, W, 3) / SPP
+    film, profile, _ = render_regen(tw, tc, ts, W, H, SPP,
+                                    uniforms=JaxReplay(key))
+    return dict(ref=ref, ref_counters=np.asarray(counters), film=film.numpy(),
+                profile=profile, world=tw, camera=tc, settings=ts)
+
+
+def _counts(profile):
+    return np.array([profile.camera_rays, profile.bounce_rays,
+                     profile.shadow_rays, profile.light_rays,
+                     profile.env_hits], np.float64)
+
+
+def test_replayed_render_matches_jax(chip):
+    ref, film = chip["ref"], chip["film"]
+    assert film.shape == (H, W, 3) and np.isfinite(film).all()
+    np.testing.assert_allclose(film.mean(axis=(0, 1)), ref.mean(axis=(0, 1)),
+                               rtol=1e-2)
+    close = np.isclose(film, ref, rtol=1e-3, atol=1e-6).all(axis=-1)
+    assert close.mean() >= 0.99, f"only {close.mean():.4f} of pixels agree"
+    got, want = _counts(chip["profile"]), chip["ref_counters"]
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+
+
+def test_own_generator_render_matches_jax_statistically(chip):
+    film, profile, _ = render_regen(
+        chip["world"], chip["camera"], chip["settings"], W, H, SPP,
+        generator=torch.Generator().manual_seed(11))
+    film = film.numpy()
+    assert np.isfinite(film).all() and film[..., 1].mean() > 1e-3
+    np.testing.assert_allclose(film.mean(axis=(0, 1)),
+                               chip["ref"].mean(axis=(0, 1)), rtol=0.2)
+    want = chip["ref_counters"]
+    nz = want > 0
+    np.testing.assert_allclose(_counts(profile)[nz], want[nz], rtol=0.08)
+
+
+def test_dispersive_furnace_hwss():
+    """Hero-wavelength spectral MIS at C = 4: a near-delta dispersive sphere
+    in a unit environment must render uniform (tests/test_spectral_mis.py)."""
+    _, tw, _, tc = both_worlds("furnace")
+    _, ts = both_settings(**FURNACE_SETTINGS, hwss=True)
+    film, _, _ = render_regen(tw, tc, ts, 16, 16, 64,
+                              generator=torch.Generator().manual_seed(3))
+    y = film[..., 1].numpy()
+    center = y[5:11, 5:11].mean()
+    corner = np.concatenate([y[:3, :3].ravel(), y[-3:, -3:].ravel()]).mean()
+    assert abs(center / corner - 1.0) < 0.12
+
+
+def test_film_files_read_back(chip, tmp_path):
+    film = chip["film"]
+    exr, png = output_film(film, "chip", Reinhard0(),
+                           output_dir=str(tmp_path))
+    display, linear = tonemap_to_rgb(torch.as_tensor(film), Reinhard0())
+    np.testing.assert_array_equal(read_exr(exr), linear.numpy())
+    img = read_png(png)
+    assert img.shape == (H, W, 3) and img.dtype == np.uint8
+    want = (np.clip(display.numpy(), 0, 1) * 255 + 0.5).astype(np.uint8)
+    np.testing.assert_array_equal(img, want)
+    assert os.path.getsize(exr) > H * W * 12
+
+
+@pytest.mark.parametrize("colorspace", ["Rec709", "sRGB", "Rec2020"])
+@pytest.mark.parametrize("mapper", ["Clamp", "Reinhard0", "Reinhard0x3",
+                                    "Reinhard1", "Reinhard1x3"])
+def test_tonemap_matches_jax(chip, mapper, colorspace):
+    film = chip["ref"]
+    d_ref, l_ref = jax_tonemap(jnp.asarray(film), getattr(jax_tm, mapper)(),
+                               colorspace)
+    d, lin = tonemap_to_rgb(torch.as_tensor(film), getattr(torch_tm, mapper)(),
+                            colorspace)
+    np.testing.assert_allclose(lin.numpy(), np.asarray(l_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=1e-4,
+                               atol=1e-5)
