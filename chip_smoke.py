@@ -2,13 +2,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from `pathtracer_tpu_torch/kernels/csrc`,
-holds each against its plain PyTorch twin on the card, then drives the main
-path once: `render_regen` renders the Cornell chip scene (Cornell box, a
-dispersive glass sphere, a rough conductor sphere and an icosahedron) at
-1080x1080, 16 spp, through the fused bounce-round kernel, and writes the film
-to `output/`. Last, the dispersive hero-wavelength furnace must come out
-uniform. Every phase prints one JSON line; any failure raises and the script
-exits non-zero. The last line is the device summary:
+holds each against its plain PyTorch twin on the card, then drives both
+routes of the main path through `render_regen`: the Cornell chip scene
+(Cornell box, a dispersive glass sphere, a rough conductor sphere and an
+icosahedron) at 1080x1080, 16 spp, through the fused bounce-round kernel;
+and the two-program round (K12 `shade_sweep`, K34 `finalize_sweep`) on the
+multi-chunk gem stand-in at 1080x1080, 8 spp, the 5,120-triangle mesh at
+1080x1080, 2 spp, and the HDR blob environment at 512x512, 16 spp. Films go
+to `output/`. Last, the dispersive hero-wavelength furnace and the HDR
+furnace must come out uniform. Every phase prints one JSON line; any failure
+raises and the script exits non-zero. The last line is the device summary:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -72,11 +75,18 @@ def phase_build(torch):
     import ctypes
 
     attrs = {}
+    two_prog = {"shade_sweep": {}, "finalize_sweep": {}}
     for c in (1, 4):
         regs, local = ctypes.c_int(), ctypes.c_int()
         rc = lib.fused_round_attrs(c, ctypes.byref(regs), ctypes.byref(local))
         check(rc == 0, f"fused_round_attrs: CUDA error {rc}")
         attrs[f"C{c}"] = dict(regs=regs.value, local_bytes=local.value)
+        for which, name in enumerate(two_prog):
+            rc = lib.two_prog_attrs(which, c, ctypes.byref(regs),
+                                    ctypes.byref(local))
+            check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
+            two_prog[name][f"C{c}"] = dict(regs=regs.value,
+                                           local_bytes=local.value)
     log = _build.BUILD_INFO.get("log", "")
     usage = [ln.strip() for ln in log.splitlines()
              if "registers" in ln.lower() or "spill" in ln.lower()
@@ -86,7 +96,7 @@ def phase_build(torch):
               "w") as f:
         f.write(log)
     emit("build", seconds=round(secs, 2), flags=_build.NVCC_FLAGS,
-         fused_round=attrs, resource_usage=usage[:40])
+         fused_round=attrs, **two_prog, resource_usage=usage[:40])
 
 
 def _rays(torch, n, gen, dev, tmax=None):
@@ -155,23 +165,29 @@ def phase_sweep(torch, dev, n_rays):
     return res
 
 
-def compare_round(torch, mk, out_k, out_p):
-    """Discrete rows (alive, bounce, samples left, counters) must be equal
-    on >= 99.99% of lanes; on those lanes the continuous rows must be within
-    rtol 1e-4, atol 1e-5."""
-    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
-            mk.O4_CAMERA_CT, mk.O4_SHADOW_CT, mk.O4_ENV_CT]
+def compare_rows(torch, out_k, out_p, disc, rows):
+    """Discrete rows `disc` must be equal on >= 99.99% of lanes; on those
+    lanes the continuous `rows` must be within rtol 1e-4, atol 1e-5. A NaN
+    on either side fails, and makes the max abs error NaN."""
     match = (out_k[disc] == out_p[disc]).all(dim=0)
     frac = float(match.float().mean())
-    cont = [r for r in range(mk.NS) if r not in disc]
+    cont = [r for r in rows if r not in disc]
     a, b = out_k[cont][:, match], out_p[cont][:, match]
     close = torch.isclose(a, b, rtol=1e-4, atol=1e-5)
     bad_rows = {int(cont[i]): int((~close[i]).sum())
                 for i in range(len(cont)) if not bool(close[i].all())}
-    err = float((a - b).abs().max())
+    err = float((a - b).abs().max()) if a.numel() else 0.0
     rel = float(((a - b).abs() / b.abs().clamp(min=1e-30))[~close].max()) \
         if bad_rows else 0.0
     return frac, bad_rows, err, rel
+
+
+def compare_round(torch, mk, out_k, out_p):
+    """The fused round's discrete rows are alive, bounce, samples left and
+    the counters; its continuous rows the other state rows."""
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+            mk.O4_CAMERA_CT, mk.O4_SHADOW_CT, mk.O4_ENV_CT]
+    return compare_rows(torch, out_k, out_p, disc, range(mk.NS))
 
 
 def phase_round(torch, dev, width):
@@ -230,6 +246,158 @@ def phase_round(torch, dev, width):
     return res
 
 
+def _scene(torch, dev, recipe, cam, c_lanes, max_bounces=12, min_bounces=1):
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**getattr(scenes, cam), device=dev)
+    settings = PTSettings(max_bounces=max_bounces, min_bounces=min_bounces,
+                          light_samples=2, russian_roulette=True,
+                          hwss=c_lanes == 4)
+    return world, camera, settings, mk.build_mega_scene(world, camera, dev)
+
+
+def phase_two_prog(torch, dev, cases):
+    """Three chained rounds of K12 + K34 against their plain twins, each
+    route chained on its own state from one camera spawn; then the kernels'
+    and the twins' times on the first round's inputs."""
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    res = {}
+    for recipe, cam, c, width in cases:
+        world, camera, settings, scene = _scene(torch, dev, recipe, cam, c)
+        check(not mk.fused_ok(scene), f"{recipe} is in the fused gate")
+        a = mk.RoundArgs.make(scene.consts, settings, width, width)
+        n = width * width
+        n_pad = -(-n // mk.TILE) * mk.TILE
+        gen = torch.Generator(device=dev).manual_seed(17 + c)
+        state0, _ = mk.mega_init(
+            camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+            n_pad, 8)
+        ls = a.light_samples
+        k2_disc = [mk.O_AT_SURF, mk.O_ENV_CT, mk.O_SHADOW_CT,
+                   mk.O_SAMPLE_OK] + [mk.O_NEE + mk.NEE_ROWS * si + 7
+                                      for si in range(ls)]
+        out_disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+                    mk.O4_CAMERA_CT]
+
+        def feed(st, u12):
+            return (mk.env_feed(scene.env, st, u12, ls, c)
+                    if scene.env is not None else None)
+
+        sk = sp = state0
+        rounds, first = [], None
+        for r in range(3):
+            u12 = torch.rand((mk.n_u_rows(ls), n_pad), generator=gen,
+                             device=dev)
+            u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+            k2k = mk.shade_sweep(u12, sk, scene, a, feed(sk, u12))
+            k2p = mk.shade_sweep_plain(u12, sp, a=a, ef=feed(sp, u12),
+                                       **mk._tables(scene))
+            ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+            op = mk.finalize_sweep_plain(u34, sp, k2p, scene.dense_tab, a)
+            torch.cuda.synchronize()
+            f12, bad12, err12, rel12 = compare_rows(
+                torch, k2k, k2p, k2_disc, range(k2k.shape[0]))
+            f34, bad34, err34, rel34 = compare_rows(
+                torch, ok, op, out_disc, range(mk.NS))
+            rounds.append(dict(
+                k12=dict(match_frac=f12, bad_rows=bad12, max_abs_err=err12,
+                         max_rel_err_bad=rel12),
+                k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
+                         max_rel_err_bad=rel34),
+                alive=float(ok[mk.S_ALIVE].sum()),
+                at_surface=float(k2k[mk.O_AT_SURF].sum())))
+            if first is None:
+                first = (u12, u34, k2k)
+            sk, sp = ok[:mk.NS], op[:mk.NS]
+        u12, u34, k2_0 = first
+        ef0 = feed(state0, u12)
+        ms12 = cuda_ms(torch, lambda: mk.shade_sweep(u12, state0, scene, a,
+                                                     ef0), 10)
+        plain12 = cuda_ms(torch, lambda: mk.shade_sweep_plain(
+            u12, state0, a=a, ef=ef0, **mk._tables(scene)), 2)
+        ms34 = cuda_ms(torch, lambda: mk.finalize_sweep(u34, state0, k2_0,
+                                                        scene, a), 10)
+        plain34 = cuda_ms(torch, lambda: mk.finalize_sweep_plain(
+            u34, state0, k2_0, scene.dense_tab, a), 2)
+        res[f"{recipe}_{width}_C{c}"] = dict(
+            lanes=n_pad, prims=int(scene.dense_tab.shape[0]),
+            env_kind=scene.consts["env_kind"], rounds=rounds,
+            shade_sweep_ms=ms12, shade_sweep_plain_ms=plain12,
+            finalize_sweep_ms=ms34, finalize_sweep_plain_ms=plain34)
+        del sk, sp, ok, op, k2k, k2p, first, k2_0
+        torch.cuda.empty_cache()
+    emit("two_prog_round", **res)
+    for key, r in res.items():
+        for i, rd in enumerate(r["rounds"]):
+            for k in ("k12", "k34"):
+                check(rd[k]["match_frac"] >= 0.9999,
+                      f"{k} {key} #{i}: discrete rows match on only "
+                      f"{rd[k]['match_frac']:.6f} of lanes")
+                check(not rd[k]["bad_rows"],
+                      f"{k} {key} #{i}: rows beyond rtol 1e-4 atol 1e-5: "
+                      f"{rd[k]['bad_rows']}")
+    return res
+
+
+def reset_counts(mk, dense):
+    mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
+    mk.PLAIN_CALLS = 0
+    dense.LAUNCHES = 0
+
+
+def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
+                          c_lanes=1):
+    """A render through the two-program round: K12 and K34 each launch once
+    a round, the fused kernel and the plain twins never."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    world, camera, settings, _ = _scene(torch, dev, recipe, cam, c_lanes,
+                                        max_bounces)
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mk, dense)
+    stats = {}
+    film, profile, elapsed = render_regen(world, camera, settings, width,
+                                          width, spp, generator=gen,
+                                          device=dev, stats=stats)
+    counts = dict(shade_sweep=mk.SHADE_LAUNCHES,
+                  finalize_sweep=mk.FINALIZE_LAUNCHES,
+                  fused_round=mk.FUSED_LAUNCHES, plain_calls=mk.PLAIN_CALLS)
+    film_h = film.cpu()
+    rounds = stats["rounds"]
+    check(counts["shade_sweep"] == counts["finalize_sweep"] == rounds > 0,
+          f"{recipe}: K12/K34 launches {counts} != rounds {rounds}")
+    check(counts["fused_round"] == 0 and counts["plain_calls"] == 0,
+          f"{recipe}: fused or plain rounds ran on the main path: {counts}")
+    check(bool(torch.isfinite(film_h).all()), f"{recipe}: non-finite film")
+    mean_y = float(film_h[..., 1].mean())
+    check(mean_y > 0.0, f"{recipe}: film is black")
+    exr, png = output_film(film_h, f"{recipe}_{width}", Reinhard0(),
+                           output_dir=os.path.join(ROOT, "output"))
+    rays = profile.total_rays
+    emit("main_path", scene=recipe, width=width, height=width, spp=spp,
+         max_bounces=max_bounces, c_lanes=c_lanes, rounds=rounds,
+         wall_s=elapsed, mrays_per_s=rays / elapsed / 1e6,
+         camera_rays=profile.camera_rays, bounce_rays=profile.bounce_rays,
+         shadow_rays=profile.shadow_rays, env_hits=profile.env_hits,
+         mean_y=mean_y, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=counts, exr=os.path.relpath(exr, ROOT),
+         png=os.path.relpath(png, ROOT))
+    return dict(counts, rounds=rounds)
+
+
 def phase_render(torch, dev, width, spp):
     from pathtracer_tpu_torch import scenes
     from pathtracer_tpu_torch.camera import make_projective_camera
@@ -248,9 +416,7 @@ def phase_render(torch, dev, width, spp):
                           russian_roulette=True, hwss=False)
     gen = torch.Generator(device=dev).manual_seed(2026)
     torch.cuda.synchronize()
-    mk.FUSED_LAUNCHES = 0
-    mk.PLAIN_CALLS = 0
-    dense.LAUNCHES = 0
+    reset_counts(mk, dense)
     stats = {}
     film, profile, elapsed = render_regen(world, cam, settings, width, width,
                                           spp, generator=gen, device=dev,
@@ -300,9 +466,35 @@ def phase_furnace(torch, dev):
     check(abs(ratio - 1.0) < 0.12, f"dispersive furnace ratio {ratio}")
 
 
+def phase_hdr_furnace(torch, dev):
+    """A constant-valued, importance-sampled HDR map around a unit-albedo
+    sphere through the two-program round: sphere pixels (center) must equal
+    direct-environment pixels (corners) within 0.05."""
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+
+    world, camera, settings, _ = _scene(torch, dev, "hdr_furnace",
+                                        "SPHERE_CAMERA", 4, max_bounces=10,
+                                        min_bounces=3)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    film, _, elapsed = render_regen(world, camera, settings, 64, 64, 256,
+                                    generator=gen, device=dev)
+    y = film[..., 1].cpu()
+    center = y[24:40, 24:40].mean()
+    corner = torch.cat([y[:6, :6].reshape(-1), y[-6:, -6:].reshape(-1)]).mean()
+    ratio = float(center / corner)
+    emit("hdr_furnace", ratio=ratio, wall_s=elapsed)
+    check(abs(ratio - 1.0) < 0.05, f"HDR furnace ratio {ratio}")
+
+
 WIDTH = 1080        # the headline film, 1080 x 1080
 SPP = 16
 SWEEP_RAYS = 1 << 20
+# K12 + K34 against their twins: (recipe, camera, C, film width)
+TWO_PROG_CASES = (("gem_cornell", "CORNELL_CAMERA", 1, 1080),
+                  ("gem_cornell", "CORNELL_CAMERA", 4, 1080),
+                  ("hdri_blob", "SPHERE_CAMERA", 4, 512),
+                  ("hdri_blob", "SPHERE_CAMERA", 1, 512),
+                  ("mesh_cornell", "CORNELL_CAMERA", 1, 256))
 
 
 def main():
@@ -321,23 +513,46 @@ def main():
     phase_build(torch)
     sweep = phase_sweep(torch, dev, SWEEP_RAYS)
     rnd = phase_round(torch, dev, WIDTH)
+    two = phase_two_prog(torch, dev, TWO_PROG_CASES)
     main_path = phase_render(torch, dev, WIDTH, SPP)
+    gem = phase_render_two_prog(torch, dev, "gem_cornell", "CORNELL_CAMERA",
+                                WIDTH, 8, 12)
+    phase_render_two_prog(torch, dev, "mesh_cornell", "CORNELL_CAMERA",
+                          WIDTH, 2, 8)
+    phase_render_two_prog(torch, dev, "hdri_blob", "SPHERE_CAMERA", 512, 16,
+                          12)
     phase_furnace(torch, dev)
+    phase_hdr_furnace(torch, dev)
     c1 = rnd["C1"]
     err = max(rd["max_abs_err"] for r in rnd.values() for rd in r["rounds"])
-    kernels = {"kernels": [dict(
-        name="fused_round", route="cuda",
-        source="pathtracer_tpu_torch/kernels/csrc/fused_round.cu",
-        replaces="pathtracer_tpu/kernels/megakernel.py:3218",
-        launches=main_path["launches"], max_abs_err=err, ms=c1["ms"],
-        plain_ms=c1["plain_ms"])],
-        # kernel 1 is the fused round's inlined sweep code, launched on its
-        # own only by this check (the main path runs it inside fused_round)
+    gem1 = two["gem_cornell_1080_C1"]
+
+    def two_err(k):
+        return max(rd[k]["max_abs_err"] for r in two.values()
+                   for rd in r["rounds"])
+
+    src = "pathtracer_tpu_torch/kernels/csrc/"
+    kernels = {"kernels": [
+        dict(name="fused_round", route="cuda", source=src + "fused_round.cu",
+             replaces="pathtracer_tpu/kernels/megakernel.py:3218",
+             launches=main_path["launches"], max_abs_err=err, ms=c1["ms"],
+             plain_ms=c1["plain_ms"]),
+        dict(name="shade_sweep", route="cuda", source=src + "two_prog_round.cu",
+             replaces="pathtracer_tpu/kernels/megakernel.py:2137",
+             launches=gem["shade_sweep"], max_abs_err=two_err("k12"),
+             ms=gem1["shade_sweep_ms"], plain_ms=gem1["shade_sweep_plain_ms"]),
+        dict(name="finalize_sweep", route="cuda",
+             source=src + "two_prog_round.cu",
+             replaces="pathtracer_tpu/kernels/megakernel.py:2204",
+             launches=gem["finalize_sweep"], max_abs_err=two_err("k34"),
+             ms=gem1["finalize_sweep_ms"],
+             plain_ms=gem1["finalize_sweep_plain_ms"])],
+        # the sweep device code (sweep.cuh) is inlined in all three round
+        # kernels; dense_sweep.cu launches it on its own only in this check
         "inlined": [dict(
-            name="dense_sweep", route="cuda",
-            source="pathtracer_tpu_torch/kernels/csrc/dense_sweep.cu",
+            name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
-            inlined_in="fused_round",
+            inlined_in=["fused_round", "shade_sweep", "finalize_sweep"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
             ms=sweep["chip"]["closest_ms"],
             plain_ms=sweep["chip"]["closest_plain_ms"])]}

@@ -1,9 +1,10 @@
 """PyTorch / CUDA port of the regen path tracer (`pathtracer_tpu`).
 
-The port mirrors the JAX package's module paths. It covers the fused
-megakernel main path: a dense, identity-transform scene with a projective
-thin-lens camera, a constant environment and 1x1 textures, rendered by
-`renderer.persistent.render_regen`. On a CUDA tensor every kernel of that
+The port mirrors the JAX package's module paths. It covers the megakernel
+main path: a dense, identity-transform scene of up to 8192 prims with a
+projective thin-lens camera and a constant, Sun or HDR environment,
+rendered by `renderer.persistent.render_regen` through the fused round or
+the two-program round. On a CUDA tensor every kernel of that
 path is a hand-written CUDA kernel (`kernels/csrc/`), built with `nvcc` at
 first use; on a CPU tensor each kernel wrapper runs its plain PyTorch twin.
 

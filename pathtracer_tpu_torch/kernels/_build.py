@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-`library()` compiles every `csrc/*.cu` file with `nvcc` for `sm_90a` into
+`library()` compiles every `csrc/*.cu` file with `nvcc` for `sm_90a` (one
+`nvcc` process per source, all started together), links the objects into
 one shared library with a plain C interface, at first use, and loads it
 with `ctypes`. The build lands in `kernels/_build/<hash of the sources>/`,
 so a changed source rebuilds and an unchanged one is loaded as it is.
@@ -26,8 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "--resource-usage"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "--resource-usage"]
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -62,17 +62,36 @@ def build():
         BUILD_INFO.update(path=lib_path, seconds=0.0, cached=True)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           *[p for p in srcs if p.endswith(".cu")]]
+    nvcc = _nvcc()
+    cus = [p for p in srcs if p.endswith(".cu")]
+    objs = [os.path.join(out_dir, os.path.basename(p)[:-3] + ".o")
+            for p in cus]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(p, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, p],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p, o in zip(cus, objs)]
+    logs, failed = [], []
+    for p, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {os.path.basename(p)} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(os.path.basename(p))
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp, *objs], capture_output=True, text=True)
+        logs.append(f"== link (rc {link.returncode})\n"
+                    + link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
     secs = time.perf_counter() - t0
-    log = res.stdout + res.stderr
+    log = "\n".join(logs)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        f.write(" ".join([nvcc, *NVCC_FLAGS]) + "\n" + log)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
     os.replace(tmp, lib_path)
     BUILD_INFO.update(path=lib_path, seconds=secs, cached=False, log=log)
     return lib_path
@@ -88,9 +107,16 @@ _SIGNATURES = {
     #  spec_rows, args*, stream)
     "fused_round_launch": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
                            _I, _P, _P],
-    # (c_lanes, regs*, local_bytes*)
+    # (u, state, ef, k2, n, dense, p_dense, prim, p_pad, mat, light, spec,
+    #  args*, stream)
+    "shade_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
+                           _P, _P],
+    # (u, state, k2, out, n, dense, p_dense, args*, stream)
+    "finalize_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _P],
+    # (c_lanes, regs*, local_bytes*); (which: 0 K12, 1 K34, c_lanes, ...)
     "fused_round_attrs": [_I, _P, _P],
-    "fused_round_args_size": [],
+    "two_prog_attrs": [_I, _I, _P, _P],
+    "round_args_size": [],
     "pt_error_string": [_I],
 }
 

@@ -3,8 +3,9 @@
 
 `V3` is a tuple of three same-shaped tensors. These functions are the plain
 twin of `csrc/cmath.cuh`, which holds the same math as `__device__`
-functions for the CUDA kernels; the fused round's plain version
-(`kernels/megakernel.py:fused_round_plain`) calls them on per-lane tensors.
+functions for the CUDA kernels; the round's plain versions
+(`kernels/megakernel.py:_shade`, `_finalize_core`) call them on per-lane
+tensors.
 Same names, same guards and the same operation order as the JAX module.
 """
 

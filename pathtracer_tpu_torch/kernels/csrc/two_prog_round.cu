@@ -1,0 +1,298 @@
+// The two-program bounce round: K12 (closest-hit sweep + shading) and K34
+// (NEE shadow sweeps + finalize).
+//
+// Replaces pathtracer_tpu/kernels/megakernel.py:_k12_call (the Pallas call
+// of _shade_sweep_kernel -> _shade_body) and _k34_call (the Pallas call of
+// _finalize_sweep_kernel -> _finalize_body -> _finalize_core): the round of
+// every megakernel scene outside the fused gate, up to 8192 prims and with
+// constant, Sun and HDR environments. K12 writes the K2 rows that K34 reads
+// ([k2_rows(ls), n]: radiance after the emission adds, the BSDF sample and
+// its ratios, and per light sample the shadow ray, its worth and its
+// contribution); K34 writes the new state and counter rows ([40, n]). The
+// per-lane device code is round_common.cuh, shared with the fused round.
+//
+// One thread runs one lane; the medium branch (medium-aware transport) is
+// not ported yet. What bounds it on the H100: the sweeps. A live lane tests
+// every prim of the table for its closest hit and for each shadow ray
+// (8192 prims x ~60 flops), against ~1 KB of memory traffic per lane and
+// round, so the kernels are compute-bound. The table is up to 8192 x 48 B
+// = 384 KB, more than a block's shared memory, so it is staged in tiles of
+// TILE_P prims (12 KB) that every thread of the block walks together, as
+// dense_sweep.cu does; K34 walks the table once per light sample and stops
+// as soon as no shadow ray of the block is still unresolved. The hit prim's
+// record is an indexed load of its prim_tab column through the read-only
+// cache (the JAX package's one-hot MXU fetch, _prim_attr_fetch). The
+// JAX package skips whole dead tiles; here each dead lane skips: K12 writes
+// 0 to every K2 row of a dead lane, K34 passes its state through, exactly
+// as the plain twins do.
+#include <cuda_runtime.h>
+
+#include "round_common.cuh"
+
+namespace {
+
+using namespace rc;
+using pt::V3;
+
+constexpr int BLOCK = 128;
+constexpr int TILE_P = 256;  // prims per staged tile: 256 x 12 floats = 12 KB
+constexpr int MAX_PRIMS = 8192;  // the megakernel gate
+
+template <int C>
+__global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
+    const float* __restrict__ u, const float* __restrict__ state,
+    const float* __restrict__ ef, float* __restrict__ k2, int n,
+    const float* __restrict__ dense, int p_dense,
+    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
+    const float* __restrict__ light, const float* __restrict__ spec,
+    const RoundArgs a) {
+  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const size_t N = (size_t)n;
+  const bool live = i < n && state[S_ALIVE * N + i] > 0.5f;
+  V3 o{0.f, 0.f, 0.f}, d{0.f, 0.f, 0.f};
+  if (live) {
+    o = V3{state[S_O * N + i], state[(S_O + 1) * N + i],
+           state[(S_O + 2) * N + i]};
+    d = V3{state[S_D * N + i], state[(S_D + 1) * N + i],
+           state[(S_D + 2) * N + i]};
+  }
+  // ---- closest hit: every thread walks every tile (the syncs need the
+  // whole block); ids rise with the tiles, so strict '<' keeps the lowest
+  // id among equal t
+  float t_hit = INFINITY;
+  int pid = -1;
+  for (int p0 = 0; p0 < p_dense; p0 += TILE_P) {
+    const int cnt = min(TILE_P, p_dense - p0);
+    __syncthreads();
+    pt::stage_prims(dense, p0, cnt, prims);
+    __syncthreads();
+    if (live)
+      pt::sweep_closest_dev(prims, cnt, p0, o, d, T_MIN, RAY_TMAX, &t_hit,
+                            &pid);
+  }
+  if (i >= n) return;
+  const int ls = a.light_samples;
+  const int nk2 = k2_rows(ls);
+  auto K = [&](int r, float v) { k2[r * N + i] = v; };
+  if (!live) {
+    for (int r = 0; r < nk2; ++r) K(r, 0.0f);
+    return;
+  }
+  auto U = [&](int r) { return u[r * N + i]; };
+  Lane<C> L;
+  load_lane<C>(state, N, i, a, L);
+  const bool hit = t_hit < INFINITY;
+  const float kind = hit ? __ldg(prim + R_KIND * p_pad + pid) : 0.0f;
+  const bool at_surface = hit && kind != 2.0f;
+  if (!hit) escape_add<C>(L, spec, ef, N, i, a);
+
+  float shadow_ct = 0.0f;
+  if (at_surface) {
+    Surface<C> S;
+    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, a, S);
+    for (int si = 0; si < ls; ++si) {
+      NeeSample<C> r;
+      nee_sample<C>(L, S, si, U(3 * si), U(3 * si + 1), U(3 * si + 2), light,
+                    spec, ef, N, i, a, r);
+      const int b = O_NEE + NEE_ROWS * si;
+      K(b + 0, r.so.x);
+      K(b + 1, r.so.y);
+      K(b + 2, r.so.z);
+      K(b + 3, r.dir.x);
+      K(b + 4, r.dir.y);
+      K(b + 5, r.dir.z);
+      K(b + 6, r.tmax);
+      K(b + 7, r.worth ? 1.0f : 0.0f);
+#pragma unroll
+      for (int ci = 0; ci < C; ++ci) K(b + 8 + ci, r.contrib[ci]);
+      for (int ci = C; ci < C_LANES; ++ci) K(b + 8 + ci, 0.0f);
+      if (r.worth) shadow_ct += 1.0f;
+    }
+    Bounce<C> B;
+    bsdf_sample<C>(S, U(3 * ls), U(3 * ls + 1), U(3 * ls + 2), a, B);
+    K(O_FPDF, B.f_pdf);
+    K(O_SAMPLE_OK, B.sample_ok ? 1.0f : 0.0f);
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci) {
+      K(O_RATIO + ci, B.ratios[ci]);
+      K(O_PSCALE + ci, B.pscale[ci]);
+    }
+    K(O_ONEW, B.o_new.x);
+    K(O_ONEW + 1, B.o_new.y);
+    K(O_ONEW + 2, B.o_new.z);
+    K(O_DNEW, B.d_new.x);
+    K(O_DNEW + 1, B.d_new.y);
+    K(O_DNEW + 2, B.d_new.z);
+  } else {
+    for (int r = O_FPDF; r < O_NEE + NEE_ROWS * ls; ++r) K(r, 0.0f);
+  }
+  for (int ci = C; ci < C_LANES; ++ci) {
+    K(O_RATIO + ci, 0.0f);
+    K(O_PSCALE + ci, 0.0f);
+  }
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) K(O_RAD + ci, L.rad[ci]);
+  for (int ci = C; ci < C_LANES; ++ci) K(O_RAD + ci, 0.0f);
+  K(O_AT_SURF, at_surface ? 1.0f : 0.0f);
+  K(O_ENV_CT, hit ? 0.0f : 1.0f);
+  K(O_SHADOW_CT, shadow_ct);
+  for (int r = O_PSCALE + C_LANES; r < O_NEE; ++r) K(r, 0.0f);  // medium
+  for (int r = O_NEE + NEE_ROWS * ls; r < nk2; ++r) K(r, 0.0f);
+}
+
+template <int C>
+__global__ void __launch_bounds__(BLOCK) finalize_sweep_kernel(
+    const float* __restrict__ u, const float* __restrict__ state,
+    const float* __restrict__ k2, float* __restrict__ out, int n,
+    const float* __restrict__ dense, int p_dense, const RoundArgs a) {
+  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const size_t N = (size_t)n;
+  const bool live = i < n && state[S_ALIVE * N + i] > 0.5f;
+  auto K = [&](int r) { return k2[r * N + i]; };
+  float rad[C];
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) rad[ci] = live ? K(O_RAD + ci) : 0.0f;
+
+  // ---- NEE shadow sweeps, one walk of the table per light sample, each
+  // resolved into the radiance in sample order
+  for (int si = 0; si < a.light_samples; ++si) {
+    const int b = O_NEE + NEE_ROWS * si;
+    const bool worth = live && K(b + 7) > 0.5f;
+    V3 so{0.f, 0.f, 0.f}, sd{0.f, 0.f, 0.f};
+    float tmax = 0.0f;
+    if (worth) {
+      so = V3{K(b), K(b + 1), K(b + 2)};
+      sd = V3{K(b + 3), K(b + 4), K(b + 5)};
+      tmax = K(b + 6);
+    }
+    bool blocked = false;
+    for (int p0 = 0; p0 < p_dense; p0 += TILE_P) {
+      // stop once no shadow ray of the block is unresolved
+      if (!__syncthreads_or(worth && !blocked)) break;
+      const int cnt = min(TILE_P, p_dense - p0);
+      pt::stage_prims(dense, p0, cnt, prims);
+      __syncthreads();
+      if (worth && !blocked)
+        blocked = pt::sweep_any_dev(prims, cnt, so, sd, T_MIN, tmax);
+    }
+    if (worth && !blocked) {
+#pragma unroll
+      for (int ci = 0; ci < C; ++ci) rad[ci] = rad[ci] + K(b + 8 + ci);
+    }
+  }
+  if (i >= n) return;
+  if (!live) {
+    pass_through(state, out, N, i);
+    return;
+  }
+
+  // ---- RR, death -> XYZ, respawn, write-out (uniform rows 0 .. 5)
+  Lane<C> L;
+  load_lane<C>(state, N, i, a, L);
+  Bounce<C> B;
+  B.f_pdf = K(O_FPDF);
+  B.sample_ok = K(O_SAMPLE_OK) > 0.5f;
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) {
+    B.ratios[ci] = K(O_RATIO + ci);
+    B.pscale[ci] = K(O_PSCALE + ci);
+  }
+  B.o_new = V3{K(O_ONEW), K(O_ONEW + 1), K(O_ONEW + 2)};
+  B.d_new = V3{K(O_DNEW), K(O_DNEW + 1), K(O_DNEW + 2)};
+  float beta_next[C];
+  bool cp = false;
+  if (K(O_AT_SURF) > 0.5f)
+    cp = continue_path<C>(L, B, u[i], a, beta_next);
+  finalize_write<C>(state, u, out, N, i, L, rad, cp, beta_next, B, 0, a,
+                    0.0f, 0.0f);
+}
+
+template <int C>
+int launch_shade(const float* u, const float* state, const float* ef,
+                 float* k2, int n, const float* dense, int p_dense,
+                 const float* prim, int p_pad, const float* mat,
+                 const float* light, const float* spec, const RoundArgs& a,
+                 cudaStream_t stream) {
+  int grid = (n + BLOCK - 1) / BLOCK;
+  shade_sweep_kernel<C><<<grid, BLOCK, 0, stream>>>(
+      u, state, ef, k2, n, dense, p_dense, prim, p_pad, mat, light, spec, a);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_finalize(const float* u, const float* state, const float* k2,
+                    float* out, int n, const float* dense, int p_dense,
+                    const RoundArgs& a, cudaStream_t stream) {
+  int grid = (n + BLOCK - 1) / BLOCK;
+  finalize_sweep_kernel<C><<<grid, BLOCK, 0, stream>>>(u, state, k2, out, n,
+                                                       dense, p_dense, a);
+  return (int)cudaGetLastError();
+}
+
+int attrs(const void* fn, int* regs, int* local_bytes) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K12: u [n_u_rows(ls), n], state [32, n], ef [ef_rows(ls, C), n] (null for
+// a constant environment) -> k2 [k2_rows(ls), n]; tables as baked by
+// kernels/megakernel.py:build_mega_scene. Returns a cudaError_t.
+int shade_sweep_launch(const float* u, const float* state, const float* ef,
+                       float* k2, int n, const float* dense, int p_dense,
+                       const float* prim, int p_pad, const float* mat,
+                       const float* light, const float* spec,
+                       const RoundArgs* args, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (p_dense > MAX_PRIMS || p_pad < p_dense ||
+      (args->env_kind != ENV_CONSTANT) != (ef != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (args->c_lanes == 1)
+    return launch_shade<1>(u, state, ef, k2, n, dense, p_dense, prim, p_pad,
+                           mat, light, spec, *args, stream);
+  if (args->c_lanes == 4)
+    return launch_shade<4>(u, state, ef, k2, n, dense, p_dense, prim, p_pad,
+                           mat, light, spec, *args, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K34: u [8, n], state [32, n], k2 [k2_rows(ls), n] -> out [40, n]
+int finalize_sweep_launch(const float* u, const float* state, const float* k2,
+                          float* out, int n, const float* dense, int p_dense,
+                          const RoundArgs* args, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
+  if (args->c_lanes == 1)
+    return launch_finalize<1>(u, state, k2, out, n, dense, p_dense, *args,
+                              stream);
+  if (args->c_lanes == 4)
+    return launch_finalize<4>(u, state, k2, out, n, dense, p_dense, *args,
+                              stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// registers per thread and local (spill) bytes of K12 (which 0) or K34
+// (which 1) at C lanes
+int two_prog_attrs(int which, int c, int* regs, int* local_bytes) {
+  if (which == 0)
+    return attrs(c == 1 ? (const void*)shade_sweep_kernel<1>
+                        : (const void*)shade_sweep_kernel<4>,
+                 regs, local_bytes);
+  return attrs(c == 1 ? (const void*)finalize_sweep_kernel<1>
+                      : (const void*)finalize_sweep_kernel<4>,
+               regs, local_bytes);
+}
+
+// sizeof(RoundArgs), for the caller's check of its mirror of the struct
+int round_args_size() { return (int)sizeof(RoundArgs); }
+
+}  // extern "C"

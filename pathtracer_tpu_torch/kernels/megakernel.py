@@ -1,26 +1,34 @@
-"""The regen path tracer's bounce round as one fused kernel (counterpart of
-`pathtracer_tpu.kernels.megakernel`, restricted to its fused one-kernel
-round).
+"""The regen path tracer's bounce round on the H100 (counterpart of
+`pathtracer_tpu.kernels.megakernel`).
 
 One round takes every lane (one per pixel) one bounce further: closest hit,
-emission and constant-environment adds with MIS, next-event estimation with
-inline shadow sweeps, BSDF sampling with hero-wavelength spectral MIS,
-Russian roulette, XYZ accumulation on death and a thin-lens respawn of the
-lane's next camera sample. The lane state is `[NS=32, n_pad]` f32 rows
-(`S_*` below); a round reads it and writes `[NK4=40, n_pad]`: the 32 new
-state rows plus per-lane counter rows.
+emission and environment adds with MIS, next-event estimation with shadow
+sweeps, BSDF sampling with hero-wavelength spectral MIS, Russian roulette,
+XYZ accumulation on death and a thin-lens respawn of the lane's next camera
+sample. The lane state is `[NS=32, n_pad]` f32 rows (`S_*` below); a round
+reads it and writes `[NK4=40, n_pad]`: the 32 new state rows plus per-lane
+counter rows. A round takes one of two routes, as the JAX package's
+`pt_trace_regen_mega` picks them:
 
-`fused_round` launches `csrc/fused_round.cu` on CUDA tensors and runs the
-plain torch twin `fused_round_plain` on CPU tensors. The output is a second
-buffer, not an in-place update, so the kernel and its twin can be run on the
-same input. Random numbers come from outside the kernel: the render loop draws
-one `[nu, n_pad]` uniform block per round (`nu_rows`) from a uniform source
-(`TorchUniforms`, or a test's replay of the JAX draws).
+- the fused round (`fused_round`, `csrc/fused_round.cu`): one kernel, for
+  scenes of at most 4 chunks of 32 prims under a constant environment;
+- the two-program round for every other scene in the gate (up to 8192
+  prims; constant, Sun and HDR environments): `env_feed` (torch, Sun and
+  HDR only) -> `shade_sweep` (K12: closest hit + shading, writing the
+  `[k2_rows(ls), n_pad]` K2 rows `O_*`) -> `finalize_sweep` (K34: NEE shadow
+  sweeps + finalize), both in `csrc/two_prog_round.cu`.
+
+Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
+torch twin (`fused_round_plain`, `shade_sweep_plain`, `finalize_sweep_plain`)
+on CPU tensors. Outputs are second buffers, not in-place updates, so a
+kernel and its twin can run on the same input. Random numbers come from
+outside the kernels: the render loop draws uniform blocks per round from a
+uniform source (`TorchUniforms`, or a test's replay of the JAX draws).
 
 Scope (`mega_available`): projective camera, identity transforms, at most
-4 chunks of 32 prims, a constant environment, 1x1 textures, no media. Scenes
-outside it raise `NotImplementedError` naming the ROADMAP item that ports
-their route.
+8192 prims, 24 materials and 16 lights. Medium-aware settings and
+uv-dependent surface textures are in the JAX package's gate but not ported
+yet: `gate_refusal` names the ROADMAP item that ports each.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -60,7 +69,14 @@ from pathtracer_tpu_torch.prelude import (
     TransportMode,
 )
 from pathtracer_tpu_torch.utils import profile as prof
-from pathtracer_tpu_torch.world.environment import ENV_CONSTANT
+from pathtracer_tpu_torch.world.environment import (
+    ENV_CONSTANT,
+    ENV_HDR,
+    env_emission,
+    env_pdf_for,
+    env_sample_uv,
+    rotate,
+)
 
 TILE = 4096  # lane padding unit: n_pad is a multiple of it
 C_LANES = 4  # HWSS lanes
@@ -82,6 +98,24 @@ O4_SHADOW_CT = NS + 2
 O4_ENV_CT = NS + 3
 NK4 = NS + 8
 
+# ---- K2 rows [k2_rows(ls), N]: what K12 hands K34. Surface rows hold 0 on
+# lanes that are not at a surface, and a dead lane's rows are all 0.
+O_RAD = 0          # 4: path radiance after the emission/environment adds
+O_AT_SURF = 4
+O_ENV_CT = 5
+O_SHADOW_CT = 6
+O_FPDF = 7
+O_SAMPLE_OK = 8
+O_RATIO = 9        # 4: throughput ratios of the BSDF sample
+O_ONEW = 13        # 3
+O_DNEW = 16        # 3
+O_PSCALE = 19      # 4: per-lane pdf ratio p_c/p_0 at the sampled direction
+O_MEDIUM = 23      # 7 rows of the medium branch (0 until it is ported)
+O_NEE = 30         # per light sample: so(3) dir(3) tmax worth contrib(4)
+NEE_ROWS = 12
+NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
+
+MEGA_MAX_PRIMS = 8192  # the megakernel gate
 FUSED_MAX_CHUNKS = 4  # the fused round's gate: at most 4 chunks of 32 prims
 
 # prim_tab rows (0..10 are the dense table's columns)
@@ -89,7 +123,7 @@ _R_NA, _R_NB, _R_NC = 11, 14, 17
 _R_MAT, _R_KIND, _R_AREA = 20, 21, 22
 _NP_ROWS = 24
 
-# mat_tab rows
+# mat_tab rows (row 7 flags the texture feed, which the port refuses)
 _M_TYPE, _M_ALPHA, _M_METAL, _M_PERM, _M_SIDE, _M_SHARP, _M_RSCALE = range(7)
 _M_INNER, _M_OUTER = 8, 9
 _NM_ROWS = 16
@@ -99,31 +133,70 @@ _L_PA, _L_PB, _L_PC = 0, 3, 6
 _L_PTYPE, _L_AREA, _L_MAT, _L_MTYPE, _L_SIDE, _L_SHARP = 9, 10, 11, 12, 13, 14
 _NL_ROWS = 16
 
-# launches of the CUDA fused round, and calls of its plain twin
+# launches of the CUDA kernels, and calls of any plain twin
 FUSED_LAUNCHES = 0
+SHADE_LAUNCHES = 0
+FINALIZE_LAUNCHES = 0
 PLAIN_CALLS = 0
 
-_OUT_OF_GATE = ("the fused round takes projective cameras, identity "
-                "transforms, at most 4 chunks of 32 prims, a constant "
-                "environment, 1x1 textures and no media; other scenes ride "
-                "the two-program round (ROADMAP §2 item 4)")
+_NOT_IN_GATE = ("the megakernel takes projective cameras, identity "
+                "transforms, at most 8192 prims, 24 materials and 16 lights "
+                "and spectral curves of 512 knots; other scenes need the "
+                "regen integrator without kernels (ROADMAP §1 item 5)")
+_MEDIUM = ("medium-aware transport rides the medium branch of the "
+           "two-program round, the next slice (ROADMAP §2, queue 2: "
+           "mediums/ and the medium feed)")
+_UV_TEXTURES = ("uv-dependent surface textures ride the texture-feed route "
+                "(ROADMAP §2, queue 1: sweep_closest_rows and K2)")
+_NOT_FUSED = ("the fused round takes at most 4 chunks of 32 prims under a "
+              "constant environment; other scenes ride the two-program round "
+              "(shade_sweep + finalize_sweep)")
 
 
 def nu_rows(light_samples: int) -> int:
-    """Uniform rows per round: 3 per NEE sample + 3 (BSDF) + 1 (RR) + 5
-    (respawn), padded to a multiple of 8."""
+    """The fused round's uniform rows: 3 per NEE sample + 3 (BSDF) + 1 (RR)
+    + 5 (respawn), padded to a multiple of 8."""
     return -(-(3 * light_samples + 9) // 8) * 8
+
+
+def n_u_rows(light_samples: int) -> int:
+    """K12's uniform rows: 3 per NEE sample + 3 (BSDF), padded."""
+    return -(-(3 * light_samples + 3) // 8) * 8
+
+
+def k2_rows(light_samples: int) -> int:
+    return -(-(O_NEE + NEE_ROWS * light_samples) // 8) * 8
+
+
+def ef_rows(light_samples: int, c_lanes: int) -> int:
+    """Environment-feed rows (Sun and HDR only): C escape-emission rows + 1
+    escape-pdf row, then per NEE sample dir(3) + pdf + C emission rows."""
+    return -(-((c_lanes + 1) + light_samples * (4 + c_lanes)) // 8) * 8
 
 
 # ------------------------------------------------------------------ gate
 
 
+def gate_refusal(world, camera, settings):
+    """Why the megakernel does not render this scene, or None if it does:
+    the JAX package's `mega_available`, except that medium-aware settings
+    and uv-dependent surface textures are refused with the ROADMAP item
+    that ports them."""
+    if settings.medium_aware:
+        return _MEDIUM
+    if not _mega_gate(world, camera):
+        return _NOT_IN_GATE
+    if _uv_textured(world):
+        return _UV_TEXTURES
+    return None
+
+
 def mega_available(world, camera, settings) -> bool:
-    """Static scene/settings preconditions of the fused round."""
-    return not settings.medium_aware and _scene_in_gate(world, camera)
+    """Static scene/settings preconditions of the megakernel."""
+    return gate_refusal(world, camera, settings) is None
 
 
-def _scene_in_gate(world, camera) -> bool:
+def _mega_gate(world, camera) -> bool:
     from pathtracer_tpu_torch.camera.projective import ProjectiveCamera
 
     if not isinstance(camera, ProjectiveCamera):
@@ -131,18 +204,34 @@ def _scene_in_gate(world, camera) -> bool:
     w = world
     if int(w.prims.xf_inv.shape[0]) != 1:
         return False
-    if -(-w.prims.count // PBF) > FUSED_MAX_CHUNKS:
+    if w.prims.count > MEGA_MAX_PRIMS:
         return False
     if int(w.mats.count) > 24 or int(w.n_lights) > 16:
         return False
-    if int(w.env.kind) != ENV_CONSTANT:
-        return False
-    t = w.tex
-    if not (t.layer_count == 1).all():
-        return False
-    if not ((t.layer_w == 1).all() and (t.layer_h == 1).all()):
-        return False
     return int(w.bank.values.shape[1]) == SPEC_RES
+
+
+def _uv_textured(world) -> bool:
+    """A lambertian material whose texture is not one 1x1 layer (the JAX
+    package evaluates those per hit in its texture feed)."""
+    t = world.tex
+    lc, ls_ = _np(t.layer_count), _np(t.layer_start)
+    lw, lh = _np(t.layer_w), _np(t.layer_h)
+    mtype, tex_id = _np(world.mats.mtype), _np(world.mats.tex_id)
+    for i in range(int(world.mats.count)):
+        if mtype[i] == MAT_LAMBERTIAN and tex_id[i] >= 0:
+            li = int(ls_[tex_id[i]])
+            if int(lc[tex_id[i]]) > 1 or int(lw[li]) * int(lh[li]) > 1:
+                return True
+    return False
+
+
+def fused_ok(scene) -> bool:
+    """The fused round's gate on a baked scene: the JAX driver's `fused_ok`
+    without its environment levers (a constant environment and at most 4
+    chunks)."""
+    return scene.dense_tab.shape[0] // PBF <= FUSED_MAX_CHUNKS \
+        and scene.consts["env_kind"] == ENV_CONSTANT
 
 
 # ------------------------------------------------------------------ bake
@@ -158,6 +247,20 @@ class MegaScene:
     light_tab: torch.Tensor  # f32[16, 128]
     spec_tab: torch.Tensor   # f32[C8, 512] rows m*5+{ηi,ηo,κ,refl,emit}, env
     consts: dict             # host scalars (numbers and tuples)
+    env: object = None       # None (constant env) or the Sun/HDR EnvFeed
+
+
+@dataclasses.dataclass
+class EnvFeed:
+    """What `env_feed` needs of a Sun or HDR environment: the environment
+    (scalars and matrices on the host, importance tables on the device),
+    the curve bank, the textures and, for an HDR map of at most
+    ENV_LUT_MAX_TEXELS texels, the baked (texel, λ-knot) emission table."""
+
+    env: object
+    bank: object
+    tex: object
+    lut: dict = None
 
 
 def _np(x):
@@ -166,10 +269,13 @@ def _np(x):
 
 
 def build_mega_scene(world, camera, device=None) -> MegaScene:
-    """Host-side numpy bake of the fused round's tables, element for element
-    the JAX package's `build_mega_scene` for scenes in the fused gate."""
-    if not _scene_in_gate(world, camera):
-        raise NotImplementedError(_OUT_OF_GATE)
+    """Host-side numpy bake of the round's tables, element for element the
+    JAX package's `build_mega_scene` (without its chunk-AABB and fetch-table
+    rows, which the port does not use)."""
+    if not _mega_gate(world, camera):
+        raise NotImplementedError(_NOT_IN_GATE)
+    if _uv_textured(world):
+        raise NotImplementedError(_UV_TEXTURES)
     w = world
     device = device if device is not None else w.prims.pa.device
     prims = w.prims
@@ -317,9 +423,108 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
     def dev(a):
         return torch.as_tensor(a, device=device)
 
+    env = None
+    if consts["env_kind"] != ENV_CONSTANT:
+        # scalars and matrices stay on the host (the feed reads them as
+        # Python numbers), the tables go where the lanes are
+        host = ("kind", "strength", "curve_idx", "sun_direction",
+                "sun_cos_angle", "tex_id", "rotation", "rotation_inv",
+                "imp_baked")
+        e = dataclasses.replace(w.env, **{
+            f.name: getattr(w.env, f.name).to(
+                "cpu" if f.name in host else device)
+            for f in dataclasses.fields(w.env)})
+        env = EnvFeed(env=e, bank=_to(w.bank, device), tex=_to(w.tex, device),
+                      lut=_bake_env_lut(w.env, w.bank, w.tex, device))
     return MegaScene(prim_tab=dev(tab), dense_tab=dev(dense_tab),
                      mat_tab=dev(mt), light_tab=dev(lt), spec_tab=dev(st),
-                     consts=consts)
+                     consts=consts, env=env)
+
+
+def _to(obj, device):
+    """A dataclass of tensors with every tensor on `device`."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+ENV_LUT_MAX_TEXELS = 16384  # the JAX package's cap of the full bake
+
+
+def _bake_env_lut(env, bank, tex, device):
+    """An HDR environment's layer weight maps and basis curves pre-combined
+    into one (texel, λ-knot) pair table, so one emission eval is one gather
+    (the JAX package's `_bake_env_lut`; exact up to f32 reassociation: the
+    layer sum commutes with the λ lerp). None for maps over
+    ENV_LUT_MAX_TEXELS texels or layers of different sizes."""
+    if int(env.kind) != ENV_HDR:
+        return None
+    tid = int(env.tex_id)
+    layer_start, layer_count = _np(tex.layer_start), _np(tex.layer_count)
+    layer_w, layer_h = _np(tex.layer_w), _np(tex.layer_h)
+    start, count = int(layer_start[tid]), int(layer_count[tid])
+    w_, h_ = int(layer_w[start]), int(layer_h[start])
+    if w_ * h_ > ENV_LUT_MAX_TEXELS or count < 1:
+        return None
+    values = _np(bank.values)
+    res = values.shape[1]
+    atlas, offset = _np(tex.atlas), _np(tex.layer_offset)
+    curve = _np(tex.layer_curve)
+    e = np.zeros((h_ * w_, res), np.float32)
+    for li in range(start, start + count):
+        if int(layer_w[li]) != w_ or int(layer_h[li]) != h_:
+            return None
+        off = int(offset[li])
+        e += atlas[off:off + h_ * w_, None] * values[int(curve[li])][None, :]
+    pairs = np.stack([e, np.concatenate([e[:, 1:], e[:, -1:]], axis=1)],
+                     axis=-1).reshape(h_ * w_ * res, 2)
+    return dict(pairs=torch.as_tensor(pairs, device=device), w=w_, h=h_,
+                res=res, lam_lo=float(bank.lam_lo), lam_hi=float(bank.lam_hi))
+
+
+def env_emission_lut(env, lut, d: V3, lam):
+    """HDR emission through the baked pair table: nearest texel, λ lerp
+    (the JAX package's `_env_emission_lut`)."""
+    u, v = cmath.direction_to_uv(rotate(env.rotation, d))
+    w_, h_, res = lut["w"], lut["h"], lut["res"]
+    x = torch.clamp((torch.clamp(u, 0.0, 1.0 - 1e-6) * w_).long(), max=w_ - 1)
+    y = torch.clamp((torch.clamp(v, 0.0, 1.0 - 1e-6) * h_).long(), max=h_ - 1)
+    uu = fdiv(lam - lut["lam_lo"], lut["lam_hi"] - lut["lam_lo"]) * (res - 1)
+    uu = torch.clamp(uu, 0.0, res - 1 - 1e-4)
+    i0 = uu.long()
+    frac = uu - i0.float()
+    vp = lut["pairs"][(y * w_ + x) * res + i0]
+    return float(env.strength) * (vp[..., 0] * (1.0 - frac)
+                                  + vp[..., 1] * frac)
+
+
+def env_feed(feed: EnvFeed, state, u, light_samples: int, c_lanes: int):
+    """The per-lane environment rows K12 reads for a Sun or HDR environment
+    -> ef [ef_rows(ls, C), n_pad] (the JAX package's `_env_feed`, plain
+    torch on the lanes' device): the escape emission of each λ lane and the
+    escape pdf from the ray direction, then per NEE sample the sampled
+    direction, its pdf and its emission. An HDR map without a baked table
+    is evaluated through `eval_texture`."""
+    env = feed.env
+    if feed.lut is not None:
+        def emit(dd, ll):
+            return env_emission_lut(env, feed.lut, dd, ll)
+    else:
+        def emit(dd, ll):
+            return env_emission(env, feed.bank, feed.tex, dd, ll)
+    d = V3(state[S_D], state[S_D + 1], state[S_D + 2])
+    lam = [state[S_LAM + ci] for ci in range(c_lanes)]
+    rows = [emit(d, lam[ci]) for ci in range(c_lanes)]
+    rows.append(env_pdf_for(env, d))
+    for si in range(light_samples):
+        nd, npdf = env_sample_uv(env, u[3 * si + 1], u[3 * si + 2])
+        rows += [nd.x, nd.y, nd.z, npdf]
+        rows += [emit(nd, lam[ci]) for ci in range(c_lanes)]
+    ef = torch.zeros((ef_rows(light_samples, c_lanes), state.shape[1]),
+                     dtype=torch.float32, device=state.device)
+    ef[:len(rows)] = torch.stack(rows)
+    return ef
 
 
 # ------------------------------------------------------- round arguments
@@ -331,6 +536,7 @@ class RoundArgs:
 
     c_lanes: int
     light_samples: int
+    env_kind: int
     n_mats: int
     n_lights: int
     p_env: float
@@ -367,7 +573,7 @@ class RoundArgs:
         return RoundArgs(
             c_lanes=C_LANES if settings.hwss else 1,
             light_samples=int(settings.light_samples),
-            n_mats=c["n_mats"], n_lights=c["n_lights"], p_env=c["p_env"],
+            env_kind=c["env_kind"], n_mats=c["n_mats"], n_lights=c["n_lights"], p_env=c["p_env"],
             has_ggx=c["has_ggx"], has_metal=c["has_metal"],
             has_sharp=c["has_sharp"], lam_lo=c["lam_lo"],
             lam_hi=c["lam_hi"], env_rot=c["env_rot"],
@@ -386,13 +592,14 @@ class RoundArgs:
 
 
 class _CArgs(ctypes.Structure):
-    """`struct RoundArgs` of csrc/fused_round.cu (all fields 4 bytes).
+    """`struct RoundArgs` of csrc/round_common.cuh (all fields 4 bytes).
     Constants that the reference forms in double precision on the host and
     rounds once to f32 are precomputed here the same way."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "c_lanes", "light_samples", "n_mats", "n_lights", "has_ggx",
-        "has_metal", "has_sharp", "rr_enabled", "only_direct", "cam_blades")
+        "c_lanes", "light_samples", "env_kind", "n_mats", "n_lights",
+        "has_ggx", "has_metal", "has_sharp", "rr_enabled", "only_direct",
+        "cam_blades")
     ] + [(n, ctypes.c_float) for n in (
         "p_env", "p_env_div", "q_env_div", "pick_pdf", "sa_scale", "n_lights_f",
         "inv_ls", "lam_lo", "lam_span", "env_rz0", "env_rz1", "env_rz2")
@@ -409,8 +616,8 @@ class _CArgs(ctypes.Structure):
 def _c_args(a: RoundArgs) -> _CArgs:
     s = _CArgs()
     nl1 = max(a.n_lights, 1)
-    for name in ("c_lanes", "light_samples", "n_mats", "n_lights",
-                 "cam_blades"):
+    for name in ("c_lanes", "light_samples", "env_kind", "n_mats",
+                 "n_lights", "cam_blades"):
         setattr(s, name, int(getattr(a, name)))
     s.has_ggx, s.has_metal, s.has_sharp = a.has_ggx, a.has_metal, a.has_sharp
     s.rr_enabled, s.only_direct = a.russian_roulette, a.only_direct
@@ -443,7 +650,7 @@ def _c_args(a: RoundArgs) -> _CArgs:
     return s
 
 
-# ------------------------------------------------------- plain fused round
+# ------------------------------------------------------------ plain twins
 
 
 def _balance(a, b):
@@ -577,51 +784,66 @@ def _spectral_rows(spec_tab, lam, lam_lo, lam_hi):
     return row
 
 
-def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
-                      spec_tab, a: RoundArgs):
-    """One bounce round in plain torch -> out [NK4, N] (see module doc)."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+def _lane_state(state, C):
+    """A round's view of the state rows it reads."""
+    def s(i):
+        return state[i]
+
+    if C > 1:
+        # hero-wavelength spectral MIS weight
+        sum_pdfr = s(S_PDFR + 0)
+        for ci in range(1, C):
+            sum_pdfr = sum_pdfr + s(S_PDFR + ci)
+        s_mis = C / torch.clamp(sum_pdfr, min=1e-30)
+    else:
+        s_mis = torch.ones_like(s(S_DONE))
+    return SimpleNamespace(
+        o=V3(s(S_O), s(S_O + 1), s(S_O + 2)),
+        d=V3(s(S_D), s(S_D + 1), s(S_D + 2)),
+        lam=[s(S_LAM + i) for i in range(C)],
+        beta=[s(S_BETA + i) for i in range(C)],
+        rad=[s(S_RAD + i) for i in range(C)],
+        acc=[s(S_ACC + i) for i in range(3)],
+        done=s(S_DONE), alive=s(S_ALIVE) > 0.5, bounce_ct=s(S_BOUNCE),
+        prev_pdf=s(S_PREV_PDF), s_mis=s_mis)
+
+
+def _col(x):
+    return x[:, None]
+
+
+def _closest(dense_tab, st):
+    """Closest hit straight off the live ray state -> (t, prim id | -1)."""
+    o, d = st.o, st.d
+    return sweep_closest_cols(
+        dense_tab, _col(o.x), _col(o.y), _col(o.z), _col(d.x), _col(d.y),
+        _col(d.z), _col(torch.full_like(o.x, INTERSECTION_TIME_OFFSET)),
+        _col(torch.full_like(o.x, RAY_TMAX)))
+
+
+def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
+           a: RoundArgs, ef=None):
+    """The shading shared by the fused round and K12 (the JAX package's
+    `_all_kernel_body` and `_shade_body` up to the BSDF sample): hit
+    attributes, the environment escape and light-hit emission adds with
+    MIS, the NEE samples (ray, worth and contribution, not yet
+    shadow-tested) and the BSDF sample with its HWSS ratios. `ef` holds the
+    environment-feed rows of a Sun or HDR environment."""
     ls = a.light_samples
     C = a.c_lanes
     nee_enabled = ls > 0
     p_env = a.p_env
     n_mats = a.n_mats
     n_lights = a.n_lights
-    dev = state.device
-
-    def s(i):
-        return state[i]
-
-    o = V3(s(S_O), s(S_O + 1), s(S_O + 2))
-    d = V3(s(S_D), s(S_D + 1), s(S_D + 2))
-    lam = [s(S_LAM + i) for i in range(C)]
-    beta = [s(S_BETA + i) for i in range(C)]
-    rad = [s(S_RAD + i) for i in range(C)]
-    acc = [s(S_ACC + i) for i in range(3)]
-    done = s(S_DONE)
-    alive = s(S_ALIVE) > 0.5
-    bounce_ct = s(S_BOUNCE)
-    prev_pdf = s(S_PREV_PDF)
-    ones = torch.ones_like(done)
-    # hero-wavelength spectral MIS weight
-    if C > 1:
-        sum_pdfr = s(S_PDFR + 0)
-        for ci in range(1, C):
-            sum_pdfr = sum_pdfr + s(S_PDFR + ci)
-        s_mis = C / torch.clamp(sum_pdfr, min=1e-30)
-    else:
-        s_mis = ones
+    env_fed = a.env_kind != ENV_CONSTANT
+    o, d, lam, beta, s_mis = st.o, st.d, st.lam, st.beta, st.s_mis
+    rad = list(st.rad)
+    alive, bounce_ct, prev_pdf = st.alive, st.bounce_ct, st.prev_pdf
+    ones = torch.ones_like(prev_pdf)
 
     def mat(row, mid):
         return mat_tab[row][mid.long()]
 
-    # ---- closest hit straight off the live ray state
-    col = lambda x: x[:, None]  # noqa: E731
-    t_min = torch.full_like(done, INTERSECTION_TIME_OFFSET)
-    t_hit, pid = sweep_closest_cols(
-        dense_tab, col(o.x), col(o.y), col(o.z), col(d.x), col(d.y),
-        col(d.z), col(t_min), col(torch.full_like(done, RAY_TMAX)))
     hit = pid >= 0.0
     pid_c = torch.clamp(pid, min=0.0)
     attr = prim_tab[:, pid_c.long()]
@@ -634,12 +856,15 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
     env_row = 5 * n_mats
     escaped = alive & ~hit
     if nee_enabled and p_env > 0.0:
-        er = a.env_rot
-        dz = er[6] * d.x + er[7] * d.y + er[8] * d.z
-        # sqrt identity instead of arccos: sin(acos(z)) = sqrt(1 - z^2)
-        jac = (2.0 * math.pi * math.pi
-               * torch.sqrt(torch.clamp(1.0 - dz * dz, min=0.0)) + 0.001)
-        env_nee_pdf = (1.0 / jac) * p_env
+        if env_fed:
+            env_nee_pdf = ef[C] * p_env
+        else:
+            er = a.env_rot
+            dz = er[6] * d.x + er[7] * d.y + er[8] * d.z
+            # sqrt identity instead of arccos: sin(acos(z)) = sqrt(1 - z^2)
+            jac = (2.0 * math.pi * math.pi
+                   * torch.sqrt(torch.clamp(1.0 - dz * dz, min=0.0)) + 0.001)
+            env_nee_pdf = (1.0 / jac) * p_env
         use_mis_env = (bounce_ct > 0.5) & (env_nee_pdf + prev_pdf > 0.0)
         w_env = torch.where(use_mis_env,
                             _balance(prev_pdf, torch.clamp(env_nee_pdf,
@@ -647,10 +872,9 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
     else:
         w_env = ones
     for ci in range(C):
-        env_e = R[ci](env_row)
+        env_e = ef[ci] if env_fed else R[ci](env_row)
         rad[ci] = rad[ci] + torch.where(escaped,
                                         beta[ci] * s_mis * env_e * w_env, 0.0)
-    env_ct = escaped.float()
 
     wi_world = -d
     cos_at_light = cmath.dot(gn, wi_world)
@@ -686,9 +910,10 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
     kappa = [R[ci](5.0 * mat_id + 2.0) for ci in range(C)]
     refl = [rscale * R[ci](5.0 * mat_id + 3.0) for ci in range(C)]
 
-    shadow_ct = torch.zeros_like(done)
+    shadow_ct = torch.zeros_like(prev_pdf)
 
-    # ---- NEE with immediate shadow resolution
+    # ---- NEE samples: shadow ray, worth and contribution per light sample
+    nee = []
     if nee_enabled:
         inv_ls = 1.0 / ls
         nl1 = max(n_lights, 1)
@@ -725,16 +950,25 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
                 torch.abs(cos_l) > 0.0,
                 dist2 / torch.clamp(torch.abs(cos_l), min=1e-30), 0.0)
             if p_env > 0.0:
-                env_d_uv = cmath.uv_to_direction(u1, u2)
-                ri = a.env_rot_inv
-                env_dir = V3(
-                    ri[0] * env_d_uv.x + ri[1] * env_d_uv.y + ri[2] * env_d_uv.z,
-                    ri[3] * env_d_uv.x + ri[4] * env_d_uv.y + ri[5] * env_d_uv.z,
-                    ri[6] * env_d_uv.x + ri[7] * env_d_uv.y + ri[8] * env_d_uv.z,
-                )
-                jac_s = (2.0 * math.pi * math.pi * torch.sin(math.pi * u2)
-                         + 0.001)
-                sa_pdf_env = (1.0 / jac_s) * p_env
+                if env_fed:
+                    # the sampled direction and its solid-angle pdf, fed
+                    eb = C + 1 + si * (4 + C)
+                    env_dir = V3(ef[eb], ef[eb + 1], ef[eb + 2])
+                    sa_pdf_env = ef[eb + 3] * p_env
+                else:
+                    env_d_uv = cmath.uv_to_direction(u1, u2)
+                    ri = a.env_rot_inv
+                    env_dir = V3(
+                        ri[0] * env_d_uv.x + ri[1] * env_d_uv.y
+                        + ri[2] * env_d_uv.z,
+                        ri[3] * env_d_uv.x + ri[4] * env_d_uv.y
+                        + ri[5] * env_d_uv.z,
+                        ri[6] * env_d_uv.x + ri[7] * env_d_uv.y
+                        + ri[8] * env_d_uv.z,
+                    )
+                    jac_s = (2.0 * math.pi * math.pi * torch.sin(math.pi * u2)
+                             + 0.001)
+                    sa_pdf_env = (1.0 / jac_s) * p_env
                 nee_dir = cmath.where(chose_env, env_dir, dir_l)
                 nee_pdf = torch.where(chose_env, sa_pdf_env, sa_pdf_light)
                 nee_tmax = torch.where(chose_env, RAY_TMAX, dist * 0.99)
@@ -743,9 +977,9 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
                 nee_pdf = sa_pdf_light
                 nee_tmax = dist * 0.99
             wo_local = cmath.to_local(tgt, btg, normal, nee_dir)
-            max_le = torch.zeros_like(done)
-            max_thr = torch.zeros_like(done)
-            contribs = []
+            max_le = torch.zeros_like(prev_pdf)
+            max_thr = torch.zeros_like(prev_pdf)
+            thr, le = [], []
             nee_fs, nee_pdfs = _bsdf_eval_lanes(
                 mtype, alpha, metal, perm, eta_i, eta_o, kappa, refl,
                 wi_local, wo_local, a.has_ggx, a.has_metal)
@@ -756,29 +990,27 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
                                           lrow(_L_SIDE), lrow(_L_SHARP),
                                           cos_l, a.has_sharp)
                 if p_env > 0.0:
-                    le_ci = torch.where(chose_env, R[ci](env_row), le_inst)
+                    env_e_s = (ef[C + 1 + si * (4 + C) + 4 + ci] if env_fed
+                               else R[ci](env_row))
+                    le_ci = torch.where(chose_env, env_e_s, le_inst)
                 else:
                     le_ci = le_inst
                 thr_ci = nee_fs[ci] * torch.abs(wo_local.z)
                 max_le = torch.maximum(max_le, le_ci)
                 max_thr = torch.maximum(max_thr, thr_ci)
-                contribs.append((thr_ci, le_ci))
+                thr.append(thr_ci)
+                le.append(le_ci)
             worth = (at_surface & (max_le > 0.0) & (nee_pdf > 1e-12)
                      & (max_thr > 0.0))
             w_nee = _balance(nee_pdf, torch.clamp(nee_pdfs[0], min=0.0))
             so = point + gn.scale(NORMAL_OFFSET * torch.sign(
                 cmath.dot(gn, nee_dir) + 1e-9))
-            blocked = sweep_any_cols(
-                dense_tab, col(so.x), col(so.y), col(so.z), col(nee_dir.x),
-                col(nee_dir.y), col(nee_dir.z), col(t_min), col(nee_tmax))
-            ok = worth & ~blocked
             inv_pdf = torch.where(nee_pdf > 1e-12,
                                   1.0 / torch.clamp(nee_pdf, min=1e-12), 0.0)
-            for ci in range(C):
-                thr_ci, le_ci = contribs[ci]
-                contrib = (beta[ci] * s_mis * thr_ci * le_ci
-                           * w_nee * inv_pdf * inv_ls)
-                rad[ci] = rad[ci] + torch.where(ok, contrib, 0.0)
+            contrib = [beta[ci] * s_mis * thr[ci] * le[ci] * w_nee * inv_pdf
+                       * inv_ls for ci in range(C)]
+            nee.append(SimpleNamespace(so=so, dir=nee_dir, tmax=nee_tmax,
+                                       worth=worth, contrib=contrib))
             shadow_ct = shadow_ct + (at_surface & worth).float()
 
     # ---- BSDF sample + HWSS ratios
@@ -818,7 +1050,6 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
         stable = ratio_hero * f_lanes[ci] * inv_hero
         direct = f_lanes[ci] * torch.abs(wo_local_s.z) * inv_fpdf
         ratios.append(torch.where(hero_dead, direct, stable))
-    sample_ok = f_pdf > 1e-12
 
     d_new = cmath.normalize(cmath.to_world(tgt, btg, normal, wo_local_s))
     o_new = point + gn.scale(NORMAL_OFFSET * torch.sign(cmath.dot(gn, d_new)))
@@ -826,6 +1057,41 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
                          1.0 / torch.where(p_lanes[0] > 0.0, p_lanes[0], 1.0),
                          0.0)
     pscale = [ones if ci == 0 else p_lanes[ci] * inv_p0 for ci in range(C)]
+    return SimpleNamespace(
+        rad=rad, at_surface=at_surface, env_ct=escaped.float(),
+        shadow_ct=shadow_ct, nee=nee, f_pdf=f_pdf, sample_ok=f_pdf > 1e-12,
+        ratios=ratios, o_new=o_new, d_new=d_new, pscale=pscale)
+
+
+def _resolve_nee(dense_tab, nee, rad):
+    """Shadow-test each NEE sample's ray and add its contribution where it
+    was worth tracing and is unblocked, in sample order."""
+    rad = list(rad)
+    for r in nee:
+        so, sd = r.so, r.dir
+        blocked = sweep_any_cols(
+            dense_tab, _col(so.x), _col(so.y), _col(so.z), _col(sd.x),
+            _col(sd.y), _col(sd.z),
+            _col(torch.full_like(so.x, INTERSECTION_TIME_OFFSET)),
+            _col(r.tmax))
+        ok = r.worth & ~blocked
+        for ci in range(len(rad)):
+            rad[ci] = rad[ci] + torch.where(ok, r.contrib[ci], 0.0)
+    return rad
+
+
+def _finalize_core(state, st, a: RoundArgs, rad, at_surface, f_pdf,
+                   sample_ok, ratios, o_new, d_new, pscale, u_rr, rnd):
+    """The finalize shared by the fused round and K34 (the JAX package's
+    `_finalize_core`): Russian roulette and continuation, XYZ accumulation
+    on death, the thin-lens respawn at the lane's owning pixel and the
+    state write-out -> out [NK4, N] (counter rows past the camera row 0)."""
+    C = a.c_lanes
+    dev = state.device
+    lam, beta, acc = st.lam, st.beta, list(st.acc)
+    alive, bounce_ct, prev_pdf = st.alive, st.bounce_ct, st.prev_pdf
+    o, d = st.o, st.d
+    ones = torch.ones_like(prev_pdf)
 
     # ---- RR + continuation
     ratio_best = ratios[0]
@@ -837,7 +1103,6 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
         p_cont = torch.where(rr_on, torch.clamp(ratio_best, 0.05, 1.0), 1.0)
     else:
         p_cont = ones
-    u_rr = u[3 * ls + 3]
     survive = u_rr < p_cont
     inv_pc = 1.0 / torch.clamp(p_cont, min=1e-6)
     beta_next = []
@@ -851,11 +1116,10 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
         & finite_ok
     if a.only_direct:
         continue_path = continue_path & ~(bounce_ct >= 1.0)
-    bounce_ind = continue_path.float()
 
     # ---- death -> XYZ accumulate
     died = alive & ~continue_path
-    xyz = [torch.zeros_like(done) for _ in range(3)]
+    xyz = [torch.zeros_like(prev_pdf) for _ in range(3)]
     for ci in range(C):
         e = rad[ci] * (a.wb_span / C)
         xyz[0] = xyz[0] + e * cie.x_bar(lam[ci])
@@ -864,13 +1128,11 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
     for i in range(3):
         acc[i] = acc[i] + torch.where(died, xyz[i], 0.0)
     # S_DONE counts the samples LEFT (spp at spawn)
-    done = done - died.float()
+    done = st.done - died.float()
     has_work = died & (done > 0.5)
-    camera_ind = has_work.float()
 
     # ---- respawn: thin-lens camera ray at the lane's owning pixel
-    rnd = [u[3 * ls + 4 + i] for i in range(5)]
-    pix = s(S_PIX)
+    pix = state[S_PIX]
     py = torch.floor(fdiv(pix, a.width))
     px = pix - py * a.width
     film_u = fdiv(px + rnd[0], a.width)
@@ -892,7 +1154,7 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
         r_scale = 1.0
     lx = dx_l * r_scale * a.cam_lens_r
     ly = dy_l * r_scale * a.cam_lens_r
-    co = V3(*[torch.full_like(done, a.cam_origin[i]) for i in range(3)])
+    co = V3(*[torch.full_like(prev_pdf, a.cam_origin[i]) for i in range(3)])
     cu, cv, cw = a.cam_u, a.cam_v, a.cam_w
     o_s = V3(co.x + lx * cu[0] + ly * cv[0],
              co.y + lx * cu[1] + ly * cv[1],
@@ -933,83 +1195,263 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
     # spectral-MIS pdf-ratio products: times this bounce's ratios on
     # continuation, reset on respawn
     for ci in range(C):
-        out[S_PDFR + ci] = torch.where(
-            cp, s(S_PDFR + ci) * pscale[ci],
-            torch.where(hw, 1.0, s(S_PDFR + ci)))
-    out[O4_BOUNCE_CT] = bounce_ind
-    out[O4_CAMERA_CT] = camera_ind
-    out[O4_SHADOW_CT] = shadow_ct
-    out[O4_ENV_CT] = env_ct
-    out[O4_ENV_CT + 1:NK4] = 0.0
+        pr = state[S_PDFR + ci]
+        out[S_PDFR + ci] = torch.where(cp, pr * pscale[ci],
+                                       torch.where(hw, 1.0, pr))
+    out[O4_BOUNCE_CT] = cp.float()
+    out[O4_CAMERA_CT] = hw.float()
+    out[O4_CAMERA_CT + 1:NK4] = 0.0
     return out
 
 
-# ----------------------------------------------------------- CUDA wrapper
+def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
+                      spec_tab, a: RoundArgs):
+    """One bounce round in plain torch -> out [NK4, N] (see module doc); the
+    JAX package's `_all_kernel_body`."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    ls = a.light_samples
+    st = _lane_state(state, a.c_lanes)
+    t_hit, pid = _closest(dense_tab, st)
+    sh = _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab, a)
+    rad = _resolve_nee(dense_tab, sh.nee, sh.rad)
+    out = _finalize_core(
+        state, st, a, rad, sh.at_surface, sh.f_pdf, sh.sample_ok, sh.ratios,
+        sh.o_new, sh.d_new, sh.pscale, u_rr=u[3 * ls + 3],
+        rnd=[u[3 * ls + 4 + i] for i in range(5)])
+    out[O4_SHADOW_CT] = sh.shadow_ct
+    out[O4_ENV_CT] = sh.env_ct
+    return out
 
 
-def _check_round(u, state, tabs, a: RoundArgs):
-    n = state.shape[1]
-    for name, x in (("u", u), ("state", state), *tabs.items()):
+def shade_sweep_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
+                      spec_tab, a: RoundArgs, ef=None):
+    """K12 in plain torch: closest hit + shading -> k2 [k2_rows(ls), N] (the
+    JAX package's `_shade_sweep_kernel` -> `_shade_body`). Surface rows are 0
+    on lanes not at a surface, and every row of a dead lane is 0."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    C, ls = a.c_lanes, a.light_samples
+    st = _lane_state(state, C)
+    t_hit, pid = _closest(dense_tab, st)
+    sh = _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab, a,
+                ef)
+    k2 = torch.zeros((k2_rows(ls), state.shape[1]), dtype=torch.float32,
+                     device=state.device)
+    surf = sh.at_surface
+
+    def put(row, v, mask=surf):
+        k2[row] = torch.where(mask, v, 0.0)
+
+    for ci in range(C):
+        put(O_RAD + ci, sh.rad[ci], st.alive)
+        put(O_RATIO + ci, sh.ratios[ci])
+        put(O_PSCALE + ci, sh.pscale[ci])
+    k2[O_AT_SURF] = surf.float()
+    k2[O_ENV_CT] = sh.env_ct
+    k2[O_SHADOW_CT] = sh.shadow_ct
+    put(O_FPDF, sh.f_pdf)
+    k2[O_SAMPLE_OK] = (surf & sh.sample_ok).float()
+    for i, x in enumerate((*sh.o_new, *sh.d_new)):
+        put(O_ONEW + i, x)
+    for si, r in enumerate(sh.nee):
+        b = O_NEE + NEE_ROWS * si
+        for i, x in enumerate((*r.so, *r.dir, r.tmax)):
+            put(b + i, x)
+        k2[b + 7] = r.worth.float()
+        for ci in range(C):
+            put(b + 8 + ci, r.contrib[ci])
+    return k2
+
+
+def finalize_sweep_plain(u, state, k2, dense_tab, a: RoundArgs):
+    """K34 in plain torch: NEE shadow sweeps + finalize -> out [NK4, N] (the
+    JAX package's `_finalize_sweep_kernel` -> `_finalize_body`). A dead lane
+    passes its state through with zero counters."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    C, ls = a.c_lanes, a.light_samples
+    st = _lane_state(state, C)
+
+    def k(i):
+        return k2[i]
+
+    nee = []
+    for si in range(ls):
+        b = O_NEE + NEE_ROWS * si
+        nee.append(SimpleNamespace(
+            so=V3(k(b), k(b + 1), k(b + 2)),
+            dir=V3(k(b + 3), k(b + 4), k(b + 5)), tmax=k(b + 6),
+            worth=k(b + 7) > 0.5, contrib=[k(b + 8 + ci) for ci in range(C)]))
+    rad = _resolve_nee(dense_tab, nee, [k(O_RAD + ci) for ci in range(C)])
+    out = _finalize_core(
+        state, st, a, rad, k(O_AT_SURF) > 0.5, k(O_FPDF),
+        k(O_SAMPLE_OK) > 0.5, [k(O_RATIO + ci) for ci in range(C)],
+        V3(k(O_ONEW), k(O_ONEW + 1), k(O_ONEW + 2)),
+        V3(k(O_DNEW), k(O_DNEW + 1), k(O_DNEW + 2)),
+        [k(O_PSCALE + ci) for ci in range(C)], u_rr=u[0],
+        rnd=[u[1 + i] for i in range(5)])
+    passthrough = torch.cat([state, torch.zeros_like(out[NS:])])
+    return torch.where(st.alive[None, :], out, passthrough)
+
+
+# ---------------------------------------------------------- CUDA wrappers
+
+
+def _check_tensors(**named):
+    dev = None
+    for name, x in named.items():
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.dim() != 2 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D tensor")
-        if x.device != state.device:
-            raise ValueError(f"{name} is on {x.device}, state on "
-                             f"{state.device}")
+        dev = dev or x.device
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, not {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _check_round(u, state, scene: MegaScene, a: RoundArgs, u_rows: int,
+                 max_prims: int, why: str):
+    _check_tensors(u=u, state=state,
+                   dense_tab=scene.dense_tab, prim_tab=scene.prim_tab,
+                   mat_tab=scene.mat_tab, light_tab=scene.light_tab,
+                   spec_tab=scene.spec_tab)
+    n = state.shape[1]
     if state.shape[0] != NS:
         raise ValueError(f"state must be [{NS}, N], got {tuple(state.shape)}")
-    if u.shape[1] != n or u.shape[0] < 3 * a.light_samples + 9:
-        raise ValueError(f"u must be [>= {3 * a.light_samples + 9}, {n}], "
-                         f"got {tuple(u.shape)}")
+    if u.shape[1] != n or u.shape[0] < u_rows:
+        raise ValueError(f"u must be [>= {u_rows}, {n}], got "
+                         f"{tuple(u.shape)}")
     if a.c_lanes not in (1, C_LANES):
         raise ValueError(f"c_lanes must be 1 or {C_LANES}")
-    dense = tabs["dense_tab"]
-    if dense.shape[1] != 128 or dense.shape[0] > PBF * FUSED_MAX_CHUNKS \
+    dense = scene.dense_tab
+    if dense.shape[1] != 128 or dense.shape[0] > max_prims \
             or dense.shape[0] % PBF:
-        raise NotImplementedError(_OUT_OF_GATE)
-    if tabs["prim_tab"].shape[0] != _NP_ROWS \
-            or tabs["mat_tab"].shape != (_NM_ROWS, 128) \
-            or tabs["light_tab"].shape != (_NL_ROWS, 128) \
-            or tabs["spec_tab"].shape[1] != SPEC_RES \
-            or tabs["spec_tab"].shape[0] < 5 * a.n_mats + 1:
+        raise NotImplementedError(why)
+    if scene.prim_tab.shape[0] != _NP_ROWS \
+            or scene.prim_tab.shape[1] < dense.shape[0] \
+            or scene.mat_tab.shape != (_NM_ROWS, 128) \
+            or scene.light_tab.shape != (_NL_ROWS, 128) \
+            or scene.spec_tab.shape[1] != SPEC_RES \
+            or scene.spec_tab.shape[0] < 5 * a.n_mats + 1:
         raise ValueError("table shapes do not match the bake")
-    if state.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {state.device}")
+
+
+def _lib():
+    from pathtracer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    if lib.round_args_size() != ctypes.sizeof(_CArgs):
+        raise RuntimeError("_CArgs does not mirror struct RoundArgs of "
+                           "csrc/round_common.cuh")
+    return lib
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        from pathtracer_tpu_torch.kernels import _build
+
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+
+
+def _tables(scene: MegaScene):
+    return dict(dense_tab=scene.dense_tab, prim_tab=scene.prim_tab,
+                mat_tab=scene.mat_tab, light_tab=scene.light_tab,
+                spec_tab=scene.spec_tab)
 
 
 def fused_round(u, state, scene: MegaScene, a: RoundArgs):
     """One bounce round -> out [NK4, N]: the CUDA kernel on CUDA tensors,
     the plain twin on CPU tensors."""
     global FUSED_LAUNCHES
-    tabs = dict(dense_tab=scene.dense_tab, prim_tab=scene.prim_tab,
-                mat_tab=scene.mat_tab, light_tab=scene.light_tab,
-                spec_tab=scene.spec_tab)
-    _check_round(u, state, tabs, a)
+    _check_round(u, state, scene, a, 3 * a.light_samples + 9,
+                 PBF * FUSED_MAX_CHUNKS, _NOT_FUSED)
+    if a.env_kind != ENV_CONSTANT:
+        raise NotImplementedError(_NOT_FUSED)
     if state.device.type == "cpu":
-        return fused_round_plain(u, state, a=a, **tabs)
-    from pathtracer_tpu_torch.kernels import _build
-
-    lib = _build.library()
-    if lib.fused_round_args_size() != ctypes.sizeof(_CArgs):
-        raise RuntimeError("_CArgs does not mirror struct RoundArgs of "
-                           "csrc/fused_round.cu")
+        return fused_round_plain(u, state, a=a, **_tables(scene))
+    lib = _lib()
     n = state.shape[1]
     out = torch.empty((NK4, n), dtype=torch.float32, device=state.device)
     cargs = _c_args(a)
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     rc = lib.fused_round_launch(
-        ptr(u), u.shape[0], ptr(state), ptr(out), n,
-        ptr(scene.dense_tab), scene.dense_tab.shape[0],
-        ptr(scene.prim_tab), scene.prim_tab.shape[1],
-        ptr(scene.mat_tab), ptr(scene.light_tab), ptr(scene.spec_tab),
+        _ptr(u), u.shape[0], _ptr(state), _ptr(out), n,
+        _ptr(scene.dense_tab), scene.dense_tab.shape[0],
+        _ptr(scene.prim_tab), scene.prim_tab.shape[1],
+        _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
         scene.spec_tab.shape[0], ctypes.byref(cargs),
         ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fused_round: CUDA error {rc} "
-                           f"({_build.error_string(rc)})")
+    _raise_on(rc, "fused_round")
     FUSED_LAUNCHES += 1
+    return out
+
+
+def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None):
+    """K12 -> k2 [k2_rows(ls), N]: the CUDA kernel on CUDA tensors, the
+    plain twin on CPU tensors. `ef` is `env_feed`'s rows for a Sun or HDR
+    environment and None for a constant one."""
+    global SHADE_LAUNCHES
+    _check_round(u, state, scene, a, 3 * a.light_samples + 3,
+                 MEGA_MAX_PRIMS, _NOT_IN_GATE)
+    fed = a.env_kind != ENV_CONSTANT
+    if fed != (ef is not None):
+        raise ValueError("ef must be given exactly for Sun and HDR "
+                         "environments")
+    if fed:
+        _check_tensors(state=state, ef=ef)
+        if ef.shape != (ef_rows(a.light_samples, a.c_lanes), state.shape[1]):
+            raise ValueError(f"ef must be [{ef_rows(a.light_samples, a.c_lanes)}"
+                             f", N], got {tuple(ef.shape)}")
+    if state.device.type == "cpu":
+        return shade_sweep_plain(u, state, a=a, ef=ef, **_tables(scene))
+    lib = _lib()
+    n = state.shape[1]
+    k2 = torch.empty((k2_rows(a.light_samples), n), dtype=torch.float32,
+                     device=state.device)
+    cargs = _c_args(a)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.shade_sweep_launch(
+        _ptr(u), _ptr(state), _ptr(ef), _ptr(k2), n,
+        _ptr(scene.dense_tab), scene.dense_tab.shape[0],
+        _ptr(scene.prim_tab), scene.prim_tab.shape[1],
+        _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
+        ctypes.byref(cargs), ctypes.c_void_p(stream))
+    _raise_on(rc, "shade_sweep")
+    SHADE_LAUNCHES += 1
+    return k2
+
+
+def finalize_sweep(u, state, k2, scene: MegaScene, a: RoundArgs):
+    """K34 -> out [NK4, N]: the CUDA kernel on CUDA tensors, the plain twin
+    on CPU tensors."""
+    global FINALIZE_LAUNCHES
+    _check_round(u, state, scene, a, 1 + 5, MEGA_MAX_PRIMS,  # RR, respawn
+                 _NOT_IN_GATE)
+    _check_tensors(state=state, k2=k2)
+    if k2.shape != (k2_rows(a.light_samples), state.shape[1]):
+        raise ValueError(f"k2 must be [{k2_rows(a.light_samples)}, N], got "
+                         f"{tuple(k2.shape)}")
+    if state.device.type == "cpu":
+        return finalize_sweep_plain(u, state, k2, scene.dense_tab, a)
+    lib = _lib()
+    n = state.shape[1]
+    out = torch.empty((NK4, n), dtype=torch.float32, device=state.device)
+    cargs = _c_args(a)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.finalize_sweep_launch(
+        _ptr(u), _ptr(state), _ptr(k2), _ptr(out), n,
+        _ptr(scene.dense_tab), scene.dense_tab.shape[0],
+        ctypes.byref(cargs), ctypes.c_void_p(stream))
+    _raise_on(rc, "finalize_sweep")
+    FINALIZE_LAUNCHES += 1
     return out
 
 
@@ -1017,8 +1459,11 @@ def fused_round(u, state, scene: MegaScene, a: RoundArgs):
 
 
 class TorchUniforms:
-    """Uniform source of a render: the initial spawn block and one
-    `[rows, n_pad]` block per round, drawn from one `torch.Generator`."""
+    """Uniform source of a render: the initial spawn block and the
+    `[rows, n_pad]` blocks of each round, drawn from one `torch.Generator`.
+    A round draws one block (`stream` None: the fused round) or two
+    (`stream` 0 for K12, 1 for K34); a replay of the JAX draws keys them by
+    (it, stream) as the JAX package's `_k12_call`/`_k34_call` do."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -1027,7 +1472,8 @@ class TorchUniforms:
         return torch.rand((n_pad, 5), generator=self.generator,
                           device=device)
 
-    def round(self, it: int, rows: int, n_pad: int, device) -> torch.Tensor:
+    def round(self, it: int, rows: int, n_pad: int, device,
+              stream: int | None = None) -> torch.Tensor:
         return torch.rand((rows, n_pad), generator=self.generator,
                           device=device)
 
@@ -1067,38 +1513,64 @@ def mega_init(camera, rnd0, a: RoundArgs, n: int, n_pad: int, spp: int):
 
 
 ALIVE_CHECK_EVERY = 4  # rounds between alive checks (one host fetch each)
-# out rows O4_BOUNCE_CT.. O4_ENV_CT -> counter slots
-_CT_SLOTS = (prof.BOUNCE_RAYS, prof.CAMERA_RAYS, prof.SHADOW_RAYS,
-             prof.ENV_HITS)
+# counter slots of the fused round's out rows O4_BOUNCE_CT..O4_ENV_CT, and
+# of the two-program round's out rows O4_BOUNCE_CT, O4_CAMERA_CT and K2 rows
+# O_ENV_CT, O_SHADOW_CT
+_FUSED_SLOTS = (prof.BOUNCE_RAYS, prof.CAMERA_RAYS, prof.SHADOW_RAYS,
+                prof.ENV_HITS)
+_TWO_PROG_SLOTS = (prof.BOUNCE_RAYS, prof.CAMERA_RAYS, prof.ENV_HITS,
+                   prof.SHADOW_RAYS)
+
+
+def two_prog_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
+    """One bounce round of the two-program route -> (out [NK4, N], k2):
+    K12 on its uniform block (stream 0), after the environment feed of a Sun
+    or HDR environment, then K34 on its own (stream 1)."""
+    n_pad, dev = state.shape[1], state.device
+    u12 = uniforms.round(it, n_u_rows(a.light_samples), n_pad, dev, stream=0)
+    ef = (env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
+          if scene.env is not None else None)
+    k2 = shade_sweep(u12, state, scene, a, ef)
+    u34 = uniforms.round(it, NU4, n_pad, dev, stream=1)
+    return finalize_sweep(u34, state, k2, scene, a), k2
 
 
 def pt_trace_regen_mega(world, camera, settings, width, height, spp,
                         uniforms, device=None, stats=None):
     """Render `spp` samples of every pixel with one lane per pixel ->
     (xyz sums [width * height, 3], counters f64[5]), on `device`
-    (default: the world's). The round launches on whatever device the
-    tensors are on: the CUDA kernel on a card, the plain twin on the CPU.
-    A `stats` dict, if given, gets the number of rounds added to "rounds"."""
+    (default: the world's). Each round is the fused round for scenes in its
+    gate and the two-program round otherwise; the kernels launch on a card,
+    the plain twins run on the CPU. A `stats` dict, if given, gets the
+    number of rounds added to "rounds"."""
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
     scene = build_mega_scene(world, camera, device)
     a = RoundArgs.make(scene.consts, settings, width, height)
     n = width * height
     n_pad = -(-n // TILE) * TILE
-    nu = nu_rows(a.light_samples)
+    fused = fused_ok(scene)
     cam = camera.to(device)
     state, counters = mega_init(cam, uniforms.init(n_pad, device), a, n,
                                 n_pad, spp)
-    slots = torch.tensor(_CT_SLOTS, device=device)
+    slots = torch.tensor(_FUSED_SLOTS if fused else _TWO_PROG_SLOTS,
+                         device=device)
     max_iters = int(spp * settings.max_bounces * 8 + 64)
     it = 0
     while it < max_iters:
         for _ in range(ALIVE_CHECK_EVERY):
-            u = uniforms.round(it, nu, n_pad, device)
-            out = fused_round(u, state, scene, a)
+            if fused:
+                u = uniforms.round(it, nu_rows(a.light_samples), n_pad,
+                                   device)
+                out = fused_round(u, state, scene, a)
+                counts = out[O4_BOUNCE_CT:O4_ENV_CT + 1]
+            else:
+                out, k2 = two_prog_round(state, scene, a, uniforms, it)
+                counts = torch.cat([out[O4_BOUNCE_CT:O4_CAMERA_CT + 1],
+                                    k2[O_ENV_CT:O_SHADOW_CT + 1]])
             state = out[:NS]
-            counters.index_add_(0, slots, out[O4_BOUNCE_CT:O4_ENV_CT + 1]
-                                .sum(dim=1, dtype=torch.float64))
+            counters.index_add_(0, slots,
+                                counts.sum(dim=1, dtype=torch.float64))
             it += 1
         if not bool((state[S_ALIVE] > 0.5).any()):
             break

@@ -1,6 +1,6 @@
 """Material table (counterpart of `materials/tables.py`): SoA parameters
 indexed by material id. The BSDF math itself lives in `kernels/cmath.py`
-and the fused round; the XLA-style masked dispatch is not ported."""
+and the round kernels; the XLA-style masked dispatch is not ported."""
 
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """SceneBuilder (counterpart of `parsing/builder.py`), restricted to what the
 fused megakernel path renders.
 
-It accumulates curves, 1x1 textures, lambertian / GGX / diffuse-light /
+It accumulates curves, layered textures, lambertian / GGX / diffuse-light /
 sharp-light materials, spheres, rects, disks, world-space triangle meshes
-and a constant environment, then bakes them with numpy into the fields
-`world_from_numpy` takes. The arrays equal the JAX builder's array for
-array. Transforms, mesh instancing, media and multi-texel textures raise
-`NotImplementedError` (ROADMAP §1 item 13 ports the full parser).
+and a Constant, Sun or HDR environment, then bakes them with numpy into the
+fields `world_from_numpy` takes. The arrays equal the JAX builder's array
+for array (for Sun and HDR, equal to what the JAX parser's
+`_build_environment` sets). Transforms and mesh instancing raise
+`NotImplementedError` naming ROADMAP §1 item 13 (the parser), media naming
+ROADMAP §2's next slice (the two-program round's medium branch).
 """
 
 from __future__ import annotations
@@ -31,11 +33,18 @@ from pathtracer_tpu_torch.materials.tables import (
     MAT_PASSTHROUGH,
     MAT_SHARP_LIGHT,
 )
-from pathtracer_tpu_torch.world.environment import constant_env_numpy
+from pathtracer_tpu_torch.world.environment import (
+    constant_env_numpy,
+    hdr_env_numpy,
+    sun_env_numpy,
+)
+from pathtracer_tpu_torch.world.importance_map import bake_importance_tables
 from pathtracer_tpu_torch.world.world import World, world_from_numpy
 
 _PAD = 16
 _NOT_PORTED = "not ported yet (ROADMAP §1 item 13, parsing)"
+_NO_MEDIA = ("media are not ported yet (ROADMAP §2: the medium branch of "
+             "the two-program round, with mediums/ and the medium feed)")
 
 
 @dataclasses.dataclass
@@ -59,7 +68,7 @@ class SceneBuilder:
     def __init__(self):
         self.curves: List[spectral.HostCurve] = []
         self._curve_names = {}
-        self.tex_layers: List[Tuple[np.ndarray, int]] = []  # (weights 1x1, curve)
+        self.tex_layers: List[Tuple[np.ndarray, int]] = []  # (weights HxW, curve)
         self.tex_ranges: List[Tuple[int, int]] = []
         self._tex_names = {}
         self.mat_rows: List[dict] = []
@@ -88,16 +97,12 @@ class SceneBuilder:
 
     def add_texture(self, layers: Sequence[Tuple[np.ndarray, int]],
                     name: Optional[str] = None) -> int:
-        """layers: list of (1x1 weight map, curve index)."""
+        """layers: list of (weight map HxW float, curve index)."""
         if name is not None and name in self._tex_names:
             return self._tex_names[name]
-        for w, _ in layers:
-            if np.asarray(w).size != 1:
-                raise NotImplementedError(
-                    f"multi-texel textures are {_NOT_PORTED}")
         start = len(self.tex_layers)
         for w, c in layers:
-            self.tex_layers.append((np.asarray(w, np.float32).reshape(1, 1), int(c)))
+            self.tex_layers.append((np.asarray(w, np.float32), int(c)))
         self.tex_ranges.append((start, len(layers)))
         idx = len(self.tex_ranges) - 1
         if name is not None:
@@ -126,8 +131,7 @@ class SceneBuilder:
                 inner_medium: int = 0, outer_medium: int = 0,
                 name=None) -> int:
         if inner_medium or outer_medium:
-            raise NotImplementedError(
-                "media are not ported yet (ROADMAP §1 item 8)")
+            raise NotImplementedError(_NO_MEDIA)
         # metallic := kappa integral > 0
         kappa_integral = self.curves[kappa_idx].integral(EXTENDED_VISIBLE_RANGE, 128)
         return self._add_mat(
@@ -150,7 +154,7 @@ class SceneBuilder:
                  sharpness=sharpness), name)
 
     def add_medium_hg(self, *args, **kwargs):
-        raise NotImplementedError("media are not ported yet (ROADMAP §1 item 8)")
+        raise NotImplementedError(_NO_MEDIA)
 
     add_medium_rayleigh = add_medium_hg
 
@@ -270,6 +274,28 @@ class SceneBuilder:
 
     def set_environment_constant(self, curve_idx: int, strength: float):
         self.env = constant_env_numpy(curve_idx, strength)
+
+    def set_environment_sun(self, curve_idx: int, strength: float,
+                            sun_direction, angular_diameter: float):
+        """The constant SPD `curve_idx` inside a cap of `angular_diameter`
+        radians around `sun_direction` (the parser's "Sun" environment)."""
+        self.env = sun_env_numpy(curve_idx, strength, sun_direction,
+                                 angular_diameter)
+
+    def set_environment_hdr(self, tex_id: int, strength: float,
+                            imp_w: Optional[int], imp_h: Optional[int],
+                            rotation=None):
+        """The equirect texture `tex_id` as the environment (the parser's
+        "HDRI" environment). With `imp_w` x `imp_h` it gets a baked
+        importance map, else uniform-uv sampling; `rotation` is the 3x3
+        env->world rotation."""
+        tables = None
+        if imp_w and imp_h:
+            start, count = self.tex_ranges[tex_id]
+            tables = bake_importance_tables(
+                self.tex_layers[start:start + count], self.curves,
+                int(imp_w), int(imp_h))
+        self.env = hdr_env_numpy(tex_id, strength, rotation, tables)
 
     # -------------------------------------------------------------- build
 

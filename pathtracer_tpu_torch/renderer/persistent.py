@@ -9,7 +9,7 @@ import torch
 
 from pathtracer_tpu_torch.kernels.megakernel import (
     TorchUniforms,
-    mega_available,
+    gate_refusal,
     pt_trace_regen_mega,
 )
 from pathtracer_tpu_torch.utils.profile import Profile
@@ -25,12 +25,16 @@ def render_regen(world, camera, settings, width: int, height: int,
     Random numbers come from `uniforms` (an object with `init` and `round`,
     see kernels/megakernel.TorchUniforms) or else from `generator`, which
     must live on `device`. A `stats` dict, if given, gets the number of
-    bounce rounds run under "rounds"."""
-    if not mega_available(world, camera, settings):
-        raise NotImplementedError(
-            "scenes outside the fused-round gate need the two-program round "
-            "or the regen integrator without kernels (ROADMAP §2 item 4, "
-            "§1 item 5)")
+    bounce rounds run under "rounds".
+
+    Scenes in the megakernel's gate render through the fused round or the
+    two-program round (`kernels/megakernel.py`); the rest raise
+    `NotImplementedError` naming the ROADMAP item that ports their route
+    (medium-aware settings, uv-dependent surface textures, and scenes for
+    the regen integrator without kernels)."""
+    why = gate_refusal(world, camera, settings)
+    if why is not None:
+        raise NotImplementedError(why)
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
     if uniforms is None:

@@ -7,7 +7,15 @@ the matching `core.spectral` module and returns the builder, ready to
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from pathtracer_tpu_torch.parsing.images import load_hdr_rgba
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a synthetic 64x32 RGBE map (data/scenes/hdri_blob_test.toml's texture)
+HDR_BLOB = os.path.join(_ROOT, "data", "hdri", "test_blob.hdr")
 
 # light sidedness (materials/diffuse_light): emits on +normal / -normal
 SIDE_FORWARD, SIDE_REVERSE = 0, 1
@@ -16,6 +24,10 @@ SIDE_FORWARD, SIDE_REVERSE = 0, 1
 CORNELL_CAMERA = dict(look_from=[-1.2, 0.5, 0.5], look_at=[0.5, 0.5, 0.5],
                       vfov_degrees=40.0, focal_distance=1.7,
                       aperture_diameter=0.0, aspect_ratio=1.0)
+# a unit sphere at the origin seen from -x (the HDRI and Sun test scenes)
+SPHERE_CAMERA = dict(look_from=[-5.0, 0.0, 0.0], look_at=[0.0, 0.0, 0.0],
+                     vfov_degrees=20.0, focal_distance=5.0,
+                     aperture_diameter=0.0, aspect_ratio=1.0)
 FURNACE_CAMERA = dict(look_from=[0.0, -3.0, 0.0], look_at=[0.0, 0.0, 0.0],
                       vfov_degrees=35.0, focal_distance=3.0,
                       aperture_diameter=0.0, aspect_ratio=1.0)
@@ -149,4 +161,110 @@ def random_prims(b, spectral, seed=0, grid=8, n_each=16):
                    rng.normal(0, 0.1, 3), m)
         b.add_disk(rng.uniform(0.0, 1.0, 3), rng.normal(size=3),
                    float(rng.uniform(0.03, 0.15)), m)
+    return b
+
+
+def icosphere(center, radius, subdiv):
+    """(vertices, faces) of an icosahedron whose faces are split in four
+    `subdiv` times, every vertex pushed onto the sphere: 20 * 4**subdiv
+    faces."""
+    v, f = icosahedron(np.zeros(3), 1.0)
+    verts = [p for p in v]
+    for _ in range(subdiv):
+        mids = {}
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mids:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mids[key] = len(verts) - 1
+            return mids[key]
+
+        nf = []
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        f = np.asarray(nf, np.int64)
+    return np.asarray(verts) * radius + np.asarray(center, np.float64), f
+
+
+def _gem_material(b, spectral):
+    """A near-delta dispersive dielectric (diamond-like Cauchy η)."""
+    eta = b.add_curve(spectral.CauchyCurve(2.4, 34000.0), name="eta_gem")
+    air = b.add_curve(spectral.FlatCurve(1.0), name="air")
+    kz = b.add_curve(spectral.FlatCurve(0.0), name="kz")
+    return b.add_ggx(0.001, eta, air, kz, permeability=1.0, name="gem")
+
+
+def gem_cornell(b, spectral, subdiv=2):
+    """The Cornell box around a faceted dispersive gem: an icosphere split
+    twice (320 triangles; 326 prims in 11 chunks of 32). It stands in for
+    the JAX package's gem benchmark scene, whose OBJ and curve library are
+    not in the repository; more than 4 chunks, so it rides the two-program
+    round."""
+    cornell_box(b, spectral)
+    v, f = icosphere([0.55, 0.5, 0.26], 0.25, subdiv)
+    b.add_mesh(v, f, None, _gem_material(b, spectral))
+    return b
+
+
+def mesh_cornell(b, spectral):
+    """The gem split four times (5,120 triangles, 161 chunks, more than
+    1,024 prims), standing in for the arrangement benchmark scene."""
+    return gem_cornell(b, spectral, subdiv=4)
+
+
+def _rgb_basis(b, spectral):
+    """Three in-code R, G, B basis curves (the parser's srgb_* curves live
+    in the curve library, which is not in the repository)."""
+    return [b.add_curve(spectral.SpikeCurve(lam, lt, rt, 1.0), name=name)
+            for name, lam, lt, rt in (("basis_r", 610.0, 40.0, 60.0),
+                                      ("basis_g", 545.0, 40.0, 40.0),
+                                      ("basis_b", 455.0, 50.0, 40.0))]
+
+
+def _white_sphere(b, spectral, albedo):
+    one_px = np.ones((1, 1), np.float32)
+    c = b.add_curve(spectral.FlatCurve(albedo), name="white_sphere")
+    m = b.add_lambertian(b.add_texture([(one_px, c)], name="white_tex"),
+                         name="white")
+    b.add_sphere([0.0, 0.0, 0.0], 1.0, m)
+
+
+def _hdr_env(b, spectral, planes, imp_w, imp_h, p_env):
+    curves = _rgb_basis(b, spectral)
+    tex = b.add_texture(list(zip(planes, curves)), name="env_map")
+    b.set_environment_hdr(tex, 1.0, imp_w, imp_h)
+    b.env_sampling_probability = p_env
+
+
+def hdri_blob(b, spectral):
+    """`data/hdri/test_blob.hdr` as a 3-layer HDR environment with a 64x32
+    importance map around a white Lambertian unit sphere,
+    env_sampling_probability 0.9 (data/scenes/hdri_blob_test.toml minus its
+    curve library)."""
+    _white_sphere(b, spectral, 0.78)
+    img = load_hdr_rgba(HDR_BLOB)
+    _hdr_env(b, spectral, [img[..., k] for k in range(3)], 64, 32, 0.9)
+    return b
+
+
+def hdr_furnace(b, spectral):
+    """A constant-valued 32x16 HDR map (with a 32x16 importance map) around
+    a unit-albedo sphere: sphere pixels must equal direct-environment pixels
+    in expectation (tests/test_kernels_pallas.py's HDR furnace)."""
+    _white_sphere(b, spectral, 1.0)
+    ones = np.ones((16, 32), np.float32)
+    _hdr_env(b, spectral, [ones, ones, ones], 32, 16, 1.0)
+    return b
+
+
+def sun_sphere(b, spectral):
+    """A Sun environment (strength 4, direction (0.3, 0.2, 1), angular
+    diameter 0.6) over a white Lambertian unit sphere."""
+    _white_sphere(b, spectral, 0.78)
+    one = b.add_curve(spectral.FlatCurve(1.0), name="one")
+    b.set_environment_sun(one, 4.0, [0.3, 0.2, 1.0], 0.6)
+    b.env_sampling_probability = 1.0
     return b

@@ -4,9 +4,10 @@
 `world_from_numpy` is the single intake path: it takes the JAX `World`'s
 leaves as numpy arrays under their JAX field names (`prims.pa`,
 `mats.mtype`, `bank.values`, `env.kind`, `lights`, `n_lights`, ...) and
-places them on a device. The port's own `SceneBuilder.build()` goes
-through it too. The BVH, the two-level accelerator and the medium table are
-not part of the port yet (ROADMAP).
+places them on a device; it takes Constant, Sun and HDR environments. The
+port's own `SceneBuilder.build()` goes through it too. The BVH, the
+two-level accelerator and the medium table are not part of the port yet
+(ROADMAP §1 items 9 and 8).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathtracer_tpu_torch.core.spectral import CurveBank
 from pathtracer_tpu_torch.geometry.soa import Primitives
 from pathtracer_tpu_torch.materials.tables import Materials
 from pathtracer_tpu_torch.textures.texture import Textures
-from pathtracer_tpu_torch.world.environment import ENV_CONSTANT, Environment
+from pathtracer_tpu_torch.world.environment import Environment
 
 _GROUPS = (("prims", Primitives), ("mats", Materials), ("tex", Textures),
            ("bank", CurveBank), ("env", Environment))
@@ -74,10 +75,6 @@ def world_from_numpy(fields: dict, device="cpu") -> World:
     missing = [n for n in field_names() if n not in fields]
     if missing:
         raise KeyError(f"world_from_numpy: missing fields {missing}")
-    if int(np.asarray(fields["env.kind"])) != ENV_CONSTANT:
-        raise NotImplementedError(
-            "Sun and HDR environments are not ported yet "
-            "(ROADMAP §1 item 8, the rest of PT)")
     groups = {}
     for g, cls in _GROUPS:
         kw = {}

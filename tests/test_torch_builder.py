@@ -92,7 +92,13 @@ def test_builder_refuses_outside_slice(what):
         elif what == "medium":
             b.add_medium_hg(c, c, c)
         elif what == "texels":
-            b.add_texture([(np.ones((2, 2), np.float32), c)])
+            # multi-texel textures build; the megakernel refuses them on a
+            # lambertian surface (the texture-feed route, queue 1)
+            m = b.add_lambertian(b.add_texture([(np.ones((2, 2),
+                                                         np.float32), c)]))
+            b.add_sphere([0.0, 0.0, 0.0], 1.0, m)
+            torch_mk.build_mega_scene(
+                b.build(), make_projective_camera(**scenes.CORNELL_CAMERA))
         elif what == "mesh_transform":
             b.add_mesh(np.eye(3), [[0, 1, 2]], None, 0, transform=np.eye(4))
         else:
@@ -100,13 +106,19 @@ def test_builder_refuses_outside_slice(what):
 
 
 def test_gate_refuses_large_scene():
-    """More than 4 chunks of 32 prims is the two-program round's job."""
-    b = scenes.random_prims(SceneBuilder(), torch_spectral, grid=8,
-                            n_each=4)
-    w = b.build()
+    """More than 4 chunks of 32 prims is the two-program round's job; more
+    than 8192 prims is outside the megakernel (the regen integrator without
+    kernels, ROADMAP §1 item 5)."""
     cam = make_projective_camera(**scenes.CORNELL_CAMERA)
     _, ts = both_settings(**NEE_SETTINGS)
+    w = scenes.random_prims(SceneBuilder(), torch_spectral, grid=8,
+                            n_each=4).build()
     assert w.prims.count > 128
-    assert not torch_mk.mega_available(w, cam, ts)
+    assert torch_mk.mega_available(w, cam, ts)
+    assert not torch_mk.fused_ok(torch_mk.build_mega_scene(w, cam))
+    big = scenes.random_prims(SceneBuilder(), torch_spectral, grid=64,
+                              n_each=4).build()
+    assert big.prims.count > torch_mk.MEGA_MAX_PRIMS
+    assert not torch_mk.mega_available(big, cam, ts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_mk.build_mega_scene(w, cam)
+        torch_mk.build_mega_scene(big, cam)

@@ -7,11 +7,14 @@ checks at the main path's full shapes; these are the small-shape version:
 (`--noconftest`: tests/conftest.py configures JAX, which the card's machine
 need not have.)
 
-The sweep must match exactly (hit, prim id, t, any-hit mask). The fused
-round and its twin run the same operations in the same order (the twin
-divides by constants as IEEE divisions, and the kernels are built without
-FMA contraction), so the discrete rows must be equal on >= 99.99% of lanes
-and the continuous rows within rtol 1e-4, atol 1e-5 on those lanes."""
+The sweep must match exactly (hit, prim id, t, any-hit mask). The round
+kernels and their twins run the same operations in the same order (the
+twins divide by constants as IEEE divisions, and the kernels are built
+without FMA contraction), so the discrete rows must be equal on >= 99.99%
+of lanes and the continuous rows within rtol 1e-4, atol 1e-5 on those
+lanes. That holds for the fused round, and for K12 (shade_sweep, its K2
+rows) and K34 (finalize_sweep) of the two-program round on the multi-chunk
+gem, the HDR blob and the Sun scene, each chained over three rounds."""
 
 import numpy as np
 import pytest
@@ -99,4 +102,58 @@ def test_fused_round_kernel_matches_plain(dev, c_lanes, recipe):
         assert torch.allclose(ok[cont][:, match], op[cont][:, match],
                               rtol=1e-4, atol=1e-5)
         sk, sp = ok[:mk.NS], op[:mk.NS]
+    assert np.isfinite(sk.cpu().numpy()).all()
+
+
+def match_rows(k, p, disc):
+    """Fraction of lanes whose discrete rows are equal, and whether the
+    other rows agree within rtol 1e-4, atol 1e-5 on those lanes."""
+    match = (k[disc] == p[disc]).all(dim=0)
+    cont = [r for r in range(k.shape[0]) if r not in disc]
+    close = torch.isclose(k[cont][:, match], p[cont][:, match], rtol=1e-4,
+                          atol=1e-5)
+    return float(match.float().mean()), bool(close.all())
+
+
+def k2_discrete(ls):
+    return [mk.O_AT_SURF, mk.O_ENV_CT, mk.O_SHADOW_CT, mk.O_SAMPLE_OK] + [
+        mk.O_NEE + mk.NEE_ROWS * si + 7 for si in range(ls)]
+
+
+@pytest.mark.parametrize("recipe,cam,c_lanes", [
+    ("gem_cornell", "CORNELL_CAMERA", 1), ("gem_cornell", "CORNELL_CAMERA", 4),
+    ("hdri_blob", "SPHERE_CAMERA", 4), ("hdri_blob", "SPHERE_CAMERA", 1),
+    ("sun_sphere", "SPHERE_CAMERA", 1)])
+def test_two_prog_kernels_match_plain(dev, recipe, cam, c_lanes):
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**getattr(scenes, cam), device=dev)
+    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4)
+    scene = mk.build_mega_scene(world, cam, dev)
+    assert not mk.fused_ok(scene)
+    a = mk.RoundArgs.make(scene.consts, s, 128, 128)
+    n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 128 * 128,
+                            n_pad, 4)
+    sk = state
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+            mk.O4_CAMERA_CT]
+    for _ in range(3):
+        u12 = torch.rand((mk.n_u_rows(2), n_pad), generator=gen, device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        ef = (mk.env_feed(scene.env, sk, u12, 2, c_lanes)
+              if scene.env is not None else None)
+        launches = (mk.SHADE_LAUNCHES, mk.FINALIZE_LAUNCHES)
+        k2k = mk.shade_sweep(u12, sk, scene, a, ef)
+        k2p = mk.shade_sweep_plain(u12, sk, a=a, ef=ef, **mk._tables(scene))
+        frac, close = match_rows(k2k, k2p, k2_discrete(2))
+        assert frac >= 0.9999 and close
+        ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+        op = mk.finalize_sweep_plain(u34, sk, k2k, scene.dense_tab, a)
+        assert (mk.SHADE_LAUNCHES, mk.FINALIZE_LAUNCHES) == (
+            launches[0] + 1, launches[1] + 1)
+        frac, close = match_rows(ok, op, disc)
+        assert frac >= 0.9999 and close
+        sk = ok[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()

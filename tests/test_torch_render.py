@@ -1,6 +1,9 @@
 """The whole slice on the CPU: the port's `render_regen` (plain fused round)
 against the JAX package's `pt_trace_regen_mega` (Pallas interpret mode) on
-the chip scene at 64x64 @ 4 spp, then the HWSS furnace and the film files.
+the chip scene at 64x64 @ 4 spp, then the HWSS furnace and the film files;
+the routing of scenes between the fused and the two-program round and the
+scenes the port refuses (test_torch_render_gem.py holds a two-program
+render against JAX, test_torch_env.py the HDR furnace).
 
 - Uniforms replayed from JAX: the films must agree — mean within 1e-2
   relative and >= 99% of pixels within rtol 1e-3 (only the few lanes whose
@@ -23,6 +26,11 @@ from pathtracer_tpu import tonemap as jax_tm
 from pathtracer_tpu.tonemap import read_exr
 from pathtracer_tpu.tonemap import tonemap_to_rgb as jax_tonemap
 from pathtracer_tpu.tonemap.io_png import read_png
+from pathtracer_tpu_torch import scenes
+from pathtracer_tpu_torch.camera import make_projective_camera
+from pathtracer_tpu_torch.core import spectral
+from pathtracer_tpu_torch.kernels import megakernel as tm
+from pathtracer_tpu_torch.parsing import SceneBuilder
 from pathtracer_tpu_torch.renderer.output import output_film
 from pathtracer_tpu_torch.renderer.persistent import render_regen
 from pathtracer_tpu_torch import tonemap as torch_tm
@@ -125,3 +133,55 @@ def test_tonemap_matches_jax(chip, mapper, colorspace):
                                atol=1e-5)
     np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("recipe,route", [
+    ("chip", "fused"), ("furnace", "fused"), ("gem", "two_prog"),
+    ("hdri", "two_prog"), ("sun", "two_prog")])
+def test_render_routes_by_gate(monkeypatch, recipe, route):
+    """The fused round for at most 4 chunks under a constant environment,
+    the two-program round otherwise, one round call per round."""
+    calls = {"fused": 0, "two_prog": 0}
+    for name in calls:
+        fn = getattr(tm, f"{name}_round")
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(tm, f"{name}_round", counted)
+    _, tw, _, tc = both_worlds(recipe)
+    _, ts = both_settings(**{**NEE_SETTINGS, "max_bounces": 3})
+    stats = {}
+    film, profile, _ = render_regen(tw, tc, ts, 8, 8, 1, stats=stats,
+                                    generator=torch.Generator().manual_seed(1))
+    assert calls[route] == stats["rounds"] > 0
+    assert sum(calls.values()) == stats["rounds"]
+    assert np.isfinite(film.numpy()).all() and profile.camera_rays == 64
+
+
+@pytest.mark.parametrize("what", ["medium", "uv_texture", "too_many_prims"])
+def test_render_refuses_with_roadmap_item(what):
+    """Medium-aware settings (the two-program round's medium branch, next),
+    uv-dependent surface textures (queue 1) and scenes over 8192 prims (the
+    regen integrator without kernels) raise, naming their ROADMAP item."""
+    _, ts = both_settings(**NEE_SETTINGS)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA)
+    world = scenes.cornell_box(SceneBuilder(), spectral).build()
+    match = {"medium": "ROADMAP §2, queue 2", "uv_texture":
+             "ROADMAP §2, queue 1", "too_many_prims": "ROADMAP §1 item 5"}
+    if what == "medium":
+        ts = type(ts)(**{**ts.__dict__, "medium_aware": True})
+    elif what == "uv_texture":
+        b = scenes.cornell_box(SceneBuilder(), spectral)
+        c = b.curve_index("white")
+        m = b.add_lambertian(b.add_texture([(np.ones((4, 4), np.float32), c)]))
+        b.add_sphere([0.5, 0.5, 0.3], 0.2, m)
+        world = b.build()
+    else:
+        world = scenes.random_prims(SceneBuilder(), spectral, grid=64,
+                                    n_each=4).build()
+    assert not tm.mega_available(world, cam, ts)
+    with pytest.raises(NotImplementedError, match=match[what]):
+        render_regen(world, cam, ts, 8, 8, 1)
+

@@ -1,6 +1,11 @@
 """Shared set-up of the port-versus-reference tests (test_torch_*.py): the
 same scene recipe built by both packages' builders, and a uniform source
-that replays the JAX megakernel's own draws into the port's render loop."""
+that replays the JAX megakernel's own draws into the port's render loop.
+
+The JAX `SceneBuilder` sets only constant environments (its parser builds
+Sun and HDR environments from TOML), so `JaxBuilder` adds the two setters
+the recipes call, by the steps of `parsing/construct.py:_build_environment`.
+"""
 
 import numpy as np
 import jax
@@ -12,7 +17,13 @@ from pathtracer_tpu.core import sampling
 from pathtracer_tpu.core import spectral as jax_spectral
 from pathtracer_tpu.integrator.pt import PTSettings as JaxSettings
 from pathtracer_tpu.kernels import megakernel as jm
-from pathtracer_tpu.parsing.builder import SceneBuilder as JaxBuilder
+from pathtracer_tpu.parsing.builder import SceneBuilder as _JaxSceneBuilder
+from pathtracer_tpu.world import importance_map as jax_imp
+from pathtracer_tpu.world.environment import (
+    ENV_HDR,
+    ENV_SUN,
+    Environment as JaxEnvironment,
+)
 from pathtracer_tpu_torch import scenes
 from pathtracer_tpu_torch.camera import make_projective_camera as torch_camera
 from pathtracer_tpu_torch.core import spectral as torch_spectral
@@ -20,11 +31,48 @@ from pathtracer_tpu_torch.integrator.pt import PTSettings as TorchSettings
 from pathtracer_tpu_torch.kernels import megakernel as tm
 from pathtracer_tpu_torch.parsing import SceneBuilder as TorchBuilder
 
+
+
+class JaxBuilder(_JaxSceneBuilder):
+    """The JAX SceneBuilder with the parser's Sun and HDRI environments."""
+
+    def set_environment_sun(self, curve_idx, strength, sun_direction,
+                            angular_diameter):
+        sd = np.asarray(sun_direction, np.float64)
+        sd = sd / np.linalg.norm(sd)
+        self.env = JaxEnvironment.constant(curve_idx, strength)._replace(
+            kind=jnp.int32(ENV_SUN),
+            sun_direction=jnp.asarray(sd, jnp.float32),
+            sun_cos_angle=jnp.float32(np.cos(angular_diameter / 2.0)))
+
+    def set_environment_hdr(self, tex_id, strength, imp_w, imp_h,
+                            rotation=None):
+        rot = np.eye(3) if rotation is None else np.asarray(rotation)
+        fields = dict(kind=jnp.int32(ENV_HDR), tex_id=jnp.int32(tex_id),
+                      rotation=jnp.asarray(np.linalg.inv(rot), jnp.float32),
+                      rotation_inv=jnp.asarray(rot, jnp.float32))
+        if imp_w and imp_h:
+            start, count = self.tex_ranges[tex_id]
+            marginal, row, pdf = jax_imp.bake_importance_tables(
+                self.tex_layers[start:start + count], self.curves,
+                int(imp_w), int(imp_h))
+            fields.update(imp_marginal_cdf=jnp.asarray(marginal),
+                          imp_row_cdf=jnp.asarray(row),
+                          imp_pdf=jnp.asarray(pdf),
+                          imp_baked=jnp.bool_(True))
+        self.env = JaxEnvironment.constant(0, strength)._replace(**fields)
+
+
 RECIPES = {
     "chip": (scenes.chip_scene, scenes.CORNELL_CAMERA),
     "cornell": (scenes.cornell_box, scenes.CORNELL_CAMERA),
     "sharp": (scenes.cornell_sharp, scenes.CORNELL_CAMERA),
     "furnace": (scenes.dispersive_furnace, scenes.FURNACE_CAMERA),
+    "gem": (scenes.gem_cornell, scenes.CORNELL_CAMERA),
+    "mesh": (scenes.mesh_cornell, scenes.CORNELL_CAMERA),
+    "hdri": (scenes.hdri_blob, scenes.SPHERE_CAMERA),
+    "hdr_furnace": (scenes.hdr_furnace, scenes.SPHERE_CAMERA),
+    "sun": (scenes.sun_sphere, scenes.SPHERE_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -71,8 +119,9 @@ def jax_settings_t(settings, c_lanes, width, height, n):
 
 class JaxReplay:
     """Uniform source for the port's render loop that yields exactly the blocks
-    pt_trace_regen_mega(key) draws: rnd0 from fold(key, 1), and round `it`
-    from fold_in(fold(key, 2), it)."""
+    pt_trace_regen_mega(key) draws: rnd0 from fold(key, 1); round `it` of the
+    fused round from fold_in(fold(key, 2), it), and stream s of the
+    two-program round from fold_in(fold_in(fold(key, 2), it), s)."""
 
     def __init__(self, key):
         self.key = key
@@ -82,9 +131,11 @@ class JaxReplay:
         u = jax.random.uniform(sampling.fold(self.key, 1), (n_pad, 5))
         return torch.as_tensor(np.array(u), device=device)
 
-    def round(self, it, rows, n_pad, device):
-        u = jax.random.uniform(jax.random.fold_in(self.k_iter, jnp.int32(it)),
-                               (rows, n_pad))
+    def round(self, it, rows, n_pad, device, stream=None):
+        k = jax.random.fold_in(self.k_iter, jnp.int32(it))
+        if stream is not None:
+            k = jax.random.fold_in(k, stream)
+        u = jax.random.uniform(k, (rows, n_pad))
         return torch.as_tensor(np.array(u), device=device)
 
 
@@ -126,6 +177,58 @@ def chained_rounds(recipe, c_lanes, rounds=3, width=64, spp=4):
     return out_rounds
 
 
+def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4):
+    """`rounds` rounds of the JAX two-program round (_k12_call + _k34_call,
+    interpret mode) and of the port's plain shade_sweep + finalize_sweep
+    (after env_feed for Sun and HDR environments), each chained on its own
+    state from the JAX initial state, with the uniform blocks the JAX calls
+    draw. Returns per round a dict: jax/port k2 rows, the alive mask going
+    in, jax state, port out (with the K2 counter rows at O4_SHADOW_CT and
+    O4_ENV_CT, as check_round reads them) and the jax counter delta."""
+    jw, tw, jc, tc = both_worlds(recipe)
+    js, ts = both_settings(**NEE_SETTINGS, hwss=c_lanes == 4)
+    n = width * width
+    n_pad = -(-n // tm.TILE) * tm.TILE
+    jscene = jm.build_mega_scene(jw, jc, js)
+    st_t = jax_settings_t(js, c_lanes, width, width, n)
+    ct_t = jm._freeze(jscene.consts)
+    tabs = (jscene.prim_tab, jscene.dense_tab, jscene.mat_tab,
+            jscene.light_tab, jscene.spec_tab, jscene.env_args, None, None)
+    key = jax.random.PRNGKey(3)
+    k_iter = sampling.fold(key, 2)
+    state, counters = jm._mega_init(jc, key, st_t, n, n_pad,
+                                    jnp.float32(spp))
+    tscene = tm.build_mega_scene(tw, tc)
+    a = tm.RoundArgs.make(tscene.consts, ts, width, width)
+    tstate = torch.as_tensor(np.array(state))
+    it = jnp.int32(0)
+    out_rounds = []
+    for _ in range(rounds):
+        ku = jax.random.fold_in(k_iter, it)
+        u12 = torch.as_tensor(np.array(jax.random.uniform(
+            jax.random.fold_in(ku, 0), (tm.n_u_rows(a.light_samples), n_pad))))
+        u34 = torch.as_tensor(np.array(jax.random.uniform(
+            jax.random.fold_in(ku, 1), (tm.NU4, n_pad))))
+        c0 = np.asarray(counters)
+        jk2 = jm._k12_call(state, tabs, k_iter, it, st_t, ct_t, True)
+        alive = np.asarray(state)[tm.S_ALIVE] > 0.5
+        state, counters, it = jm._k34_call(state, jk2, jscene.dense_tab,
+                                           counters, k_iter, it, st_t, ct_t,
+                                           True)
+        ef = (tm.env_feed(tscene.env, tstate, u12, a.light_samples, c_lanes)
+              if tscene.env is not None else None)
+        k2 = tm.shade_sweep(u12, tstate, tscene, a, ef)
+        out = tm.finalize_sweep(u34, tstate, k2, tscene, a)
+        tstate = out[:tm.NS]
+        out = out.numpy().copy()
+        out[tm.O4_SHADOW_CT] = k2[tm.O_SHADOW_CT].numpy()
+        out[tm.O4_ENV_CT] = k2[tm.O_ENV_CT].numpy()
+        out_rounds.append(dict(jk2=np.asarray(jk2), k2=k2.numpy(),
+                               alive=alive, state=np.asarray(state),
+                               out=out, counts=np.asarray(counters) - c0))
+    return out_rounds
+
+
 # the fused round's discrete state rows and counter rows (see
 # test_torch_fused_round.py for the tolerances check_round applies)
 DISCRETE = (tm.S_ALIVE, tm.S_BOUNCE, tm.S_DONE)
@@ -151,3 +254,31 @@ def check_round(ref_state, out, ref_counts):
         assert ok.mean() >= 0.995, f"row {row}: {ok.mean()} within 1e-4"
         np.testing.assert_allclose(y, x, rtol=5e-3, atol=1e-4,
                                    err_msg=f"row {row}")
+
+
+def check_k2(jk2, k2, alive, light_samples):
+    """K2 rows of the port's K12 against the JAX K12 on the lanes where K34
+    reads them (see test_torch_two_prog.py for the tolerances). The lane
+    fractions allow one lane where few lanes are at a surface: a bounce
+    ray that grazes the surface it left re-hits it at an ill-conditioned t."""
+    def few(bad, frac):
+        return bad.sum() <= max(1, frac * bad.size)
+
+    surf = jk2[tm.O_AT_SURF] > 0.5
+    disc = [tm.O_AT_SURF, tm.O_ENV_CT, tm.O_SHADOW_CT, tm.O_SAMPLE_OK] + [
+        tm.O_NEE + tm.NEE_ROWS * si + 7 for si in range(light_samples)]
+    live_rows = [tm.O_RAD + ci for ci in range(4)] + disc[:3]
+    for row in range(tm.O_NEE + tm.NEE_ROWS * light_samples):
+        if tm.O_MEDIUM <= row < tm.O_NEE:
+            assert not k2[row].any(), row
+            continue
+        m = alive if row in live_rows else surf
+        x, y = jk2[row][m], k2[row][m]
+        if row in disc:
+            assert few(x != y, 1e-3), f"k2 row {row}"
+            continue
+        ok = np.isclose(y, x, rtol=1e-4, atol=1e-5)
+        assert few(~ok, 5e-3), f"k2 row {row}: {ok.mean()} within 1e-4"
+        np.testing.assert_allclose(
+            y, x, rtol=2e-2 if row == tm.O_FPDF else 5e-3, atol=1e-4,
+            err_msg=f"k2 row {row}")
