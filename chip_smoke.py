@@ -2,16 +2,23 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from `pathtracer_tpu_torch/kernels/csrc`,
-holds each against its plain PyTorch twin on the card, then drives both
+holds each against its plain PyTorch twin on the card, then drives the three
 routes of the main path through `render_regen`: the Cornell chip scene
 (Cornell box, a dispersive glass sphere, a rough conductor sphere and an
 icosahedron) at 1080x1080, 16 spp, through the fused bounce-round kernel;
-and the two-program round (K12 `shade_sweep`, K34 `finalize_sweep`) on the
+the two-program round (K12 `shade_sweep`, K34 `finalize_sweep`) on the
 multi-chunk gem stand-in at 1080x1080, 8 spp, the 5,120-triangle mesh at
-1080x1080, 2 spp, and the HDR blob environment at 512x512, 16 spp. Films go
-to `output/`. Last, the dispersive hero-wavelength furnace and the HDR
-furnace must come out uniform. Every phase prints one JSON line; any failure
-raises and the script exits non-zero. The last line is the device summary:
+1080x1080, 2 spp, and the HDR blob environment at 512x512, 16 spp; and the
+texture-feed round (K1 `sweep_closest_rows`, the torch texture feed, K2
+`shade`, K34) on the uv-textured Cornell box at 1080x1080, 16 spp, whose
+checker wall must come out resolved. Films go to `output/`. Last, the
+dispersive hero-wavelength furnace and the HDR furnace must come out
+uniform. Every phase prints one JSON line; any failure raises and the
+script exits non-zero. Before the last line, one JSON line lists every
+kernel with its launches on the main path, its agreement with its twin, its
+time, its twin's and its bound (the least time the card could take: the
+larger of the f32 operations over 67 TFLOP/s and the bytes over 3.35 TB/s,
+the H100 SXM's published peaks). The last line is the device summary:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -66,6 +73,100 @@ def phase_device(torch):
     return smi
 
 
+# the least time the card could take (NVIDIA's H100 SXM data sheet): f32
+# outside the tensor cores, and HBM3
+PEAK_F32 = 67e12     # FLOP/s
+PEAK_BYTES = 3.35e12  # B/s
+# f32 arithmetic operations (add, sub, mul, div, sqrt) of one ray against
+# one prim, by prim type (triangle, sphere, rect, disk), counted from
+# csrc/sweep.cuh:prim_t, which runs only the prim's own test; an invalid
+# (padding) prim costs none
+PRIM_OPS = (44, 29, 63, 29)
+F32 = 4
+
+
+def sweep_ops(tab):
+    """f32 operations of one ray's sweep over every prim of a packed
+    table."""
+    ptype, valid = tab[:, 0].long(), tab[:, 1] > 0.5
+    return sum(int(((ptype == k) & valid).sum()) * PRIM_OPS[k]
+               for k in range(4))
+
+
+def bound(ops, nbytes):
+    """The least time for `ops` f32 operations and `nbytes` bytes moved,
+    in ms, and which of the two bounds it."""
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                bound_ops=int(ops), bound_bytes=int(nbytes))
+
+
+def table_bytes(scene):
+    return F32 * sum(int(t.numel()) for t in (
+        scene.prim_tab, scene.mat_tab, scene.light_tab, scene.spec_tab))
+
+
+def shadow_rays(torch, mk, dense, k2, scene, ls):
+    """Per NEE sample of a K2 block: (worth-tracing shadow rays, the unblocked
+    ones among them), the blocks found by the any-hit sweep kernel."""
+    out = []
+    for si in range(ls):
+        b = mk.O_NEE + mk.NEE_ROWS * si
+        worth = k2[b + 7] > 0.5
+        tmax = torch.where(worth, k2[b + 6], 0.0)[None]
+        rays = torch.cat([k2[b:b + 6], torch.full_like(tmax, 1e-6),
+                          tmax]).contiguous()
+        blocked = dense.sweep_any(rays, scene.dense_tab)[0] > 0.5
+        out.append((int(worth.sum()), int((worth & ~blocked).sum())))
+    return out
+
+
+def k34_bound(torch, mk, dense, k2, state, scene, a):
+    """K34: every lane's 32 state rows read and 40 out rows written; a live
+    lane's K2 rows and RR/respawn uniforms; each unblocked shadow ray tests
+    every prim, and a blocked one at least the cheapest single test."""
+    n = state.shape[1]
+    live = int((state[mk.S_ALIVE] > 0.5).sum())
+    c, ls = a.c_lanes, a.light_samples
+    k2_live = 3 * c + 9 + ls  # radiance, sample, ratios, pscale, worth
+    nbytes = F32 * (72 * n + live * (k2_live + 6))
+    ops = 0
+    for worth, free in shadow_rays(torch, mk, dense, k2, scene, ls):
+        nbytes += F32 * (7 * worth + c * free)
+        ops += free * sweep_ops(scene.dense_tab) + (worth - free) * min(
+            PRIM_OPS)
+    return bound(ops, nbytes + F32 * int(scene.dense_tab.shape[0]) * 11)
+
+
+def rows_bound(mk, state, tab):
+    """K1: every lane's alive flag, a live lane's ray rows and sweep, every
+    lane's 8 out rows."""
+    n = state.shape[1]
+    live = int((state[mk.S_ALIVE] > 0.5).sum())
+    return bound(live * sweep_ops(tab),
+                 F32 * (n + 6 * live + 8 * n + int(tab.shape[0]) * 11))
+
+
+def shade_bound(mk, state, scene, a, sweep, fed_rows):
+    """K12 (sweep) or K2: a live lane reads its ray, λ, β, radiance, bounce,
+    pdf (and HWSS pdf ratios) rows, the NEE and BSDF uniforms and
+    `fed_rows` more (K2: t, prim id and the texture rows); every lane's K2
+    rows are written. K12 sweeps the table for each live lane; the shading
+    arithmetic is not counted, so the operations are a lower bound."""
+    n = state.shape[1]
+    live = int((state[mk.S_ALIVE] > 0.5).sum())
+    c, ls = a.c_lanes, a.light_samples
+    rows = 8 + 3 * c + (c if c > 1 else 0) + 3 * ls + 3 + fed_rows
+    nbytes = F32 * (n + live * rows + mk.k2_rows(ls) * n) + table_bytes(scene)
+    ops = 0
+    if sweep:
+        nbytes += F32 * int(scene.dense_tab.shape[0]) * 11
+        ops = live * sweep_ops(scene.dense_tab)
+    return bound(ops, nbytes)
+
+
 def phase_build(torch):
     from pathtracer_tpu_torch.kernels import _build
 
@@ -75,13 +176,16 @@ def phase_build(torch):
     import ctypes
 
     attrs = {}
-    two_prog = {"shade_sweep": {}, "finalize_sweep": {}}
+    two_prog = {"shade_sweep": {}, "finalize_sweep": {}, "shade": {},
+                "sweep_closest_rows": {}}
     for c in (1, 4):
         regs, local = ctypes.c_int(), ctypes.c_int()
         rc = lib.fused_round_attrs(c, ctypes.byref(regs), ctypes.byref(local))
         check(rc == 0, f"fused_round_attrs: CUDA error {rc}")
         attrs[f"C{c}"] = dict(regs=regs.value, local_bytes=local.value)
         for which, name in enumerate(two_prog):
+            if name == "sweep_closest_rows" and c != 1:
+                continue  # one instantiation
             rc = lib.two_prog_attrs(which, c, ctypes.byref(regs),
                                     ctypes.byref(local))
             check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
@@ -108,7 +212,9 @@ def _rays(torch, n, gen, dev, tmax=None):
     return torch.cat([o, d, tmin, tm]).contiguous()
 
 
-def phase_sweep(torch, dev, n_rays):
+def sweep_tables(torch, dev):
+    """The sweep phases' tables: the chip scene's (28 prims) and a random
+    one of all four prim types (1,100 prims)."""
     from pathtracer_tpu_torch import scenes
     from pathtracer_tpu_torch.core import spectral
     from pathtracer_tpu_torch.kernels import dense
@@ -116,17 +222,22 @@ def phase_sweep(torch, dev, n_rays):
     from pathtracer_tpu_torch.camera import make_projective_camera
     from pathtracer_tpu_torch.parsing import SceneBuilder
 
-    chip = scenes.chip_scene(SceneBuilder(), spectral).build()
-    cam = make_projective_camera(**scenes.CORNELL_CAMERA)
-    rnd = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
-                              n_each=100).build()
-    p = rnd.prims
-    tabs = {
+    chip = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    p = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
+                            n_each=100).build("cpu").prims
+    return {
         "chip": build_mega_scene(chip, cam, dev).dense_tab,
         "random": torch.as_tensor(dense.pack_prims_np(
             p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
             p.pc.numpy()), device=dev),
     }
+
+
+def phase_sweep(torch, dev, n_rays):
+    from pathtracer_tpu_torch.kernels import dense
+
+    tabs = sweep_tables(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     res = {}
     for name, tab in tabs.items():
@@ -160,9 +271,69 @@ def phase_sweep(torch, dev, n_rays):
                          max_abs_err_t=err, closest_ms=ms,
                          closest_plain_ms=plain_ms, any_ms=ms_any,
                          any_plain_ms=plain_any,
-                         any_frac=float(ka.mean()))
+                         any_frac=float(ka.mean()),
+                         closest_bound=bound(
+                             n_rays * sweep_ops(tab),
+                             F32 * (10 * n_rays + int(tab.shape[0]) * 11)),
+                         # an unblocked ray tests every prim, a blocked one
+                         # at least the cheapest single test
+                         any_bound=bound(
+                             int((ka == 0).sum()) * sweep_ops(tab)
+                             + int(ka.sum()) * min(PRIM_OPS),
+                             F32 * (9 * n_rays + int(tab.shape[0]) * 11)))
     emit("sweep", **res)
     return res
+
+
+def phase_rows_sweep(torch, dev, n_lanes):
+    """K1 on a state of `n_lanes` lanes (random rays in rows S_O..S_D+2,
+    nine lanes in ten alive) against its twin: hit and prim id exact on
+    every lane, t within rtol 1e-5 on hits; a dead lane must read as a
+    miss."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    res = {}
+    for name, tab in sweep_tables(torch, dev).items():
+        state = torch.rand((mk.NS, n_lanes), generator=gen, device=dev)
+        state[mk.S_O:mk.S_O + 6] = _rays(torch, n_lanes, gen, dev)[:6]
+        state[mk.S_ALIVE] = (torch.rand(n_lanes, generator=gen, device=dev)
+                             < 0.9).float()
+
+        def run():
+            return dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE)
+
+        def twin():
+            return dense.sweep_closest_rows_plain(state, tab, mk.S_O,
+                                                  mk.S_ALIVE)
+
+        k, pl = run(), twin()
+        torch.cuda.synchronize()
+        err = compare_hits(torch, k, pl, f"rows sweep {name}")
+        dead = state[mk.S_ALIVE] <= 0.5
+        check(bool((k[1][dead] == -1).all() and (k[0][dead] == float("inf"))
+                   .all() and not k[2:].any()),
+              f"rows sweep {name}: a dead lane or a zero row is written")
+        res[name] = dict(
+            prims=int(tab.shape[0]), lanes=n_lanes, live=int((~dead).sum()),
+            hit_frac=float((k[1] >= 0).float().mean()), max_abs_err_t=err,
+            ms=cuda_ms(torch, run, 20), plain_ms=cuda_ms(torch, twin, 3),
+            **rows_bound(mk, state, tab))
+    emit("rows_sweep", **res)
+    return res
+
+
+def compare_hits(torch, k, p, what):
+    """[8, N] hit rows of a kernel and its twin: prim ids equal on every
+    lane, t within rtol 1e-5 where a prim was hit -> max abs t error."""
+    check(torch.equal(k[1], p[1]), f"{what}: prim ids differ on "
+          f"{int((k[1] != p[1]).sum())} lanes")
+    hit = k[1] >= 0
+    tk, tp = k[0][hit], p[0][hit]
+    check(torch.allclose(tk, tp, rtol=1e-5, atol=0.0),
+          f"{what}: t differs beyond rtol 1e-5")
+    return float((tk - tp).abs().max()) if tk.numel() else 0.0
 
 
 def compare_rows(torch, out_k, out_p, disc, rows):
@@ -232,8 +403,19 @@ def phase_round(torch, dev, width):
         plain_ms = cuda_ms(torch, lambda: mk.fused_round_plain(
             u, state0, scene.dense_tab, scene.prim_tab, scene.mat_tab,
             scene.light_tab, scene.spec_tab, a), 2)
+        # the bound of the timed call: every lane's state read and out
+        # written, a live lane's uniforms, its closest-hit sweep, and each
+        # shadow ray at least its cheapest single test
+        live = int((state0[mk.S_ALIVE] > 0.5).sum())
+        shadows = int(mk.fused_round(u, state0, scene, a)[
+            mk.O4_SHADOW_CT].sum())
         res[f"C{c}"] = dict(lanes=n_pad, rounds=rounds, ms=ms,
-                            plain_ms=plain_ms)
+                            plain_ms=plain_ms, **bound(
+                                live * sweep_ops(scene.dense_tab)
+                                + shadows * min(PRIM_OPS),
+                                F32 * (72 * n_pad + live * (nu - 1))
+                                + table_bytes(scene)
+                                + F32 * int(scene.dense_tab.shape[0]) * 11))
     emit("fused_round", **res)
     for key, r in res.items():
         for i, rd in enumerate(r["rounds"]):
@@ -266,6 +448,7 @@ def phase_two_prog(torch, dev, cases):
     """Three chained rounds of K12 + K34 against their plain twins, each
     route chained on its own state from one camera spawn; then the kernels'
     and the twins' times on the first round's inputs."""
+    from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
     res = {}
@@ -326,11 +509,15 @@ def phase_two_prog(torch, dev, cases):
                                                         scene, a), 10)
         plain34 = cuda_ms(torch, lambda: mk.finalize_sweep_plain(
             u34, state0, k2_0, scene.dense_tab, a), 2)
+        fed = 0 if ef0 is None else int(ef0.shape[0])
         res[f"{recipe}_{width}_C{c}"] = dict(
             lanes=n_pad, prims=int(scene.dense_tab.shape[0]),
             env_kind=scene.consts["env_kind"], rounds=rounds,
             shade_sweep_ms=ms12, shade_sweep_plain_ms=plain12,
-            finalize_sweep_ms=ms34, finalize_sweep_plain_ms=plain34)
+            finalize_sweep_ms=ms34, finalize_sweep_plain_ms=plain34,
+            shade_sweep_bound=shade_bound(mk, state0, scene, a, True, fed),
+            finalize_sweep_bound=k34_bound(torch, mk, dense, k2_0, state0,
+                                           scene, a))
         del sk, sp, ok, op, k2k, k2p, first, k2_0
         torch.cuda.empty_cache()
     emit("two_prog_round", **res)
@@ -346,10 +533,146 @@ def phase_two_prog(torch, dev, cases):
     return res
 
 
+def phase_texfeed(torch, dev, width):
+    """Three chained texture-feed rounds of textured_cornell at C = 1 and 4:
+    K1, K2 and K34 against their twins (each route chained on its own state
+    from one camera spawn, each fed by the torch texture feed of its own
+    hit rows); then the kernels', the twins' and the feed's times on the
+    first round's inputs, and the device kernels one round launches."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    res = {}
+    for c in (1, 4):
+        world, camera, settings, scene = _scene(
+            torch, dev, "textured_cornell", "TEXTURED_CAMERA", c)
+        check(scene.tex is not None and not mk.fused_ok(scene),
+              "textured_cornell does not ride the texture-feed round")
+        a = mk.RoundArgs.make(scene.consts, settings, width, width)
+        n = width * width
+        n_pad = -(-n // mk.TILE) * mk.TILE
+        gen = torch.Generator(device=dev).manual_seed(23 + c)
+        state0, _ = mk.mega_init(
+            camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+            n_pad, 16)
+        ls = a.light_samples
+        k2_disc = [mk.O_AT_SURF, mk.O_ENV_CT, mk.O_SHADOW_CT,
+                   mk.O_SAMPLE_OK] + [mk.O_NEE + mk.NEE_ROWS * si + 7
+                                      for si in range(ls)]
+        out_disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+                    mk.O4_CAMERA_CT]
+
+        def k1(st):
+            return dense.sweep_closest_rows(st, scene.dense_tab, mk.S_O,
+                                            mk.S_ALIVE)
+
+        def k1_plain(st):
+            return dense.sweep_closest_rows_plain(st, scene.dense_tab,
+                                                  mk.S_O, mk.S_ALIVE)
+
+        def k2_plain(u12, st, tp, tf):
+            return mk.shade_plain(u12, st, tp, scene.prim_tab, scene.mat_tab,
+                                  scene.light_tab, scene.spec_tab, a, None,
+                                  tf)
+
+        sk = sp = state0
+        rounds, first = [], None
+        for r in range(3):
+            u12 = torch.rand((mk.n_u_rows(ls), n_pad), generator=gen,
+                             device=dev)
+            u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+            tpk, tpp = k1(sk), k1_plain(sp)
+            tfk = mk.tex_feed(scene.tex, sk, tpk, c)
+            tfp = mk.tex_feed(scene.tex, sp, tpp, c)
+            k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk)
+            k2p = k2_plain(u12, sp, tpp, tfp)
+            ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+            op = mk.finalize_sweep_plain(u34, sp, k2p, scene.dense_tab, a)
+            torch.cuda.synchronize()
+            err1 = compare_hits(torch, tpk, tpp, f"K1 C{c} #{r}")
+            f2, bad2, err2, rel2 = compare_rows(torch, k2k, k2p, k2_disc,
+                                                range(k2k.shape[0]))
+            f34, bad34, err34, rel34 = compare_rows(torch, ok, op, out_disc,
+                                                    range(mk.NS))
+            rounds.append(dict(
+                k1=dict(max_abs_err_t=err1,
+                        hit_frac=float((tpk[1] >= 0).float().mean())),
+                tf_equal=bool(torch.equal(tfk, tfp)),
+                k2=dict(match_frac=f2, bad_rows=bad2, max_abs_err=err2,
+                        max_rel_err_bad=rel2),
+                k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
+                         max_rel_err_bad=rel34),
+                alive=float(ok[mk.S_ALIVE].sum()),
+                textured=float((tfk[0] > 0).sum())))
+            if first is None:
+                first = (u12, u34, tpk, tfk, k2k)
+            sk, sp = ok[:mk.NS], op[:mk.NS]
+        u12, u34, tp0, tf0, k2_0 = first
+        kernels = dict(
+            sweep_closest_rows=dict(
+                ms=cuda_ms(torch, lambda: k1(state0), 10),
+                plain_ms=cuda_ms(torch, lambda: k1_plain(state0), 2),
+                **rows_bound(mk, state0, scene.dense_tab)),
+            shade=dict(
+                ms=cuda_ms(torch, lambda: mk.shade(u12, state0, tp0, scene, a,
+                                                   tf=tf0), 10),
+                plain_ms=cuda_ms(torch, lambda: k2_plain(u12, state0, tp0,
+                                                         tf0), 2),
+                **shade_bound(mk, state0, scene, a, False, 2 + c)),
+            finalize_sweep=dict(
+                ms=cuda_ms(torch, lambda: mk.finalize_sweep(
+                    u34, state0, k2_0, scene, a), 10),
+                plain_ms=cuda_ms(torch, lambda: mk.finalize_sweep_plain(
+                    u34, state0, k2_0, scene.dense_tab, a), 2),
+                **k34_bound(torch, mk, dense, k2_0, state0, scene, a)))
+        tex_feed_ms = cuda_ms(torch, lambda: mk.tex_feed(scene.tex, state0,
+                                                         tp0, c), 10)
+        # device kernels of one tex_feed call and of one whole round
+        unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(1))
+        launches = {}
+        for what, fn in (("tex_feed", lambda: mk.tex_feed(scene.tex, state0,
+                                                          tp0, c)),
+                         ("round", lambda: mk.texfeed_round(
+                             state0, scene, a, unif, 0))):
+            launches[what] = device_kernels(torch, fn)
+        res[f"C{c}"] = dict(lanes=n_pad, live=int(
+            (state0[mk.S_ALIVE] > 0.5).sum()), rounds=rounds,
+            tex_feed_ms=tex_feed_ms, device_kernels=launches, **kernels)
+        del sk, sp, ok, op, k2k, k2p, first, k2_0
+        torch.cuda.empty_cache()
+    emit("texfeed_round", **res)
+    for key, r in res.items():
+        for i, rd in enumerate(r["rounds"]):
+            check(rd["tf_equal"], f"tex_feed {key} #{i}: the two routes' "
+                  "feeds differ")
+            for k in ("k2", "k34"):
+                check(rd[k]["match_frac"] >= 0.9999,
+                      f"{k} {key} #{i}: discrete rows match on only "
+                      f"{rd[k]['match_frac']:.6f} of lanes")
+                check(not rd[k]["bad_rows"],
+                      f"{k} {key} #{i}: rows beyond rtol 1e-4 atol 1e-5: "
+                      f"{rd[k]['bad_rows']}")
+    return res
+
+
+def device_kernels(torch, fn):
+    """The device kernels (and copies) one call of `fn` launches, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def reset_counts(mk, dense):
     mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
-    mk.PLAIN_CALLS = 0
-    dense.LAUNCHES = 0
+    mk.K2_LAUNCHES = mk.PLAIN_CALLS = 0
+    dense.LAUNCHES = dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
 
 
 def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
@@ -395,6 +718,93 @@ def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
          mean_y=mean_y, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches=counts, exr=os.path.relpath(exr, ROOT),
          png=os.path.relpath(png, ROOT))
+    return dict(counts, rounds=rounds)
+
+
+def phase_render_textured(torch, dev, width, spp):
+    """The texture-feed route's render of textured_cornell: K1, K2 and K34
+    each launch once a round, K12, the fused kernel and the plain twins
+    never; the film is finite and lit and the checker wall's tiles are
+    resolved. Then a warm render, and a third under torch.profiler: the
+    device's busy share (the union of kernel intervals over the profiled
+    wall) and the kernels' device time."""
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    world, camera, settings, _ = _scene(torch, dev, "textured_cornell",
+                                        "TEXTURED_CAMERA", 1)
+
+    def render(seed, stats=None):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return render_regen(world, camera, settings, width, width, spp,
+                            generator=gen, device=dev, stats=stats)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mk, dense)
+    stats = {}
+    film, profile, elapsed = render(2026, stats)
+    counts = dict(sweep_closest_rows=dense.ROWS_LAUNCHES,
+                  shade=mk.K2_LAUNCHES, finalize_sweep=mk.FINALIZE_LAUNCHES,
+                  shade_sweep=mk.SHADE_LAUNCHES,
+                  fused_round=mk.FUSED_LAUNCHES,
+                  plain_calls=mk.PLAIN_CALLS + dense.ROWS_PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rounds = stats["rounds"]
+    check(counts["sweep_closest_rows"] == counts["shade"]
+          == counts["finalize_sweep"] == rounds > 0,
+          f"textured: K1/K2/K34 launches {counts} != rounds {rounds}")
+    check(counts["shade_sweep"] == counts["fused_round"]
+          == counts["plain_calls"] == 0,
+          f"textured: K12, fused or plain rounds ran on the main path: "
+          f"{counts}")
+    film_h = film.cpu()
+    check(bool(torch.isfinite(film_h).all()), "textured: non-finite film")
+    mean_y = float(film_h[..., 1].mean())
+    check(mean_y > 0.0, "textured: film is black")
+    odd, even, n_sel = scenes.checker_tiles(film_h[..., 1], camera)
+    check(n_sel > 200 and max(odd, even) > 1.5 * min(odd, even),
+          f"textured: checker not resolved ({odd:.4g} vs {even:.4g} over "
+          f"{n_sel} pixels)")
+    exr, png = output_film(film_h, f"textured_cornell_{width}", Reinhard0(),
+                           output_dir=os.path.join(ROOT, "output"))
+    rays = profile.total_rays
+    _, warm_profile, warm_s = render(2027)
+
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render(2028)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for t0_, t1_, name in spans:
+        busy += max(0.0, t1_ - max(t0_, end))
+        end = max(end, t1_)
+        by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
+    device_us = sum(by_name.values())
+    top = dict(sorted(((k[:60], round(v / 1e3, 3)) for k, v in
+                       by_name.items()), key=lambda kv: -kv[1])[:8])
+    emit("main_path", scene="textured_cornell", width=width, height=width,
+         spp=spp, c_lanes=1, rounds=rounds, wall_s=elapsed,
+         mrays_per_s=rays / elapsed / 1e6, warm_wall_s=warm_s,
+         warm_mrays_per_s=warm_profile.total_rays / warm_s / 1e6,
+         camera_rays=profile.camera_rays, bounce_rays=profile.bounce_rays,
+         shadow_rays=profile.shadow_rays, env_hits=profile.env_hits,
+         mean_y=mean_y, checker_odd_y=odd, checker_even_y=even,
+         checker_pixels=n_sel, peak_gb=peak_gb, launches=counts,
+         profiled_wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+         device_busy_ms=busy / 1e3, device_busy_share=busy / wall_us,
+         device_kernels=len(spans), device_ms_by_kernel=top,
+         exr=os.path.relpath(exr, ROOT), png=os.path.relpath(png, ROOT))
     return dict(counts, rounds=rounds)
 
 
@@ -512,8 +922,10 @@ def main():
     phase_device(torch)
     phase_build(torch)
     sweep = phase_sweep(torch, dev, SWEEP_RAYS)
+    rows = phase_rows_sweep(torch, dev, SWEEP_RAYS)
     rnd = phase_round(torch, dev, WIDTH)
     two = phase_two_prog(torch, dev, TWO_PROG_CASES)
+    tex = phase_texfeed(torch, dev, WIDTH)
     main_path = phase_render(torch, dev, WIDTH, SPP)
     gem = phase_render_two_prog(torch, dev, "gem_cornell", "CORNELL_CAMERA",
                                 WIDTH, 8, 12)
@@ -521,41 +933,66 @@ def main():
                           WIDTH, 2, 8)
     phase_render_two_prog(torch, dev, "hdri_blob", "SPHERE_CAMERA", 512, 16,
                           12)
+    textured = phase_render_textured(torch, dev, WIDTH, SPP)
     phase_furnace(torch, dev)
     phase_hdr_furnace(torch, dev)
     c1 = rnd["C1"]
     err = max(rd["max_abs_err"] for r in rnd.values() for rd in r["rounds"])
     gem1 = two["gem_cornell_1080_C1"]
+    tex1 = tex["C1"]
 
     def two_err(k):
         return max(rd[k]["max_abs_err"] for r in two.values()
                    for rd in r["rounds"])
 
+    def tex_err(k, key="max_abs_err"):
+        return max(rd[k][key] for r in tex.values() for rd in r["rounds"])
+
+    def timed(d, prefix=""):
+        """ms, plain_ms and the bound of a phase's record; no PyTorch call
+        computes a closest-hit sweep or a bounce round (library_ms)."""
+        b = d.get(f"{prefix}bound", d)
+        return dict(ms=d[f"{prefix}ms"], plain_ms=d[f"{prefix}plain_ms"],
+                    bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                    library_ms=None)
+
     src = "pathtracer_tpu_torch/kernels/csrc/"
     kernels = {"kernels": [
         dict(name="fused_round", route="cuda", source=src + "fused_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:3218",
-             launches=main_path["launches"], max_abs_err=err, ms=c1["ms"],
-             plain_ms=c1["plain_ms"]),
+             launches=main_path["launches"], max_abs_err=err, **timed(c1)),
         dict(name="shade_sweep", route="cuda", source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:2137",
              launches=gem["shade_sweep"], max_abs_err=two_err("k12"),
-             ms=gem1["shade_sweep_ms"], plain_ms=gem1["shade_sweep_plain_ms"]),
+             **timed(gem1, "shade_sweep_")),
         dict(name="finalize_sweep", route="cuda",
              source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:2204",
-             launches=gem["finalize_sweep"], max_abs_err=two_err("k34"),
-             ms=gem1["finalize_sweep_ms"],
-             plain_ms=gem1["finalize_sweep_plain_ms"])],
-        # the sweep device code (sweep.cuh) is inlined in all three round
+             launches=gem["finalize_sweep"],
+             max_abs_err=max(two_err("k34"), tex_err("k34")),
+             **timed(gem1, "finalize_sweep_")),
+        dict(name="sweep_closest_rows", route="cuda",
+             source=src + "two_prog_round.cu",
+             replaces="pathtracer_tpu/kernels/dense.py:722",
+             launches=textured["sweep_closest_rows"],
+             max_abs_err=max([tex_err("k1", "max_abs_err_t")]
+                             + [r["max_abs_err_t"] for r in rows.values()]),
+             **timed(tex1["sweep_closest_rows"])),
+        dict(name="shade", route="cuda", source=src + "two_prog_round.cu",
+             replaces="pathtracer_tpu/kernels/megakernel.py:2091",
+             launches=textured["shade"], max_abs_err=tex_err("k2"),
+             **timed(tex1["shade"]))],
+        # the sweep device code (sweep.cuh) is inlined in all the round
         # kernels; dense_sweep.cu launches it on its own only in this check
         "inlined": [dict(
             name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
-            inlined_in=["fused_round", "shade_sweep", "finalize_sweep"],
+            inlined_in=["fused_round", "shade_sweep", "finalize_sweep",
+                        "sweep_closest_rows"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
-            ms=sweep["chip"]["closest_ms"],
-            plain_ms=sweep["chip"]["closest_plain_ms"])]}
+            **timed(dict(ms=sweep["chip"]["closest_ms"],
+                         plain_ms=sweep["chip"]["closest_plain_ms"],
+                         **sweep["chip"]["closest_bound"])))]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from pathtracer_tpu_torch.camera.aperture import sample_aperture
+from pathtracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _normalize(a, eps: float = 1e-20):
@@ -54,8 +55,10 @@ class ProjectiveCamera:
 _FIELDS = {f.name for f in dataclasses.fields(ProjectiveCamera)}
 
 
-def camera_from_numpy(fields: dict, device="cpu") -> ProjectiveCamera:
-    """The JAX `ProjectiveCamera`'s leaves (numpy, by field name) -> port."""
+def camera_from_numpy(fields: dict, device=DEFAULT_DEVICE) -> ProjectiveCamera:
+    """The JAX `ProjectiveCamera`'s leaves (numpy, by field name) -> port,
+    on `device` (the card by default; raises without one)."""
+    device = resolve_device(device)
     kw = {}
     for name in _FIELDS:
         a = np.asarray(fields[name])
@@ -74,7 +77,7 @@ def make_projective_camera(
     aspect_ratio: float = 1.0,
     blades: int = 0,
     blade_sharpness: float = 1.0,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> ProjectiveCamera:
     lf = np.asarray(look_from, np.float64)
     la = np.asarray(look_at, np.float64)

@@ -113,7 +113,13 @@ _SIGNATURES = {
                            _P, _P],
     # (u, state, k2, out, n, dense, p_dense, args*, stream)
     "finalize_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _P],
-    # (c_lanes, regs*, local_bytes*); (which: 0 K12, 1 K34, c_lanes, ...)
+    # (src, row0, alive_row, dense, p_dense, out, n, stream)
+    "sweep_closest_rows_launch": [_P, _I, _I, _P, _I, _P, _I, _P],
+    # (u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light, spec, args*,
+    #  stream)
+    "shade_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    # (c_lanes, regs*, local_bytes*); (which: 0 K12, 1 K34, 2 K2, 3 K1,
+    # c_lanes, ...)
     "fused_round_attrs": [_I, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],
     "round_args_size": [],

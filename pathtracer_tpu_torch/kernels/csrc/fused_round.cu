@@ -73,8 +73,8 @@ __device__ __forceinline__ void fused_round_body(
   Bounce<C> B{};
   if (at_surface) {
     Surface<C> S;
-    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, a,
-                  S);
+    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, nullptr, N, i,
+                  a, S);
     for (int si = 0; si < ls; ++si) {
       NeeSample<C> r;
       nee_sample<C>(L, S, si, U(3 * si), U(3 * si + 1), U(3 * si + 2), light,

@@ -58,7 +58,7 @@ constexpr int O_DNEW = 16, O_PSCALE = 19, O_NEE = 30, NEE_ROWS = 12;
 constexpr int R_NA = 11, R_NB = 14, R_NC = 17, R_MAT = 20, R_KIND = 21;
 constexpr int R_AREA = 22;
 constexpr int M_TYPE = 0, M_ALPHA = 1, M_METAL = 2, M_PERM = 3, M_SIDE = 4;
-constexpr int M_SHARP = 5, M_RSCALE = 6;
+constexpr int M_SHARP = 5, M_RSCALE = 6, M_TEXF = 7;
 constexpr int L_PA = 0, L_PB = 3, L_PC = 6, L_PTYPE = 9, L_AREA = 10;
 constexpr int L_MAT = 11, L_MTYPE = 12, L_SIDE = 13, L_SHARP = 14;
 constexpr float MAT_GGX = 1.f, MAT_DIFFUSE_LIGHT = 2.f, MAT_SHARP_LIGHT = 3.f;
@@ -255,12 +255,15 @@ struct Surface {
 
 // hit attributes of prim `pid` (an indexed load of its prim_tab column),
 // the emission add at a light hit with MIS against NEE, the shading frame
-// and the material's parameters and spectra at the lane's λs
+// and the material's parameters and spectra at the lane's λs. A lambertian
+// flagged M_TEXF takes its reflectance from the texture-feed rows tf (C
+// rows; null outside the texture-feed round), any other from its baked row
 template <int C>
 __device__ __forceinline__ void surface_at(
     Lane<C>& L, const float* __restrict__ prim, int p_pad, int pid,
     float t_hit, float kind, const float* __restrict__ mat,
-    const float* __restrict__ spec, const RoundArgs& a, Surface<C>& S) {
+    const float* __restrict__ spec, const float* __restrict__ tf, size_t N,
+    int i, const RoundArgs& a, Surface<C>& S) {
   auto A = [&](int r) { return __ldg(prim + r * p_pad + pid); };
   const V3 o = L.o, d = L.d;
   V3 pa{A(2), A(3), A(4)}, pb{A(5), A(6), A(7)}, pc{A(8), A(9), A(10)};
@@ -315,12 +318,14 @@ __device__ __forceinline__ void surface_at(
   S.metal = M(M_METAL);
   S.perm = M(M_PERM);
   const float rscale = M(M_RSCALE);
+  const bool fed = tf != nullptr && M(M_TEXF) > 0.5f;
 #pragma unroll
   for (int ci = 0; ci < C; ++ci) {
     S.eta_i[ci] = spec_at(spec, 5 * mid + 0, L.lp[ci]);
     S.eta_o[ci] = spec_at(spec, 5 * mid + 1, L.lp[ci]);
     S.kappa[ci] = spec_at(spec, 5 * mid + 2, L.lp[ci]);
-    S.refl[ci] = rscale * spec_at(spec, 5 * mid + 3, L.lp[ci]);
+    S.refl[ci] = fed ? tf[ci * N + i]
+                     : rscale * spec_at(spec, 5 * mid + 3, L.lp[ci]);
   }
 }
 

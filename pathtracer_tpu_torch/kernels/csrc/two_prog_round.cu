@@ -1,15 +1,23 @@
-// The two-program bounce round: K12 (closest-hit sweep + shading) and K34
-// (NEE shadow sweeps + finalize).
+// The two-program bounce round, K12 (closest-hit sweep + shading) and K34
+// (NEE shadow sweeps + finalize), and the texture-feed round's K1 (the
+// closest-hit rows sweep) and K2 (shading from K1's rows).
 //
 // Replaces pathtracer_tpu/kernels/megakernel.py:_k12_call (the Pallas call
-// of _shade_sweep_kernel -> _shade_body) and _k34_call (the Pallas call of
-// _finalize_sweep_kernel -> _finalize_body -> _finalize_core): the round of
-// every megakernel scene outside the fused gate, up to 8192 prims and with
-// constant, Sun and HDR environments. K12 writes the K2 rows that K34 reads
-// ([k2_rows(ls), n]: radiance after the emission adds, the BSDF sample and
-// its ratios, and per light sample the shadow ray, its worth and its
-// contribution); K34 writes the new state and counter rows ([40, n]). The
-// per-lane device code is round_common.cuh, shared with the fused round.
+// of _shade_sweep_kernel -> _shade_body), _k34_call (the Pallas call of
+// _finalize_sweep_kernel -> _finalize_body -> _finalize_core) and _k2_call
+// (the Pallas call of _shade_kernel -> _shade_body), and
+// pathtracer_tpu/kernels/dense.py:sweep_closest_rows (the Pallas call of
+// _closest_rows_kernel): the rounds of every megakernel scene outside the
+// fused gate, up to 8192 prims and with constant, Sun and HDR
+// environments. K12 writes the K2 rows that K34 reads ([k2_rows(ls), n]:
+// radiance after the emission adds, the BSDF sample and its ratios, and per
+// light sample the shadow ray, its worth and its contribution); K34 writes
+// the new state and counter rows ([40, n]). Scenes with uv-textured
+// lambertians split K12 in two, because the texture feed between them
+// (torch, kernels/megakernel.py:tex_feed) needs the hit: K1 writes [8, n]
+// rows (t, prim id | -1, zeros) and K2 the same K2 rows as K12, taking a
+// textured lambertian's reflectance from the feed's rows. The per-lane
+// device code is round_common.cuh, shared with the fused round.
 //
 // One thread runs one lane; the medium branch (medium-aware transport) is
 // not ported yet. What bounds it on the H100: the sweeps. A live lane tests
@@ -24,7 +32,9 @@
 // cache (the JAX package's one-hot MXU fetch, _prim_attr_fetch). The
 // JAX package skips whole dead tiles; here each dead lane skips: K12 writes
 // 0 to every K2 row of a dead lane, K34 passes its state through, exactly
-// as the plain twins do.
+// as the plain twins do. K1 skips dead lanes too (t = inf, id = -1 there),
+// where the Pallas rows sweep sweeps every lane. K2 sweeps nothing: it is
+// bound by its state, K2-row and table reads, about 0.6 KB per lane.
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
@@ -38,40 +48,66 @@ constexpr int BLOCK = 128;
 constexpr int TILE_P = 256;  // prims per staged tile: 256 x 12 floats = 12 KB
 constexpr int MAX_PRIMS = 8192;  // the megakernel gate
 
-template <int C>
-__global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
-    const float* __restrict__ u, const float* __restrict__ state,
-    const float* __restrict__ ef, float* __restrict__ k2, int n,
-    const float* __restrict__ dense, int p_dense,
-    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
-    const float* __restrict__ light, const float* __restrict__ spec,
-    const RoundArgs a) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const size_t N = (size_t)n;
-  const bool live = i < n && state[S_ALIVE * N + i] > 0.5f;
-  V3 o{0.f, 0.f, 0.f}, d{0.f, 0.f, 0.f};
-  if (live) {
-    o = V3{state[S_O * N + i], state[(S_O + 1) * N + i],
-           state[(S_O + 2) * N + i]};
-    d = V3{state[S_D * N + i], state[(S_D + 1) * N + i],
-           state[(S_D + 2) * N + i]};
-  }
-  // ---- closest hit: every thread walks every tile (the syncs need the
-  // whole block); ids rise with the tiles, so strict '<' keeps the lowest
-  // id among equal t
-  float t_hit = INFINITY;
-  int pid = -1;
+// the closest hit of a live lane's ray (o, d) over the dense table, staged
+// in TILE_P-prim tiles that every thread of the block walks (the syncs need
+// the whole block); ids rise with the tiles, so strict '<' keeps the lowest
+// id among equal t. A miss leaves t_hit = inf, pid = -1
+__device__ __forceinline__ void closest_tiles(const float* __restrict__ dense,
+                                              int p_dense, float* prims,
+                                              bool live, V3 o, V3 d,
+                                              float* t_hit, int* pid) {
   for (int p0 = 0; p0 < p_dense; p0 += TILE_P) {
     const int cnt = min(TILE_P, p_dense - p0);
     __syncthreads();
     pt::stage_prims(dense, p0, cnt, prims);
     __syncthreads();
     if (live)
-      pt::sweep_closest_dev(prims, cnt, p0, o, d, T_MIN, RAY_TMAX, &t_hit,
-                            &pid);
+      pt::sweep_closest_dev(prims, cnt, p0, o, d, T_MIN, RAY_TMAX, t_hit,
+                            pid);
   }
+}
+
+__device__ __forceinline__ void load_ray(const float* __restrict__ src,
+                                         size_t N, int i, int row0, V3* o,
+                                         V3* d) {
+  *o = V3{src[row0 * N + i], src[(row0 + 1) * N + i],
+          src[(row0 + 2) * N + i]};
+  *d = V3{src[(row0 + 3) * N + i], src[(row0 + 4) * N + i],
+          src[(row0 + 5) * N + i]};
+}
+
+// K1: the closest hit of every live lane's ray, read in place from rows
+// row0 .. row0 + 5 of src -> out [8, n]: t, prim id (-1 on a miss and on a
+// dead lane, whose t is inf), zeros
+__global__ void __launch_bounds__(BLOCK) sweep_closest_rows_kernel(
+    const float* __restrict__ src, int row0, int alive_row,
+    const float* __restrict__ dense, int p_dense, float* __restrict__ out,
+    int n) {
+  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const size_t N = (size_t)n;
+  const bool live = i < n && src[alive_row * N + i] > 0.5f;
+  V3 o{0.f, 0.f, 0.f}, d{0.f, 0.f, 0.f};
+  if (live) load_ray(src, N, i, row0, &o, &d);
+  float t_hit = INFINITY;
+  int pid = -1;
+  closest_tiles(dense, p_dense, prims, live, o, d, &t_hit, &pid);
   if (i >= n) return;
+  out[i] = t_hit;
+  out[N + i] = (float)pid;
+  for (int r = 2; r < 8; ++r) out[r * N + i] = 0.0f;
+}
+
+// the K2 rows of one lane from its closest hit (pid -1: none): shading, the
+// NEE samples and the BSDF sample; all 0 for a dead lane
+template <int C>
+__device__ __forceinline__ void shade_lane(
+    bool live, float t_hit, int pid, const float* __restrict__ u,
+    const float* __restrict__ state, const float* __restrict__ ef,
+    const float* __restrict__ tf, float* __restrict__ k2, size_t N, int i,
+    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
+    const float* __restrict__ light, const float* __restrict__ spec,
+    const RoundArgs& a) {
   const int ls = a.light_samples;
   const int nk2 = k2_rows(ls);
   auto K = [&](int r, float v) { k2[r * N + i] = v; };
@@ -82,7 +118,7 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
   auto U = [&](int r) { return u[r * N + i]; };
   Lane<C> L;
   load_lane<C>(state, N, i, a, L);
-  const bool hit = t_hit < INFINITY;
+  const bool hit = pid >= 0;
   const float kind = hit ? __ldg(prim + R_KIND * p_pad + pid) : 0.0f;
   const bool at_surface = hit && kind != 2.0f;
   if (!hit) escape_add<C>(L, spec, ef, N, i, a);
@@ -90,7 +126,8 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
   float shadow_ct = 0.0f;
   if (at_surface) {
     Surface<C> S;
-    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, a, S);
+    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, tf, N, i, a,
+                  S);
     for (int si = 0; si < ls; ++si) {
       NeeSample<C> r;
       nee_sample<C>(L, S, si, U(3 * si), U(3 * si + 1), U(3 * si + 2), light,
@@ -139,6 +176,47 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
   K(O_SHADOW_CT, shadow_ct);
   for (int r = O_PSCALE + C_LANES; r < O_NEE; ++r) K(r, 0.0f);  // medium
   for (int r = O_NEE + NEE_ROWS * ls; r < nk2; ++r) K(r, 0.0f);
+}
+
+// K12: the closest hit, then the shading
+template <int C>
+__global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
+    const float* __restrict__ u, const float* __restrict__ state,
+    const float* __restrict__ ef, float* __restrict__ k2, int n,
+    const float* __restrict__ dense, int p_dense,
+    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
+    const float* __restrict__ light, const float* __restrict__ spec,
+    const RoundArgs a) {
+  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const size_t N = (size_t)n;
+  const bool live = i < n && state[S_ALIVE * N + i] > 0.5f;
+  V3 o{0.f, 0.f, 0.f}, d{0.f, 0.f, 0.f};
+  if (live) load_ray(state, N, i, S_O, &o, &d);
+  float t_hit = INFINITY;
+  int pid = -1;
+  closest_tiles(dense, p_dense, prims, live, o, d, &t_hit, &pid);
+  if (i >= n) return;
+  shade_lane<C>(live, t_hit, pid, u, state, ef, nullptr, k2, N, i, prim,
+                p_pad, mat, light, spec, a);
+}
+
+// K2: the shading from K1's rows tp [8, n] (t, prim id | -1), with the
+// texture-feed rows tf [tf_rows(C), n] (null: every reflectance baked)
+template <int C>
+__global__ void __launch_bounds__(BLOCK) shade_kernel(
+    const float* __restrict__ u, const float* __restrict__ state,
+    const float* __restrict__ tp, const float* __restrict__ ef,
+    const float* __restrict__ tf, float* __restrict__ k2, int n,
+    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
+    const float* __restrict__ light, const float* __restrict__ spec,
+    const RoundArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  const bool live = state[S_ALIVE * N + i] > 0.5f;
+  shade_lane<C>(live, tp[i], live ? (int)tp[N + i] : -1, u, state, ef, tf,
+                k2, N, i, prim, p_pad, mat, light, spec, a);
 }
 
 template <int C>
@@ -222,6 +300,19 @@ int launch_shade(const float* u, const float* state, const float* ef,
 }
 
 template <int C>
+int launch_k2(const float* u, const float* state, const float* tp,
+              const float* ef, const float* tf, float* k2, int n,
+              const float* prim, int p_pad, const float* mat,
+              const float* light, const float* spec, const RoundArgs& a,
+              cudaStream_t stream) {
+  int grid = (n + BLOCK - 1) / BLOCK;
+  shade_kernel<C><<<grid, BLOCK, 0, stream>>>(u, state, tp, ef, tf, k2, n,
+                                              prim, p_pad, mat, light, spec,
+                                              a);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
 int launch_finalize(const float* u, const float* state, const float* k2,
                     float* out, int n, const float* dense, int p_dense,
                     const RoundArgs& a, cudaStream_t stream) {
@@ -265,6 +356,38 @@ int shade_sweep_launch(const float* u, const float* state, const float* ef,
   return (int)cudaErrorInvalidValue;
 }
 
+// K1: src [>= row0 + 6, n] (rays in rows row0 .. row0 + 5, alive flag in
+// row alive_row), dense [p_dense, 128] -> out [8, n]
+int sweep_closest_rows_launch(const float* src, int row0, int alive_row,
+                              const float* dense, int p_dense, float* out,
+                              int n, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
+  int grid = (n + BLOCK - 1) / BLOCK;
+  sweep_closest_rows_kernel<<<grid, BLOCK, 0, stream>>>(
+      src, row0, alive_row, dense, p_dense, out, n);
+  return (int)cudaGetLastError();
+}
+
+// K2: u [n_u_rows(ls), n], state [32, n], tp [8, n], ef as K12's, tf
+// [tf_rows(C), n] or null -> k2 [k2_rows(ls), n]
+int shade_launch(const float* u, const float* state, const float* tp,
+                 const float* ef, const float* tf, float* k2, int n,
+                 const float* prim, int p_pad, const float* mat,
+                 const float* light, const float* spec, const RoundArgs* args,
+                 cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if ((args->env_kind != ENV_CONSTANT) != (ef != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (args->c_lanes == 1)
+    return launch_k2<1>(u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light,
+                        spec, *args, stream);
+  if (args->c_lanes == 4)
+    return launch_k2<4>(u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light,
+                        spec, *args, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // K34: u [8, n], state [32, n], k2 [k2_rows(ls), n] -> out [40, n]
 int finalize_sweep_launch(const float* u, const float* state, const float* k2,
                           float* out, int n, const float* dense, int p_dense,
@@ -280,16 +403,19 @@ int finalize_sweep_launch(const float* u, const float* state, const float* k2,
   return (int)cudaErrorInvalidValue;
 }
 
-// registers per thread and local (spill) bytes of K12 (which 0) or K34
-// (which 1) at C lanes
+// registers per thread and local (spill) bytes of K12 (which 0), K34 (1),
+// K2 (2) at C lanes, or K1 (3)
 int two_prog_attrs(int which, int c, int* regs, int* local_bytes) {
-  if (which == 0)
-    return attrs(c == 1 ? (const void*)shade_sweep_kernel<1>
-                        : (const void*)shade_sweep_kernel<4>,
-                 regs, local_bytes);
-  return attrs(c == 1 ? (const void*)finalize_sweep_kernel<1>
-                      : (const void*)finalize_sweep_kernel<4>,
-               regs, local_bytes);
+  const bool c1 = c == 1;
+  const void* fn =
+      which == 0 ? (c1 ? (const void*)shade_sweep_kernel<1>
+                       : (const void*)shade_sweep_kernel<4>)
+      : which == 1 ? (c1 ? (const void*)finalize_sweep_kernel<1>
+                         : (const void*)finalize_sweep_kernel<4>)
+      : which == 2 ? (c1 ? (const void*)shade_kernel<1>
+                         : (const void*)shade_kernel<4>)
+                   : (const void*)sweep_closest_rows_kernel;
+  return attrs(fn, regs, local_bytes);
 }
 
 // sizeof(RoundArgs), for the caller's check of its mirror of the struct

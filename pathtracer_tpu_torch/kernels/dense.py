@@ -7,8 +7,12 @@ zero. Rays are `[8, N]` rows: origin (3), direction (3), tmin, tmax.
 
 `sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
 on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
-`sweep_any_plain`) on CPU tensors. The closest hit is the minimum t, ties
-to the minimum prim id, exactly as the JAX sweep reduces its chunks.
+`sweep_any_plain`) on CPU tensors. `sweep_closest_rows` (K1 of the
+texture-feed round) reads the rays in place from rows of the megakernel
+state and writes `[8, N]` rows (t, prim id); its kernel is in
+`csrc/two_prog_round.cu`, its twin `sweep_closest_rows_plain`. The closest
+hit is the minimum t, ties to the minimum prim id, exactly as the JAX sweep
+reduces its chunks.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from pathtracer_tpu_torch.geometry.soa import PRIM_DISK, PRIM_RECT, PRIM_SPHERE
+from pathtracer_tpu_torch.prelude import INTERSECTION_TIME_OFFSET, RAY_TMAX
 
 # packed prim-table columns (table is [P_pad, 128]; cols 11.. are padding)
 _C_PTYPE, _C_VALID = 0, 1
@@ -29,6 +34,9 @@ PBF = 32  # prim rows are padded to a multiple of this block
 # kernel launches of the CUDA sweep (both entry points); the plain twin
 # never counts
 LAUNCHES = 0
+# launches of the rows sweep's kernel, and calls of its plain twin
+ROWS_LAUNCHES = 0
+ROWS_PLAIN_CALLS = 0
 
 
 def pack_prims_np(ptype, valid, pa, pb, pc):
@@ -211,17 +219,43 @@ def sweep_any_plain(rays, tab):
     return sweep_any_cols(tab, *_ray_cols(rays)).to(torch.float32)[None, :]
 
 
+def sweep_closest_rows_plain(src, tab, row0: int, alive_row: int):
+    """The closest hit of the rays in rows row0 .. row0 + 5 of src (origin,
+    direction; t in (INTERSECTION_TIME_OFFSET, RAY_TMAX)) on the lanes whose
+    row alive_row is > 0.5 -> [8, N]: t, prim id or -1, then zeros. A dead
+    lane gets t = inf and id -1, as the kernel writes it."""
+    global ROWS_PLAIN_CALLS
+    ROWS_PLAIN_CALLS += 1
+    n = src.shape[1]
+    out = torch.zeros((8, n), dtype=torch.float32, device=src.device)
+    out[0] = float("inf")
+    out[1] = -1.0
+    live = src[alive_row] > 0.5
+    rays = src[row0:row0 + 6][:, live]
+    t, pid = sweep_closest_cols(
+        tab, *[rays[k][:, None] for k in range(6)],
+        torch.full((rays.shape[1], 1), INTERSECTION_TIME_OFFSET,
+                   device=src.device),
+        torch.full((rays.shape[1], 1), RAY_TMAX, device=src.device))
+    out[0, live] = t
+    out[1, live] = pid
+    return out
+
+
 # ---------------------------------------------------------------- wrappers
 
 
-def _check(rays, tab):
+def _check(rays, tab, rows=8):
+    """The ray rows (`rows` of them, unless None) and the table: f32,
+    contiguous, 2-D, on one CPU or CUDA device."""
     for name, x in (("rays", rays), ("tab", tab)):
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.dim() != 2 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D tensor")
-    if rays.shape[0] != 8:
-        raise ValueError(f"rays must be [8, N], got {tuple(rays.shape)}")
+    if rows is not None and rays.shape[0] != rows:
+        raise ValueError(f"rays must be [{rows}, N], got "
+                         f"{tuple(rays.shape)}")
     if tab.shape[1] != _N_COLS or tab.shape[0] % PBF:
         raise ValueError(f"tab must be [P_pad (x{PBF}), {_N_COLS}], got "
                          f"{tuple(tab.shape)}")
@@ -257,6 +291,34 @@ def sweep_closest(rays, tab):
     out = torch.empty((2, rays.shape[1]), dtype=torch.float32,
                       device=rays.device)
     return _launch("dense_sweep_closest", rays, tab, out)
+
+
+def sweep_closest_rows(src, tab, row0: int, alive_row: int):
+    """K1: the closest hit of the live lanes' rays, read in place from rows
+    of src -> [8, N] (see `sweep_closest_rows_plain`): the CUDA kernel on a
+    CUDA tensor, the plain twin on a CPU tensor."""
+    global ROWS_LAUNCHES
+    _check(src, tab, rows=None)
+    if not (0 <= row0 and row0 + 6 <= src.shape[0]
+            and 0 <= alive_row < src.shape[0]):
+        raise ValueError(f"rows {row0}..{row0 + 5} and {alive_row} are not "
+                         f"all in src [{src.shape[0]}, N]")
+    if src.device.type == "cpu":
+        return sweep_closest_rows_plain(src, tab, row0, alive_row)
+    from pathtracer_tpu_torch.kernels import _build
+
+    out = torch.empty((8, src.shape[1]), dtype=torch.float32,
+                      device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    rc = _build.library().sweep_closest_rows_launch(
+        ctypes.c_void_p(src.data_ptr()), row0, alive_row,
+        ctypes.c_void_p(tab.data_ptr()), tab.shape[0],
+        ctypes.c_void_p(out.data_ptr()), src.shape[1], ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"sweep_closest_rows: CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+    ROWS_LAUNCHES += 1
+    return out
 
 
 def sweep_any(rays, tab):

@@ -7,28 +7,35 @@ sweeps, BSDF sampling with hero-wavelength spectral MIS, Russian roulette,
 XYZ accumulation on death and a thin-lens respawn of the lane's next camera
 sample. The lane state is `[NS=32, n_pad]` f32 rows (`S_*` below); a round
 reads it and writes `[NK4=40, n_pad]`: the 32 new state rows plus per-lane
-counter rows. A round takes one of two routes, as the JAX package's
+counter rows. A round takes one of three routes, as the JAX package's
 `pt_trace_regen_mega` picks them:
 
 - the fused round (`fused_round`, `csrc/fused_round.cu`): one kernel, for
-  scenes of at most 4 chunks of 32 prims under a constant environment;
+  scenes of at most 4 chunks of 32 prims under a constant environment and
+  without uv-dependent surface textures;
+- the texture-feed round for scenes with uv-dependent lambertian
+  reflectance: `dense.sweep_closest_rows` (K1: closest hit -> `[8, n_pad]`
+  rows t, prim id) -> `env_feed` (Sun and HDR only) -> `tex_feed` (torch:
+  each lane's uv and texture value at its λs) -> `shade` (K2: shading from
+  the hit rows) -> `finalize_sweep` (K34);
 - the two-program round for every other scene in the gate (up to 8192
   prims; constant, Sun and HDR environments): `env_feed` (torch, Sun and
   HDR only) -> `shade_sweep` (K12: closest hit + shading, writing the
   `[k2_rows(ls), n_pad]` K2 rows `O_*`) -> `finalize_sweep` (K34: NEE shadow
-  sweeps + finalize), both in `csrc/two_prog_round.cu`.
+  sweeps + finalize). K2, K12 and K34 are in `csrc/two_prog_round.cu`.
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-torch twin (`fused_round_plain`, `shade_sweep_plain`, `finalize_sweep_plain`)
-on CPU tensors. Outputs are second buffers, not in-place updates, so a
-kernel and its twin can run on the same input. Random numbers come from
+torch twin (`fused_round_plain`, `shade_sweep_plain`, `shade_plain`,
+`finalize_sweep_plain`) on CPU tensors. Outputs are second buffers, not
+in-place updates, so a kernel and its twin can run on the same input. Random numbers come from
 outside the kernels: the render loop draws uniform blocks per round from a
 uniform source (`TorchUniforms`, or a test's replay of the JAX draws).
 
 Scope (`mega_available`): projective camera, identity transforms, at most
-8192 prims, 24 materials and 16 lights. Medium-aware settings and
-uv-dependent surface textures are in the JAX package's gate but not ported
-yet: `gate_refusal` names the ROADMAP item that ports each.
+8192 prims, 24 materials and 16 lights; multi-texel textures only as a
+lambertian's reflectance or the HDR map. Medium-aware settings are in the
+JAX package's gate but not ported yet: `gate_refusal` names the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from pathtracer_tpu_torch.kernels.dense import (
     pack_prims_np,
     sweep_any_cols,
     sweep_closest_cols,
+    sweep_closest_rows,
 )
 from pathtracer_tpu_torch.materials.tables import (
     MAT_DIFFUSE_LIGHT,
@@ -68,6 +76,7 @@ from pathtracer_tpu_torch.prelude import (
     RAY_TMAX,
     TransportMode,
 )
+from pathtracer_tpu_torch.textures.texture import eval_texture
 from pathtracer_tpu_torch.utils import profile as prof
 from pathtracer_tpu_torch.world.environment import (
     ENV_CONSTANT,
@@ -123,8 +132,10 @@ _R_NA, _R_NB, _R_NC = 11, 14, 17
 _R_MAT, _R_KIND, _R_AREA = 20, 21, 22
 _NP_ROWS = 24
 
-# mat_tab rows (row 7 flags the texture feed, which the port refuses)
-_M_TYPE, _M_ALPHA, _M_METAL, _M_PERM, _M_SIDE, _M_SHARP, _M_RSCALE = range(7)
+# mat_tab rows; _M_TEXF is 1 where a lambertian's reflectance comes from
+# the texture feed
+(_M_TYPE, _M_ALPHA, _M_METAL, _M_PERM, _M_SIDE, _M_SHARP, _M_RSCALE,
+ _M_TEXF) = range(8)
 _M_INNER, _M_OUTER = 8, 9
 _NM_ROWS = 16
 
@@ -133,9 +144,11 @@ _L_PA, _L_PB, _L_PC = 0, 3, 6
 _L_PTYPE, _L_AREA, _L_MAT, _L_MTYPE, _L_SIDE, _L_SHARP = 9, 10, 11, 12, 13, 14
 _NL_ROWS = 16
 
-# launches of the CUDA kernels, and calls of any plain twin
+# launches of the CUDA kernels (SHADE_LAUNCHES: K12, K2_LAUNCHES: K2), and
+# calls of any plain twin (the K1 rows sweep counts in kernels/dense.py)
 FUSED_LAUNCHES = 0
 SHADE_LAUNCHES = 0
+K2_LAUNCHES = 0
 FINALIZE_LAUNCHES = 0
 PLAIN_CALLS = 0
 
@@ -146,11 +159,9 @@ _NOT_IN_GATE = ("the megakernel takes projective cameras, identity "
 _MEDIUM = ("medium-aware transport rides the medium branch of the "
            "two-program round, the next slice (ROADMAP §2, queue 2: "
            "mediums/ and the medium feed)")
-_UV_TEXTURES = ("uv-dependent surface textures ride the texture-feed route "
-                "(ROADMAP §2, queue 1: sweep_closest_rows and K2)")
 _NOT_FUSED = ("the fused round takes at most 4 chunks of 32 prims under a "
-              "constant environment; other scenes ride the two-program round "
-              "(shade_sweep + finalize_sweep)")
+              "constant environment without uv textures; other scenes ride "
+              "the two-program or the texture-feed round")
 
 
 def nu_rows(light_samples: int) -> int:
@@ -168,6 +179,11 @@ def k2_rows(light_samples: int) -> int:
     return -(-(O_NEE + NEE_ROWS * light_samples) // 8) * 8
 
 
+def tf_rows(c_lanes: int) -> int:
+    """Texture-feed rows: C per-lane reflectance values, padded."""
+    return -(-c_lanes // 8) * 8
+
+
 def ef_rows(light_samples: int, c_lanes: int) -> int:
     """Environment-feed rows (Sun and HDR only): C escape-emission rows + 1
     escape-pdf row, then per NEE sample dir(3) + pdf + C emission rows."""
@@ -180,14 +196,11 @@ def ef_rows(light_samples: int, c_lanes: int) -> int:
 def gate_refusal(world, camera, settings):
     """Why the megakernel does not render this scene, or None if it does:
     the JAX package's `mega_available`, except that medium-aware settings
-    and uv-dependent surface textures are refused with the ROADMAP item
-    that ports them."""
+    are refused with the ROADMAP item that ports them."""
     if settings.medium_aware:
         return _MEDIUM
     if not _mega_gate(world, camera):
         return _NOT_IN_GATE
-    if _uv_textured(world):
-        return _UV_TEXTURES
     return None
 
 
@@ -208,30 +221,39 @@ def _mega_gate(world, camera) -> bool:
         return False
     if int(w.mats.count) > 24 or int(w.n_lights) > 16:
         return False
-    return int(w.bank.values.shape[1]) == SPEC_RES
-
-
-def _uv_textured(world) -> bool:
-    """A lambertian material whose texture is not one 1x1 layer (the JAX
-    package evaluates those per hit in its texture feed)."""
-    t = world.tex
-    lc, ls_ = _np(t.layer_count), _np(t.layer_start)
+    # multi-texel or multi-layer textures only as a lambertian's reflectance
+    # (the texture feed) or as the HDR map (the environment feed); any other
+    # texture is one 1x1 layer, baked into the material tables
+    t = w.tex
+    lc, lstart = _np(t.layer_count), _np(t.layer_start)
     lw, lh = _np(t.layer_w), _np(t.layer_h)
-    mtype, tex_id = _np(world.mats.mtype), _np(world.mats.tex_id)
-    for i in range(int(world.mats.count)):
+    tex_ok = np.ones(lc.shape[0], bool)
+    layer_ok = np.ones(lw.shape[0], bool)
+
+    def exempt(tid):
+        tex_ok[tid] = False
+        layer_ok[int(lstart[tid]):int(lstart[tid]) + int(lc[tid])] = False
+
+    if int(w.env.kind) == ENV_HDR:
+        exempt(int(w.env.tex_id))
+    mtype, tex_id = _np(w.mats.mtype), _np(w.mats.tex_id)
+    for i in range(int(w.mats.count)):
         if mtype[i] == MAT_LAMBERTIAN and tex_id[i] >= 0:
-            li = int(ls_[tex_id[i]])
-            if int(lc[tex_id[i]]) > 1 or int(lw[li]) * int(lh[li]) > 1:
-                return True
-    return False
+            exempt(int(tex_id[i]))
+    if not (lc[tex_ok] == 1).all():
+        return False
+    if not ((lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
+        return False
+    return int(w.bank.values.shape[1]) == SPEC_RES
 
 
 def fused_ok(scene) -> bool:
     """The fused round's gate on a baked scene: the JAX driver's `fused_ok`
-    without its environment levers (a constant environment and at most 4
-    chunks)."""
+    without its environment levers (a constant environment, no texture feed
+    and at most 4 chunks)."""
     return scene.dense_tab.shape[0] // PBF <= FUSED_MAX_CHUNKS \
-        and scene.consts["env_kind"] == ENV_CONSTANT
+        and scene.consts["env_kind"] == ENV_CONSTANT \
+        and not scene.consts["tex_feed"]
 
 
 # ------------------------------------------------------------------ bake
@@ -248,6 +270,7 @@ class MegaScene:
     spec_tab: torch.Tensor   # f32[C8, 512] rows m*5+{ηi,ηo,κ,refl,emit}, env
     consts: dict             # host scalars (numbers and tuples)
     env: object = None       # None (constant env) or the Sun/HDR EnvFeed
+    tex: object = None       # None or the TexFeed of uv-textured lambertians
 
 
 @dataclasses.dataclass
@@ -263,6 +286,22 @@ class EnvFeed:
     lut: dict = None
 
 
+@dataclasses.dataclass
+class TexFeed:
+    """What `tex_feed` needs of a scene with uv-textured lambertians: the
+    textures and the curve bank on the device, each material's texture id
+    (`mat2tex` f32[128]), the hit prim's vertices, type and material
+    (`uvtab` f32[P_pad, 16] in the bake's sorted prim order: pa 0-2, pb 3-5,
+    pc 6-8, ptype 9, material 10) and, for at most TEX_LUT_MAX_TEXELS
+    texels in all, the baked (texel, λ-knot) pair table."""
+
+    tex: object
+    bank: object
+    mat2tex: torch.Tensor
+    uvtab: torch.Tensor
+    lut: dict = None
+
+
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -274,8 +313,6 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
     rows, which the port does not use)."""
     if not _mega_gate(world, camera):
         raise NotImplementedError(_NOT_IN_GATE)
-    if _uv_textured(world):
-        raise NotImplementedError(_UV_TEXTURES)
     w = world
     device = device if device is not None else w.prims.pa.device
     prims = w.prims
@@ -335,25 +372,36 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
     mt[_M_SHARP, :m] = hm["sharpness"]
     mt[_M_INNER, :m] = hm["inner_medium"]
     mt[_M_OUTER, :m] = hm["outer_medium"]
-    # lambertian reflectance = 1x1 texel weight x layer curve; lights
-    # reflect with their bounce curve at weight 1
+    # lambertian reflectance = 1x1 texel weight x layer curve, or per hit
+    # from the texture feed (_M_TEXF; the row keeps layer 0's curve at
+    # weight 1, a value no lane selects); lights reflect with their bounce
+    # curve at weight 1
     tex = w.tex
     layer_curve = _np(tex.layer_curve)
     layer_start = _np(tex.layer_start)
+    layer_count = _np(tex.layer_count)
+    layer_w, layer_h = _np(tex.layer_w), _np(tex.layer_h)
     atlas = _np(tex.atlas)
     layer_offset = _np(tex.layer_offset)
     mtype = hm["mtype"]
     tex_id = np.maximum(hm["tex_id"], 0)
     refl_curve = np.zeros(m, np.int64)
     refl_scale = np.ones(m, np.float32)
+    texf = np.zeros(m, np.float32)
     for i in range(m):
         if mtype[i] == MAT_LAMBERTIAN:
-            li = int(layer_start[int(tex_id[i])])
+            ti = int(tex_id[i])
+            li = int(layer_start[ti])
             refl_curve[i] = int(layer_curve[li])
-            refl_scale[i] = float(atlas[int(layer_offset[li])])
+            if int(layer_count[ti]) > 1 or int(layer_w[li]) * int(
+                    layer_h[li]) > 1:
+                texf[i] = 1.0
+            else:
+                refl_scale[i] = float(atlas[int(layer_offset[li])])
         else:
             refl_curve[i] = int(hm["bounce_idx"][i])
     mt[_M_RSCALE, :m] = refl_scale
+    mt[_M_TEXF, :m] = texf
 
     # spectral rows: per material (eta_i, eta_o, kappa, refl, emit) + env
     bank_vals = _np(w.bank.values)
@@ -415,6 +463,7 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
         cam_lens_r=float(camera.lens_radius),
         cam_blades=int(camera.blades),
         cam_sharp=float(camera.blade_sharpness),
+        tex_feed=bool(texf.any()),
         radius=float(_np(w.radius)),
     )
     dense_tab = pack_prims_np(h["ptype"], h["valid"], h["pa"], h["pb"],
@@ -436,9 +485,24 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
             for f in dataclasses.fields(w.env)})
         env = EnvFeed(env=e, bank=_to(w.bank, device), tex=_to(w.tex, device),
                       lut=_bake_env_lut(w.env, w.bank, w.tex, device))
+    tex_feed_ = None
+    if texf.any():
+        uvtab = np.zeros((p_pad, 16), np.float32)
+        uvtab[:p, 0:3] = h["pa"]
+        uvtab[:p, 3:6] = h["pb"]
+        uvtab[:p, 6:9] = h["pc"]
+        uvtab[:p, 9] = h["ptype"]
+        uvtab[:p, 10] = h["material_id"]
+        mat2tex = np.zeros(128, np.float32)
+        mat2tex[:m] = tex_id
+        tex_feed_ = TexFeed(
+            tex=_to(w.tex, device), bank=_to(w.bank, device),
+            mat2tex=dev(mat2tex), uvtab=dev(uvtab),
+            lut=_bake_tex_lut(w.bank, w.tex, sorted(
+                {int(tex_id[i]) for i in range(m) if texf[i]}), device))
     return MegaScene(prim_tab=dev(tab), dense_tab=dev(dense_tab),
                      mat_tab=dev(mt), light_tab=dev(lt), spec_tab=dev(st),
-                     consts=consts, env=env)
+                     consts=consts, env=env, tex=tex_feed_)
 
 
 def _to(obj, device):
@@ -483,6 +547,54 @@ def _bake_env_lut(env, bank, tex, device):
                 res=res, lam_lo=float(bank.lam_lo), lam_hi=float(bank.lam_hi))
 
 
+TEX_LUT_MAX_TEXELS = 65536  # the JAX package's cap of the surface bake
+
+
+def _bake_tex_lut(bank, tex, tex_ids, device):
+    """`_bake_env_lut` for the surface textures the feed evaluates (the JAX
+    package's `_bake_tex_lut`): per texture, E[texel, λ-knot] = Σ_layers
+    weight(texel) · curve(knot), all textures in one flat pair table with a
+    (base, w, h, 0) row per texture id in `meta` i32[128, 4]. None where a
+    texture's layers differ in size or the textures hold more than
+    TEX_LUT_MAX_TEXELS texels in all (the feed then runs `eval_texture`)."""
+    layer_start, layer_count = _np(tex.layer_start), _np(tex.layer_count)
+    layer_w, layer_h = _np(tex.layer_w), _np(tex.layer_h)
+    layer_curve, layer_offset = _np(tex.layer_curve), _np(tex.layer_offset)
+    atlas, values = _np(tex.atlas), _np(bank.values)
+    res = values.shape[1]
+    total = 0
+    for t in tex_ids:
+        s = int(layer_start[t])
+        if int(layer_count[t]) < 1:
+            return None
+        w_, h_ = int(layer_w[s]), int(layer_h[s])
+        for k in range(int(layer_count[t])):
+            if int(layer_w[s + k]) != w_ or int(layer_h[s + k]) != h_:
+                return None
+        total += w_ * h_
+    if total > TEX_LUT_MAX_TEXELS:
+        return None
+    segs = []
+    meta = np.zeros((128, 4), np.int32)
+    base = 0
+    for t in tex_ids:
+        s = int(layer_start[t])
+        w_, h_ = int(layer_w[s]), int(layer_h[s])
+        e = np.zeros((h_ * w_, res), np.float32)
+        for li in range(s, s + int(layer_count[t])):
+            off = int(layer_offset[li])
+            e += (atlas[off:off + h_ * w_, None]
+                  * values[int(layer_curve[li])][None, :])
+        segs.append(np.stack([e, np.concatenate([e[:, 1:], e[:, -1:]],
+                                                axis=1)],
+                             axis=-1).reshape(h_ * w_ * res, 2))
+        meta[t] = (base, w_, h_, 0)
+        base += h_ * w_ * res
+    return dict(pairs=torch.as_tensor(np.concatenate(segs), device=device),
+                meta=torch.as_tensor(meta, device=device), res=res,
+                lam_lo=float(bank.lam_lo), lam_hi=float(bank.lam_hi))
+
+
 def env_emission_lut(env, lut, d: V3, lam):
     """HDR emission through the baked pair table: nearest texel, λ lerp
     (the JAX package's `_env_emission_lut`)."""
@@ -525,6 +637,91 @@ def env_feed(feed: EnvFeed, state, u, light_samples: int, c_lanes: int):
                      dtype=torch.float32, device=state.device)
     ef[:len(rows)] = torch.stack(rows)
     return ef
+
+
+def tex_feed(feed: TexFeed, state, tp, c_lanes: int):
+    """The per-lane reflectance rows K2 reads for uv-textured lambertians ->
+    tf [tf_rows(C), n_pad] (the JAX package's `_tex_feed`, plain torch on
+    the lanes' device): from K1's hit rows tp (t, prim id), each lane's hit
+    point, its uv by prim type (triangle barycentrics, sphere equirect, rect
+    parametric, disk (0, 0)), the hit material's texture and its value at
+    each of the lane's λs; 0 where the lane hit nothing. The baked pair
+    table takes one meta and one pair gather per λ, else `eval_texture`."""
+    t, pid = tp[0], tp[1]
+    hit = pid >= 0.0
+    # gathers write [columns, n] rows, so the per-lane arithmetic below
+    # reads contiguous rows
+    rows = torch.index_select(feed.uvtab[:, :11].T, 1,
+                              torch.clamp(pid, min=0.0).long())  # [11, n]
+    pa, pb, pc = V3(*rows[0:3]), V3(*rows[3:6]), V3(*rows[6:9])
+    ptype = rows[9]
+    o = V3(state[S_O], state[S_O + 1], state[S_O + 2])
+    d = V3(state[S_D], state[S_D + 1], state[S_D + 2])
+    p = o + d.scale(t)
+    # triangle barycentrics
+    e1, e2 = pb - pa, pc - pa
+    pvec = cmath.cross(d, e2)
+    det = cmath.dot(e1, pvec)
+    inv_det = torch.where(torch.abs(det) > 1e-12,
+                          1.0 / torch.where(det != 0.0, det, 1.0), 0.0)
+    tvec = o - pa
+    bu = cmath.dot(tvec, pvec) * inv_det
+    bv = cmath.dot(d, cmath.cross(tvec, e1)) * inv_det
+    # sphere equirect uv
+    rel = p - pa
+    nrm = torch.clamp(torch.sqrt(cmath.dot(rel, rel)), min=1e-20)
+    sph_n = V3(rel.x / nrm, rel.y / nrm, rel.z / nrm)
+    sph_u = torch.remainder(fdiv(torch.atan2(sph_n.y, sph_n.x), 2 * math.pi),
+                            1.0)
+    sph_v = fdiv(torch.acos(torch.clamp(sph_n.z, -1.0, 1.0)), math.pi)
+    # rect parametric uv; a disk keeps uv (0, 0)
+    rect_u = 0.5 * (cmath.dot(rel, pb)
+                    / torch.clamp(cmath.dot(pb, pb), min=1e-20) + 1.0)
+    rect_v = 0.5 * (cmath.dot(rel, pc)
+                    / torch.clamp(cmath.dot(pc, pc), min=1e-20) + 1.0)
+    is_tri = ptype == PRIM_TRIANGLE
+    is_sph = ptype == PRIM_SPHERE
+    is_rec = ptype == PRIM_RECT
+    # a lane that hit nothing (t = inf) gets uv (0, 0), so that every texel
+    # index below is in range; its value is masked out at the end
+    zero = torch.zeros_like(t)
+    u = torch.where(hit, torch.where(is_tri, bu, torch.where(
+        is_sph, sph_u, torch.where(is_rec, rect_u, zero))), 0.0)
+    v = torch.where(hit, torch.where(is_tri, bv, torch.where(
+        is_sph, sph_v, torch.where(is_rec, rect_v, zero))), 0.0)
+    tid = feed.mat2tex[rows[10].long()].long()
+    lut = feed.lut
+    if lut is not None:
+        mrow = torch.index_select(lut["meta"][:, :3].T, 1, tid).long()
+        tw, th = mrow[1], mrow[2]  # texture width, height; mrow[0]: base
+        x = torch.minimum((torch.clamp(u, 0.0, 1.0 - 1e-6) * tw.float())
+                          .long(), tw - 1)
+        y = torch.minimum((torch.clamp(v, 0.0, 1.0 - 1e-6) * th.float())
+                          .long(), th - 1)
+        res = lut["res"]
+        texel = mrow[0] + (y * tw + x) * res
+
+        def value(lam):
+            uu = torch.clamp(fdiv(lam - lut["lam_lo"],
+                                  lut["lam_hi"] - lut["lam_lo"]) * (res - 1),
+                             0.0, res - 1 - 1e-4)
+            i0 = uu.long()
+            frac = uu - i0.float()
+            # an untextured material has no table row (w = h = 0): its
+            # index goes negative and wraps, as the JAX gather's does; K2
+            # never reads the value
+            k = texel + i0
+            k = 2 * torch.where(k < 0, k + lut["pairs"].shape[0], k)
+            flat = lut["pairs"].view(-1)
+            return flat[k] * (1.0 - frac) + flat[k + 1] * frac
+    else:
+        def value(lam):
+            return eval_texture(feed.tex, feed.bank, tid, lam, u, v)
+    tf = torch.zeros((tf_rows(c_lanes), state.shape[1]), dtype=torch.float32,
+                     device=state.device)
+    for ci in range(c_lanes):
+        tf[ci] = torch.where(hit, value(state[S_LAM + ci]), 0.0)
+    return tf
 
 
 # ------------------------------------------------------- round arguments
@@ -822,13 +1019,15 @@ def _closest(dense_tab, st):
 
 
 def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
-           a: RoundArgs, ef=None):
-    """The shading shared by the fused round and K12 (the JAX package's
+           a: RoundArgs, ef=None, tf=None):
+    """The shading shared by the fused round, K12 and K2 (the JAX package's
     `_all_kernel_body` and `_shade_body` up to the BSDF sample): hit
     attributes, the environment escape and light-hit emission adds with
     MIS, the NEE samples (ray, worth and contribution, not yet
     shadow-tested) and the BSDF sample with its HWSS ratios. `ef` holds the
-    environment-feed rows of a Sun or HDR environment."""
+    environment-feed rows of a Sun or HDR environment, `tf` the
+    texture-feed rows that replace the baked reflectance of lambertians
+    flagged `_M_TEXF`."""
     ls = a.light_samples
     C = a.c_lanes
     nee_enabled = ls > 0
@@ -909,6 +1108,9 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
     eta_o = [R[ci](5.0 * mat_id + 1.0) for ci in range(C)]
     kappa = [R[ci](5.0 * mat_id + 2.0) for ci in range(C)]
     refl = [rscale * R[ci](5.0 * mat_id + 3.0) for ci in range(C)]
+    if tf is not None:
+        texm = mat(_M_TEXF, mat_id) > 0.5
+        refl = [torch.where(texm, tf[ci], refl[ci]) for ci in range(C)]
 
     shadow_ct = torch.zeros_like(prev_pdf)
 
@@ -1231,11 +1433,29 @@ def shade_sweep_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
     on lanes not at a surface, and every row of a dead lane is 0."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    C, ls = a.c_lanes, a.light_samples
-    st = _lane_state(state, C)
+    st = _lane_state(state, a.c_lanes)
     t_hit, pid = _closest(dense_tab, st)
-    sh = _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab, a,
-                ef)
+    return _k2_out(state, st, a, _shade(u, st, t_hit, pid, prim_tab, mat_tab,
+                                        light_tab, spec_tab, a, ef))
+
+
+def shade_plain(u, state, tp, prim_tab, mat_tab, light_tab, spec_tab,
+                a: RoundArgs, ef=None, tf=None):
+    """K2 in plain torch: shading from K1's hit rows tp (t, prim id) -> k2
+    [k2_rows(ls), N], as K12 writes them (the JAX package's `_shade_kernel`
+    -> `_shade_body`); `tf` is `tex_feed`'s rows or None."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    st = _lane_state(state, a.c_lanes)
+    return _k2_out(state, st, a, _shade(u, st, tp[0], tp[1], prim_tab,
+                                        mat_tab, light_tab, spec_tab, a, ef,
+                                        tf))
+
+
+def _k2_out(state, st, a: RoundArgs, sh):
+    """The K2 rows of a shading result: surface rows 0 on lanes not at a
+    surface, every row of a dead lane 0."""
+    C, ls = a.c_lanes, a.light_samples
     k2 = torch.zeros((k2_rows(ls), state.shape[1]), dtype=torch.float32,
                      device=state.device)
     surf = sh.at_surface
@@ -1429,6 +1649,48 @@ def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None):
     return k2
 
 
+def shade(u, state, tp, scene: MegaScene, a: RoundArgs, ef=None, tf=None):
+    """K2 -> k2 [k2_rows(ls), N] from K1's rows tp [8, N]: the CUDA kernel
+    on CUDA tensors, the plain twin on CPU tensors. `ef` as for
+    `shade_sweep`; `tf` is `tex_feed`'s rows, required for a scene with
+    uv-textured lambertians."""
+    global K2_LAUNCHES
+    _check_round(u, state, scene, a, 3 * a.light_samples + 3,
+                 MEGA_MAX_PRIMS, _NOT_IN_GATE)
+    n = state.shape[1]
+    fed = a.env_kind != ENV_CONSTANT
+    if fed != (ef is not None):
+        raise ValueError("ef must be given exactly for Sun and HDR "
+                         "environments")
+    if scene.consts["tex_feed"] and tf is None:
+        raise ValueError("a scene with uv-textured lambertians needs tf")
+    for name, x, rows in (("tp", tp, 8),
+                          ("ef", ef, ef_rows(a.light_samples, a.c_lanes)),
+                          ("tf", tf, tf_rows(a.c_lanes))):
+        if x is None:
+            continue
+        _check_tensors(state=state, **{name: x})
+        if x.shape != (rows, n):
+            raise ValueError(f"{name} must be [{rows}, N], got "
+                             f"{tuple(x.shape)}")
+    if state.device.type == "cpu":
+        return shade_plain(u, state, tp, scene.prim_tab, scene.mat_tab,
+                           scene.light_tab, scene.spec_tab, a, ef, tf)
+    lib = _lib()
+    k2 = torch.empty((k2_rows(a.light_samples), n), dtype=torch.float32,
+                     device=state.device)
+    cargs = _c_args(a)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.shade_launch(
+        _ptr(u), _ptr(state), _ptr(tp), _ptr(ef), _ptr(tf), _ptr(k2), n,
+        _ptr(scene.prim_tab), scene.prim_tab.shape[1],
+        _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
+        ctypes.byref(cargs), ctypes.c_void_p(stream))
+    _raise_on(rc, "shade")
+    K2_LAUNCHES += 1
+    return k2
+
+
 def finalize_sweep(u, state, k2, scene: MegaScene, a: RoundArgs):
     """K34 -> out [NK4, N]: the CUDA kernel on CUDA tensors, the plain twin
     on CPU tensors."""
@@ -1535,14 +1797,31 @@ def two_prog_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     return finalize_sweep(u34, state, k2, scene, a), k2
 
 
+def texfeed_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
+    """One bounce round of the texture-feed route -> (out [NK4, N], k2), as
+    the JAX package's `_mega_step_texfeed`: K1 (the closest-hit rows), the
+    environment feed of a Sun or HDR environment, the texture feed, K2 on
+    the K12 uniform block (stream 0), then K34 on its own (stream 1)."""
+    n_pad, dev = state.shape[1], state.device
+    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE)
+    u12 = uniforms.round(it, n_u_rows(a.light_samples), n_pad, dev, stream=0)
+    ef = (env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
+          if scene.env is not None else None)
+    tf = tex_feed(scene.tex, state, tp, a.c_lanes)
+    k2 = shade(u12, state, tp, scene, a, ef, tf)
+    u34 = uniforms.round(it, NU4, n_pad, dev, stream=1)
+    return finalize_sweep(u34, state, k2, scene, a), k2
+
+
 def pt_trace_regen_mega(world, camera, settings, width, height, spp,
                         uniforms, device=None, stats=None):
     """Render `spp` samples of every pixel with one lane per pixel ->
     (xyz sums [width * height, 3], counters f64[5]), on `device`
     (default: the world's). Each round is the fused round for scenes in its
-    gate and the two-program round otherwise; the kernels launch on a card,
-    the plain twins run on the CPU. A `stats` dict, if given, gets the
-    number of rounds added to "rounds"."""
+    gate, the texture-feed round for scenes with uv-textured lambertians and
+    the two-program round otherwise; the kernels launch on a card, the plain
+    twins run on the CPU. A `stats` dict, if given, gets the number of
+    rounds added to "rounds"."""
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
     scene = build_mega_scene(world, camera, device)
@@ -1565,7 +1844,8 @@ def pt_trace_regen_mega(world, camera, settings, width, height, spp,
                 out = fused_round(u, state, scene, a)
                 counts = out[O4_BOUNCE_CT:O4_ENV_CT + 1]
             else:
-                out, k2 = two_prog_round(state, scene, a, uniforms, it)
+                out, k2 = (texfeed_round if scene.tex is not None
+                           else two_prog_round)(state, scene, a, uniforms, it)
                 counts = torch.cat([out[O4_BOUNCE_CT:O4_CAMERA_CT + 1],
                                     k2[O_ENV_CT:O_SHADOW_CT + 1]])
             state = out[:NS]

@@ -33,6 +33,7 @@ from pathtracer_tpu_torch.materials.tables import (
     MAT_PASSTHROUGH,
     MAT_SHARP_LIGHT,
 )
+from pathtracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pathtracer_tpu_torch.world.environment import (
     constant_env_numpy,
     hdr_env_numpy,
@@ -407,5 +408,8 @@ class SceneBuilder:
         })
         return f
 
-    def build(self, device="cpu") -> World:
+    def build(self, device=DEFAULT_DEVICE) -> World:
+        """The scene as a `World` on `device` (the card by default; raises
+        without one, before baking anything)."""
+        device = resolve_device(device)
         return world_from_numpy(self.build_numpy(), device)

@@ -1,11 +1,34 @@
-"""Image loaders for texture assets (counterpart of `parsing/images.py`),
-restricted to the Radiance HDR reader that HDR environments use. Pure
-numpy; the PNG, BMP and EXR loaders are ported with the parser (ROADMAP §1
-item 13)."""
+"""Image loaders for texture assets (counterpart of `parsing/images.py`):
+PNG (surface textures) and Radiance HDR (HDR environments). Pure numpy; the
+BMP and EXR loaders are ported with the parser (ROADMAP §1 item 13)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from pathtracer_tpu_torch.tonemap.io_png import read_png
+
+
+def srgb_to_linear(x):
+    x = np.clip(x, 0.0, 1.0)
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def load_png_rgba(path: str) -> np.ndarray:
+    """PNG -> float32 [H, W, 4] in [0, 1] (sRGB-encoded values left as
+    stored; grey fills R, G and B; alpha 1 where the file has none)."""
+    img = read_png(path)
+    img = (img / (65535.0 if img.dtype == np.uint16 else 255.0)).astype(
+        np.float32)
+    h, w, c = img.shape
+    out = np.ones((h, w, 4), np.float32)
+    out[..., :c] = img[..., :4]
+    if c == 1:
+        out[..., 1] = out[..., 2] = out[..., 0]
+    elif c == 2:
+        out[..., 1] = out[..., 2] = out[..., 0]
+        out[..., 3] = img[..., 1]
+    return out
 
 
 def load_hdr_rgba(path: str, alpha_fill: float = 0.0) -> np.ndarray:

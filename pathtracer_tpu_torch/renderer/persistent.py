@@ -27,11 +27,12 @@ def render_regen(world, camera, settings, width: int, height: int,
     must live on `device`. A `stats` dict, if given, gets the number of
     bounce rounds run under "rounds".
 
-    Scenes in the megakernel's gate render through the fused round or the
-    two-program round (`kernels/megakernel.py`); the rest raise
-    `NotImplementedError` naming the ROADMAP item that ports their route
-    (medium-aware settings, uv-dependent surface textures, and scenes for
-    the regen integrator without kernels)."""
+    Scenes in the megakernel's gate render through the fused round, the
+    texture-feed round (uv-textured lambertians) or the two-program round
+    (`kernels/megakernel.py`), on the world's device unless `device` says
+    otherwise; the rest raise `NotImplementedError` naming the ROADMAP item
+    that ports their route (medium-aware settings, and scenes for the regen
+    integrator without kernels)."""
     why = gate_refusal(world, camera, settings)
     if why is not None:
         raise NotImplementedError(why)

@@ -10,12 +10,21 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
-from pathtracer_tpu_torch.parsing.images import load_hdr_rgba
+from pathtracer_tpu_torch.parsing.images import (
+    load_hdr_rgba,
+    load_png_rgba,
+    srgb_to_linear,
+)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a synthetic 64x32 RGBE map (data/scenes/hdri_blob_test.toml's texture)
 HDR_BLOB = os.path.join(_ROOT, "data", "hdri", "test_blob.hdr")
+# data/scenes/cornell_box_textured.toml's textures: an 8x8 checker (RGB)
+# and a 64x64 RGBA cloud
+CHECKER_PNG = os.path.join(_ROOT, "data", "textures", "checker.png")
+CLOUD_PNG = os.path.join(_ROOT, "data", "textures", "test.png")
 
 # light sidedness (materials/diffuse_light): emits on +normal / -normal
 SIDE_FORWARD, SIDE_REVERSE = 0, 1
@@ -28,6 +37,12 @@ CORNELL_CAMERA = dict(look_from=[-1.2, 0.5, 0.5], look_at=[0.5, 0.5, 0.5],
 SPHERE_CAMERA = dict(look_from=[-5.0, 0.0, 0.0], look_at=[0.0, 0.0, 0.0],
                      vfov_degrees=20.0, focal_distance=5.0,
                      aperture_diameter=0.0, aspect_ratio=1.0)
+# the checkered back wall of textured_cornell: centre, half-edges u and v
+CHECKER_WALL = ([1.0, 0.0, 0.0], [0, 1.0, 0], [0, 0, 1.0])
+# data/scenes/cornell_box_textured.toml's camera (a box spanning [-1, 1]^3)
+TEXTURED_CAMERA = dict(look_from=[-2.8, 0.0, 0.0], look_at=[0.0, 0.0, 0.0],
+                       vfov_degrees=45.0, focal_distance=2.8,
+                       aperture_diameter=0.0, aspect_ratio=1.0)
 FURNACE_CAMERA = dict(look_from=[0.0, -3.0, 0.0], look_at=[0.0, 0.0, 0.0],
                       vfov_degrees=35.0, focal_distance=3.0,
                       aperture_diameter=0.0, aspect_ratio=1.0)
@@ -268,3 +283,119 @@ def sun_sphere(b, spectral):
     b.set_environment_sun(one, 4.0, [0.3, 0.2, 1.0], 0.6)
     b.env_sampling_probability = 1.0
     return b
+
+
+def _texture1(b, path, curve, name):
+    """The parser's Texture1: the linearised mean of a PNG's R, G and B
+    over one curve."""
+    img = load_png_rgba(path)
+    return b.add_texture([(srgb_to_linear(img[..., :3].mean(axis=-1)),
+                           curve)], name=name)
+
+
+def _texture4(b, path, curves, name):
+    """The parser's Texture4: a PNG's linearised R, G, B planes and its
+    alpha plane (as stored), one curve each."""
+    img = load_png_rgba(path)
+    planes = [srgb_to_linear(img[..., k]) for k in range(3)] + [img[..., 3]]
+    return b.add_texture(list(zip(planes, curves)), name=name)
+
+
+def textured_cornell(b, spectral):
+    """data/scenes/cornell_box_textured.toml without its curve library: the
+    [-1, 1]^3 box with the 8x8 `checker.png` back wall (Texture1 over a flat
+    white curve), the 64x64 RGBA `test.png` floor (Texture4: three
+    linearised planes over in-code R, G, B basis curves, alpha over a flat
+    zero curve), 1x1 white ceiling, red and green walls and a reverse-sided
+    ceiling light. Beside the TOML's rects, a sphere (equirect uv), an
+    icosahedron (barycentric uv) and a disk (uv (0, 0)) carry small
+    multi-texel textures of their own: 28 prims in one 32-prim chunk."""
+    white = b.add_curve(spectral.FlatCurve(0.73), name="white")
+    red = b.add_curve(spectral.SpikeCurve(630.0, 60.0, 60.0, 0.65), name="red")
+    green = b.add_curve(spectral.SpikeCurve(540.0, 50.0, 50.0, 0.65),
+                        name="green")
+    zero = b.add_curve(spectral.FlatCurve(0.0), name="zero")
+    one_px = np.ones((1, 1), np.float32)
+    mw = b.add_lambertian(b.add_texture([(one_px, white)], name="tw"),
+                          name="mw")
+    mr = b.add_lambertian(b.add_texture([(one_px, red)], name="tr"),
+                          name="mr")
+    mg = b.add_lambertian(b.add_texture([(one_px, green)], name="tg"),
+                          name="mg")
+    checker = b.add_lambertian(_texture1(b, CHECKER_PNG, white, "checker"),
+                               name="checker")
+    cloud = b.add_lambertian(
+        _texture4(b, CLOUD_PNG, _rgb_basis(b, spectral) + [zero], "cloud"),
+        name="cloud")
+    emit = b.add_curve(spectral.BlackbodyCurve(5500.0, 18.0), name="emit")
+    b78 = b.add_curve(spectral.FlatCurve(0.78), name="b78")
+    light = b.add_diffuse_light(emit, b78, SIDE_REVERSE, name="light")
+    b.add_rect([0.0, 0.0, 0.95], [0.35, 0, 0], [0, 0.35, 0], light)
+    b.add_rect(*CHECKER_WALL, checker)                              # back
+    b.add_rect([0.0, 0.0, -1.0], [1.0, 0, 0], [0, 1.0, 0], cloud)   # floor
+    b.add_rect([0.0, 0.0, 1.0], [1.0, 0, 0], [0, 1.0, 0], mw)       # ceiling
+    b.add_rect([0.0, 1.0, 0.0], [0, 0, 1.0], [1.0, 0, 0], mr)
+    b.add_rect([0.0, -1.0, 0.0], [0, 0, 1.0], [1.0, 0, 0], mg)
+    # stripes in u and v: 8 x 4 texels, two layers
+    u_stripes = np.tile((np.arange(8) % 2).astype(np.float32), (4, 1))
+    v_stripes = np.tile((np.arange(4) % 2)[:, None].astype(np.float32), (1, 8))
+    stripes = b.add_lambertian(b.add_texture(
+        [(0.2 + 0.6 * u_stripes, white), (0.5 * v_stripes, red)],
+        name="stripes"), name="stripes")
+    b.add_sphere([0.35, -0.4, -0.62], 0.38, stripes)
+    ramp = np.linspace(0.1, 0.9, 16, dtype=np.float32).reshape(4, 4)
+    tiles = b.add_lambertian(b.add_texture([(ramp, green), (ramp.T, white)],
+                                           name="tiles"), name="tiles")
+    v, f = icosahedron(np.array([0.2, 0.45, -0.7]), 0.3)
+    b.add_mesh(v, f, None, tiles)
+    dots = b.add_lambertian(b.add_texture(
+        [(np.array([[0.8, 0.1], [0.1, 0.8]], np.float32), white)],
+        name="dots"), name="dots")
+    b.add_disk([0.7, 0.4, 0.4], [-1.0, 0.0, 0.0], 0.22, dots)
+    b.set_environment_constant(zero, 0.0)
+    b.env_sampling_probability = 0.0
+    return b
+
+
+def textured_sun(b, spectral):
+    """The 8x8 `checker.png` (Texture1) on a unit sphere under the Sun of
+    `sun_sphere`: the texture feed beside the environment feed."""
+    white = b.add_curve(spectral.FlatCurve(0.78), name="white")
+    m = b.add_lambertian(_texture1(b, CHECKER_PNG, white, "checker"),
+                         name="checker")
+    b.add_sphere([0.0, 0.0, 0.0], 1.0, m)
+    one = b.add_curve(spectral.FlatCurve(1.0), name="one")
+    b.set_environment_sun(one, 4.0, [0.3, 0.2, 1.0], 0.6)
+    b.env_sampling_probability = 1.0
+    return b
+
+
+def checker_tiles(film_y, camera):
+    """Whether `textured_cornell`'s checker wall is resolved in a film (the
+    JAX package's tests/test_render_textured.py check): each pixel's centre
+    ray meets the wall plane at the rect's uv; over the pixels that see the
+    wall away from its rim and more than a quarter texel from a tile edge,
+    -> (mean Y over odd tiles, mean Y over even tiles, pixel count)."""
+    h, w = film_y.shape
+    dev = camera.origin.device
+    pix = torch.arange(h * w, device=dev)
+    fu = ((pix % w).float() + 0.5) / w
+    fv = (torch.div(pix, w, rounding_mode="floor").float() + 0.5) / h
+    half = torch.full_like(fu, 0.5)
+    o, d, _ = camera.get_ray(fu, fv, half, half)
+    o, d = o.cpu().numpy(), d.cpu().numpy()
+    pa, pb, pc = (np.asarray(x, np.float64) for x in CHECKER_WALL)
+    t = (pa[0] - o[:, 0]) / d[:, 0]
+    rel = o + t[:, None] * d - pa
+    uu = 0.5 * (rel @ pb / (pb @ pb) + 1.0)
+    vv = 0.5 * (rel @ pc / (pc @ pc) + 1.0)
+    on_wall = (t > 0) & (np.abs(uu - 0.5) < 0.49) & (np.abs(vv - 0.5) < 0.49)
+    th, tw = load_png_rgba(CHECKER_PNG).shape[:2]
+    tu, tv = uu * tw, vv * th
+    interior = ((np.abs(tu - np.round(tu)) > 0.25)
+                & (np.abs(tv - np.round(tv)) > 0.25))
+    odd = ((np.floor(tu) + np.floor(tv)) % 2).astype(bool)
+    sel = on_wall & interior
+    img = film_y.reshape(-1).cpu().numpy()
+    return (float(img[sel & odd].mean()), float(img[sel & ~odd].mean()),
+            int(sel.sum()))

@@ -5,9 +5,8 @@ eval(λ, uv) = Σ_layers weight_layer(uv) · curve_layer(λ). All weight maps
 live row-major in one flat atlas; a texture is (layer_start, layer_count)
 into the per-layer metadata, and a lookup clamps uv to [0, 1) and samples
 the nearest texel. The megakernel bake folds 1x1 layers into its material
-table; multi-texel maps are evaluated here (the HDR environment). The
-megakernel gate still refuses uv-dependent surface textures (ROADMAP §2,
-queue 1).
+table; multi-texel maps are evaluated here (the HDR environment, and the
+surface textures of the texture feed when their pair table is not baked).
 """
 
 from __future__ import annotations

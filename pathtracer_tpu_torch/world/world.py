@@ -21,6 +21,7 @@ from pathtracer_tpu_torch.core.spectral import CurveBank
 from pathtracer_tpu_torch.geometry.soa import Primitives
 from pathtracer_tpu_torch.materials.tables import Materials
 from pathtracer_tpu_torch.textures.texture import Textures
+from pathtracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pathtracer_tpu_torch.world.environment import Environment
 
 _GROUPS = (("prims", Primitives), ("mats", Materials), ("tex", Textures),
@@ -70,8 +71,10 @@ def _tensor(a, device):
     return torch.as_tensor(a.copy(), device=device)
 
 
-def world_from_numpy(fields: dict, device="cpu") -> World:
-    """Build the port's `World` from numpy arrays keyed by JAX field name."""
+def world_from_numpy(fields: dict, device=DEFAULT_DEVICE) -> World:
+    """Build the port's `World` from numpy arrays keyed by JAX field name,
+    on `device` (the card by default; raises without one)."""
+    device = resolve_device(device)
     missing = [n for n in field_names() if n not in fields]
     if missing:
         raise KeyError(f"world_from_numpy: missing fields {missing}")

@@ -49,7 +49,7 @@ def test_world_from_jax_leaves(worlds):
     """The JAX World's leaves through world_from_numpy give the port's own
     build of the same recipe."""
     _, (jw, tw, _, _) = worlds
-    w = world_from_numpy(jax_world_fields(jw, field_names()))
+    w = world_from_numpy(jax_world_fields(jw, field_names()), "cpu")
     _assert_fields_equal(w.numpy_fields(), tw.numpy_fields())
 
 
@@ -92,13 +92,16 @@ def test_builder_refuses_outside_slice(what):
         elif what == "medium":
             b.add_medium_hg(c, c, c)
         elif what == "texels":
-            # multi-texel textures build; the megakernel refuses them on a
-            # lambertian surface (the texture-feed route, queue 1)
-            m = b.add_lambertian(b.add_texture([(np.ones((2, 2),
+            # multi-texel textures build, and the texture-feed round takes
+            # them as a lambertian's reflectance; the megakernel refuses
+            # them anywhere else, as the JAX gate does
+            b.add_texture([(np.ones((2, 2), np.float32), c)])
+            m = b.add_lambertian(b.add_texture([(np.ones((1, 1),
                                                          np.float32), c)]))
             b.add_sphere([0.0, 0.0, 0.0], 1.0, m)
             torch_mk.build_mega_scene(
-                b.build(), make_projective_camera(**scenes.CORNELL_CAMERA))
+                b.build("cpu"),
+                make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu"))
         elif what == "mesh_transform":
             b.add_mesh(np.eye(3), [[0, 1, 2]], None, 0, transform=np.eye(4))
         else:
@@ -109,15 +112,15 @@ def test_gate_refuses_large_scene():
     """More than 4 chunks of 32 prims is the two-program round's job; more
     than 8192 prims is outside the megakernel (the regen integrator without
     kernels, ROADMAP §1 item 5)."""
-    cam = make_projective_camera(**scenes.CORNELL_CAMERA)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
     _, ts = both_settings(**NEE_SETTINGS)
     w = scenes.random_prims(SceneBuilder(), torch_spectral, grid=8,
-                            n_each=4).build()
+                            n_each=4).build("cpu")
     assert w.prims.count > 128
     assert torch_mk.mega_available(w, cam, ts)
     assert not torch_mk.fused_ok(torch_mk.build_mega_scene(w, cam))
     big = scenes.random_prims(SceneBuilder(), torch_spectral, grid=64,
-                              n_each=4).build()
+                              n_each=4).build("cpu")
     assert big.prims.count > torch_mk.MEGA_MAX_PRIMS
     assert not torch_mk.mega_available(big, cam, ts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

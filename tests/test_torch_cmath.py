@@ -213,7 +213,7 @@ def test_camera_get_ray(aperture, blades):
               vfov_degrees=40.0, focal_distance=1.7,
               aperture_diameter=aperture, aspect_ratio=1.5, blades=blades,
               blade_sharpness=0.7)
-    jcam, tcam = jax_camera(**kw), torch_camera(**kw)
+    jcam, tcam = jax_camera(**kw), torch_camera(**kw, device="cpu")
     u = np.random.default_rng(9).random((4, N)).astype(np.float32)
     ref = jcam.get_ray(*[jnp.asarray(x) for x in u])
     got = tcam.get_ray(*[torch.as_tensor(x) for x in u])
@@ -230,9 +230,10 @@ def test_camera_from_jax_leaves():
     kw = dict(look_from=[-1.2, 0.5, 0.5], look_at=[0.5, 0.5, 0.5],
               vfov_degrees=40.0, focal_distance=1.7, aperture_diameter=0.1,
               aspect_ratio=1.5, blades=6, blade_sharpness=0.7)
-    jcam, tcam = jax_camera(**kw), torch_camera(**kw)
+    jcam, tcam = jax_camera(**kw), torch_camera(**kw, device="cpu")
     names = [f.name for f in dataclasses.fields(tcam)]
-    got = camera_from_numpy({n: np.asarray(getattr(jcam, n)) for n in names})
+    got = camera_from_numpy({n: np.asarray(getattr(jcam, n)) for n in names},
+                            "cpu")
     for n in names:
         np.testing.assert_array_equal(getattr(got, n).numpy(),
                                       getattr(tcam, n).numpy(), err_msg=n)

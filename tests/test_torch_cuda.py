@@ -12,9 +12,11 @@ kernels and their twins run the same operations in the same order (the
 twins divide by constants as IEEE divisions, and the kernels are built
 without FMA contraction), so the discrete rows must be equal on >= 99.99%
 of lanes and the continuous rows within rtol 1e-4, atol 1e-5 on those
-lanes. That holds for the fused round, and for K12 (shade_sweep, its K2
+lanes. That holds for the fused round, for K12 (shade_sweep, its K2
 rows) and K34 (finalize_sweep) of the two-program round on the multi-chunk
-gem, the HDR blob and the Sun scene, each chained over three rounds."""
+gem, the HDR blob and the Sun scene, and for K1 (sweep_closest_rows: hit and
+prim id exact, t within rtol 1e-5), K2 (shade) and K34 of the texture-feed
+round on the textured Cornell box, each chained over three rounds."""
 
 import numpy as np
 import pytest
@@ -50,10 +52,10 @@ def _rays(n, gen, dev, tmax=None):
 @pytest.mark.parametrize("table", ["chip", "random"])
 def test_sweep_kernel_matches_plain(dev, table):
     if table == "chip":
-        w = scenes.chip_scene(SceneBuilder(), spectral).build()
+        w = scenes.chip_scene(SceneBuilder(), spectral).build("cpu")
     else:
         w = scenes.random_prims(SceneBuilder(), spectral, seed=2, grid=20,
-                                n_each=100).build()
+                                n_each=100).build("cpu")
     p = w.prims
     tab = torch.as_tensor(dense.pack_prims_np(
         p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
@@ -156,4 +158,80 @@ def test_two_prog_kernels_match_plain(dev, recipe, cam, c_lanes):
         frac, close = match_rows(ok, op, disc)
         assert frac >= 0.9999 and close
         sk = ok[:mk.NS]
+    assert np.isfinite(sk.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("table", ["chip", "random"])
+def test_rows_sweep_kernel_matches_plain(dev, table):
+    """K1 reads the rays from state rows in place; dead lanes read as
+    misses."""
+    if table == "chip":
+        w = scenes.chip_scene(SceneBuilder(), spectral).build("cpu")
+    else:
+        w = scenes.random_prims(SceneBuilder(), spectral, seed=2, grid=20,
+                                n_each=100).build("cpu")
+    p = w.prims
+    tab = torch.as_tensor(dense.pack_prims_np(
+        p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+        p.pc.numpy()), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 1 << 16
+    state = torch.rand((mk.NS, n), generator=gen, device=dev)
+    state[mk.S_O:mk.S_O + 6] = _rays(n, gen, dev)[:6]
+    state[mk.S_ALIVE] = (torch.rand(n, generator=gen, device=dev)
+                         < 0.9).float()
+    launches = dense.ROWS_LAUNCHES
+    k = dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE)
+    pl = dense.sweep_closest_rows_plain(state, tab, mk.S_O, mk.S_ALIVE)
+    assert dense.ROWS_LAUNCHES == launches + 1
+    assert torch.equal(k[1], pl[1]) and not k[2:].any()
+    hit = k[1] >= 0
+    assert torch.allclose(k[0][hit], pl[0][hit], rtol=1e-5, atol=0.0)
+    assert torch.equal(k[0][~hit], pl[0][~hit])
+
+
+@pytest.mark.parametrize("c_lanes", [1, 4])
+def test_texfeed_kernels_match_plain(dev, c_lanes):
+    """K1, K2 and K34 of the texture-feed round against their twins over
+    three chained rounds of the textured Cornell box, each fed by the
+    texture feed of its own hit rows."""
+    world = scenes.textured_cornell(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device=dev)
+    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4)
+    scene = mk.build_mega_scene(world, cam, dev)
+    assert scene.tex is not None and not mk.fused_ok(scene)
+    a = mk.RoundArgs.make(scene.consts, s, 128, 128)
+    n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 128 * 128,
+                            n_pad, 4)
+    sk = sp = state
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+            mk.O4_CAMERA_CT]
+    for _ in range(3):
+        u12 = torch.rand((mk.n_u_rows(2), n_pad), generator=gen, device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        launches = (dense.ROWS_LAUNCHES, mk.K2_LAUNCHES)
+        tpk = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O,
+                                       mk.S_ALIVE)
+        tpp = dense.sweep_closest_rows_plain(sp, scene.dense_tab, mk.S_O,
+                                             mk.S_ALIVE)
+        assert torch.equal(tpk[1], tpp[1])
+        hit = tpk[1] >= 0
+        assert torch.allclose(tpk[0][hit], tpp[0][hit], rtol=1e-5, atol=0.0)
+        tfk = mk.tex_feed(scene.tex, sk, tpk, c_lanes)
+        tfp = mk.tex_feed(scene.tex, sp, tpp, c_lanes)
+        k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk)
+        k2p = mk.shade_plain(u12, sp, tpp, scene.prim_tab, scene.mat_tab,
+                             scene.light_tab, scene.spec_tab, a, None, tfp)
+        assert (dense.ROWS_LAUNCHES, mk.K2_LAUNCHES) == (launches[0] + 1,
+                                                         launches[1] + 1)
+        frac, close = match_rows(k2k, k2p, k2_discrete(2))
+        assert frac >= 0.9999 and close
+        ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+        op = mk.finalize_sweep_plain(u34, sp, k2p, scene.dense_tab, a)
+        frac, close = match_rows(ok, op, disc)
+        assert frac >= 0.9999 and close
+        sk, sp = ok[:mk.NS], op[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()

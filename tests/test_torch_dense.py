@@ -32,7 +32,8 @@ N_RAYS = 5000
 def _random_worlds():
     kw = dict(seed=4, grid=6, n_each=10)
     return (scenes.random_prims(JaxBuilder(), jax_spectral, **kw).build(),
-            scenes.random_prims(TorchBuilder(), torch_spectral, **kw).build())
+            scenes.random_prims(TorchBuilder(), torch_spectral,
+                                 **kw).build("cpu"))
 
 
 @pytest.fixture(scope="module", params=["chip", "random"])

@@ -29,8 +29,8 @@ from pathtracer_tpu_torch.core import spectral
 from pathtracer_tpu_torch.integrator.pt import PTSettings
 from pathtracer_tpu_torch.parsing import SceneBuilder
 from pathtracer_tpu_torch.renderer.persistent import render_regen
-world = scenes.chip_scene(SceneBuilder(), spectral).build()
-cam = make_projective_camera(**scenes.CORNELL_CAMERA)
+world = scenes.chip_scene(SceneBuilder(), spectral).build("cpu")
+cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
 film, profile, _ = render_regen(world, cam, PTSettings(light_samples=2), 16,
                                 16, 1, generator=torch.Generator().manual_seed(0))
 assert film.shape == (16, 16, 3) and bool(torch.isfinite(film).all())

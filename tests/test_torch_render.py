@@ -137,11 +137,14 @@ def test_tonemap_matches_jax(chip, mapper, colorspace):
 
 @pytest.mark.parametrize("recipe,route", [
     ("chip", "fused"), ("furnace", "fused"), ("gem", "two_prog"),
-    ("hdri", "two_prog"), ("sun", "two_prog")])
+    ("hdri", "two_prog"), ("sun", "two_prog"), ("textured", "texfeed"),
+    ("textured_sun", "texfeed")])
 def test_render_routes_by_gate(monkeypatch, recipe, route):
-    """The fused round for at most 4 chunks under a constant environment,
-    the two-program round otherwise, one round call per round."""
-    calls = {"fused": 0, "two_prog": 0}
+    """The fused round for at most 4 chunks under a constant environment
+    without uv textures, the texture-feed round for uv-textured
+    lambertians, the two-program round otherwise, one round call per
+    round."""
+    calls = {"fused": 0, "two_prog": 0, "texfeed": 0}
     for name in calls:
         fn = getattr(tm, f"{name}_round")
 
@@ -163,24 +166,24 @@ def test_render_routes_by_gate(monkeypatch, recipe, route):
 @pytest.mark.parametrize("what", ["medium", "uv_texture", "too_many_prims"])
 def test_render_refuses_with_roadmap_item(what):
     """Medium-aware settings (the two-program round's medium branch, next),
-    uv-dependent surface textures (queue 1) and scenes over 8192 prims (the
-    regen integrator without kernels) raise, naming their ROADMAP item."""
+    a multi-texel texture used other than as a lambertian's reflectance or
+    the HDR map, and scenes over 8192 prims (both for the regen integrator
+    without kernels) raise, naming their ROADMAP item."""
     _, ts = both_settings(**NEE_SETTINGS)
-    cam = make_projective_camera(**scenes.CORNELL_CAMERA)
-    world = scenes.cornell_box(SceneBuilder(), spectral).build()
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
+    world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
     match = {"medium": "ROADMAP §2, queue 2", "uv_texture":
-             "ROADMAP §2, queue 1", "too_many_prims": "ROADMAP §1 item 5"}
+             "ROADMAP §1 item 5", "too_many_prims": "ROADMAP §1 item 5"}
     if what == "medium":
         ts = type(ts)(**{**ts.__dict__, "medium_aware": True})
     elif what == "uv_texture":
         b = scenes.cornell_box(SceneBuilder(), spectral)
         c = b.curve_index("white")
-        m = b.add_lambertian(b.add_texture([(np.ones((4, 4), np.float32), c)]))
-        b.add_sphere([0.5, 0.5, 0.3], 0.2, m)
-        world = b.build()
+        b.add_texture([(np.ones((4, 4), np.float32), c)])
+        world = b.build("cpu")
     else:
         world = scenes.random_prims(SceneBuilder(), spectral, grid=64,
-                                    n_each=4).build()
+                                    n_each=4).build("cpu")
     assert not tm.mega_available(world, cam, ts)
     with pytest.raises(NotImplementedError, match=match[what]):
         render_regen(world, cam, ts, 8, 8, 1)

@@ -16,6 +16,7 @@ from pathtracer_tpu.camera import make_projective_camera as jax_camera
 from pathtracer_tpu.core import sampling
 from pathtracer_tpu.core import spectral as jax_spectral
 from pathtracer_tpu.integrator.pt import PTSettings as JaxSettings
+from pathtracer_tpu.kernels import dense as jdense
 from pathtracer_tpu.kernels import megakernel as jm
 from pathtracer_tpu.parsing.builder import SceneBuilder as _JaxSceneBuilder
 from pathtracer_tpu.world import importance_map as jax_imp
@@ -28,6 +29,7 @@ from pathtracer_tpu_torch import scenes
 from pathtracer_tpu_torch.camera import make_projective_camera as torch_camera
 from pathtracer_tpu_torch.core import spectral as torch_spectral
 from pathtracer_tpu_torch.integrator.pt import PTSettings as TorchSettings
+from pathtracer_tpu_torch.kernels import dense as tdense
 from pathtracer_tpu_torch.kernels import megakernel as tm
 from pathtracer_tpu_torch.parsing import SceneBuilder as TorchBuilder
 
@@ -73,6 +75,8 @@ RECIPES = {
     "hdri": (scenes.hdri_blob, scenes.SPHERE_CAMERA),
     "hdr_furnace": (scenes.hdr_furnace, scenes.SPHERE_CAMERA),
     "sun": (scenes.sun_sphere, scenes.SPHERE_CAMERA),
+    "textured": (scenes.textured_cornell, scenes.TEXTURED_CAMERA),
+    "textured_sun": (scenes.textured_sun, scenes.SPHERE_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -85,8 +89,8 @@ def both_worlds(recipe):
     """(jax World, port World, jax camera, port camera) of one recipe."""
     fn, cam = RECIPES[recipe]
     return (fn(JaxBuilder(), jax_spectral).build(),
-            fn(TorchBuilder(), torch_spectral).build(),
-            jax_camera(**cam), torch_camera(**cam))
+            fn(TorchBuilder(), torch_spectral).build(device="cpu"),
+            jax_camera(**cam), torch_camera(**cam, device="cpu"))
 
 
 def both_settings(**kw):
@@ -226,6 +230,78 @@ def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4):
         out_rounds.append(dict(jk2=np.asarray(jk2), k2=k2.numpy(),
                                alive=alive, state=np.asarray(state),
                                out=out, counts=np.asarray(counters) - c0))
+    return out_rounds
+
+
+def jax_rows_sweep(state, dense_tab, consts):
+    """The JAX K1 rows sweep of the state's rays (interpret mode), as
+    _mega_step_texfeed calls it."""
+    return jdense.sweep_closest_rows(
+        state, dense_tab, row0=jm.S_O, tmin_c=jm.INTERSECTION_TIME_OFFSET,
+        tmax_c=jm.RAY_TMAX, src_rows=8, interpret=True,
+        chunk_types=consts.get("ct8"))
+
+
+def chained_texfeed(recipe, c_lanes, rounds=2, width=32, spp=4):
+    """`rounds` texture-feed rounds of the JAX package (K1
+    `sweep_closest_rows`, `_tex_feed`, `_k2_call`, `_k34_call`; interpret
+    mode) and of the port's plain twins (`sweep_closest_rows`, `tex_feed`,
+    `shade`, `finalize_sweep`, after `env_feed` for a Sun environment), each
+    chained on its own state from the JAX initial state, with the uniform
+    blocks the JAX calls draw. Returns per round a dict: the jax state going
+    in (jin) and its K12 uniform block (u12), jax/port hit rows (tp),
+    texture-feed rows (tf) and K2 rows, the alive mask going in, the jax
+    state, the port out (with the K2 counter rows, as check_round reads
+    them) and the jax counter delta, and the port scene and round args."""
+    jw, tw, jc, tc = both_worlds(recipe)
+    js, ts = both_settings(**NEE_SETTINGS, hwss=c_lanes == 4)
+    n = width * width
+    n_pad = -(-n // tm.TILE) * tm.TILE
+    jscene = jm.build_mega_scene(jw, jc, js)
+    st_t = jax_settings_t(js, c_lanes, width, width, n)
+    ct_t = jm._freeze(jscene.consts)
+    tabs = (jscene.prim_tab, jscene.dense_tab, jscene.mat_tab,
+            jscene.light_tab, jscene.spec_tab, jscene.env_args, None, None)
+    key = jax.random.PRNGKey(3)
+    k_iter = sampling.fold(key, 2)
+    state, counters = jm._mega_init(jc, key, st_t, n, n_pad,
+                                    jnp.float32(spp))
+    tscene = tm.build_mega_scene(tw, tc)
+    a = tm.RoundArgs.make(tscene.consts, ts, width, width)
+    tstate = torch.as_tensor(np.array(state))
+    replay = JaxReplay(key)
+    it = jnp.int32(0)
+    out_rounds = []
+    for r in range(rounds):
+        jin = np.array(state)
+        jtp = jax_rows_sweep(state, jscene.dense_tab, jscene.consts)
+        jtf = jm._tex_feed(jscene.tex_args, state, jtp, c_lanes)
+        jk2 = jm._k2_call(state, jtp, tabs, k_iter, it, st_t, ct_t, True,
+                          tf=jtf)
+        alive = np.asarray(state)[tm.S_ALIVE] > 0.5
+        c0 = np.asarray(counters)
+        state, counters, it = jm._k34_call(state, jk2, jscene.dense_tab,
+                                           counters, k_iter, it, st_t, ct_t,
+                                           True)
+        tp = tdense.sweep_closest_rows(tstate, tscene.dense_tab, tm.S_O,
+                                       tm.S_ALIVE)
+        u12 = replay.round(r, tm.n_u_rows(a.light_samples), n_pad, "cpu", 0)
+        ef = (tm.env_feed(tscene.env, tstate, u12, a.light_samples, c_lanes)
+              if tscene.env is not None else None)
+        tf = tm.tex_feed(tscene.tex, tstate, tp, c_lanes)
+        k2 = tm.shade(u12, tstate, tp, tscene, a, ef, tf)
+        out = tm.finalize_sweep(replay.round(r, tm.NU4, n_pad, "cpu", 1),
+                                tstate, k2, tscene, a)
+        tstate = out[:tm.NS]
+        out = out.numpy().copy()
+        out[tm.O4_SHADOW_CT] = k2[tm.O_SHADOW_CT].numpy()
+        out[tm.O4_ENV_CT] = k2[tm.O_ENV_CT].numpy()
+        out_rounds.append(dict(
+            jin=jin, u12=u12, scene=tscene, a=a,
+            jtp=np.array(jtp), tp=tp.numpy(), jtf=np.array(jtf),
+            tf=tf.numpy(), jk2=np.asarray(jk2), k2=k2.numpy(), alive=alive,
+            state=np.asarray(state), out=out,
+            counts=np.asarray(counters) - c0))
     return out_rounds
 
 
