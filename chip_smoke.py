@@ -11,14 +11,22 @@ multi-chunk gem stand-in at 1080x1080, 8 spp, the 5,120-triangle mesh at
 1080x1080, 2 spp, and the HDR blob environment at 512x512, 16 spp; and the
 texture-feed round (K1 `sweep_closest_rows`, the torch texture feed, K2
 `shade`, K34) on the uv-textured Cornell box at 1080x1080, 16 spp, whose
-checker wall must come out resolved. Films go to `output/`. Last, the
+checker wall must come out resolved. Films go to `output/`. Then the
 dispersive hero-wavelength furnace and the HDR furnace must come out
-uniform. Every phase prints one JSON line; any failure raises and the
-script exits non-zero. Before the last line, one JSON line lists every
-kernel with its launches on the main path, its agreement with its twin, its
-time, its twin's and its bound (the least time the card could take: the
-larger of the f32 operations over 67 TFLOP/s and the bytes over 3.35 TB/s,
-the H100 SXM's published peaks). The last line is the device summary:
+uniform. Last, the light tracer: three chained rounds of K12-LT and K34-LT
+(v2: in-kernel spawn, on the chip scene with its lens proxy at 1 and 2
+camera samples; v1: from the torch spawn feed, on the HDR blob) against
+their twins, the `render_splatted` renders of the chip scene with its lens
+proxy at 1080x1080, 16 light paths per pixel (v2), and of the HDR blob at
+512x512, 4 paths per pixel (v1, with the device's busy share), and two
+estimator checks: light against path tracing on the Cornell box, in-kernel
+spawn against the spawn feed on a spike-emission box. Every phase prints
+one JSON line; any failure raises and the script exits non-zero. Before
+the last line, one JSON line lists every kernel with its launches on the
+path that runs it, its agreement with its twin, its time, its twin's and
+its bound (the least time the card could take: the larger of the f32
+operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
+published peaks). The last line is the device summary:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -191,6 +199,13 @@ def phase_build(torch):
             check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
             two_prog[name][f"C{c}"] = dict(regs=regs.value,
                                            local_bytes=local.value)
+    lt_round = {}
+    for which, name in enumerate(("lt_shade", "lt_finalize_spawn",
+                                  "lt_finalize")):
+        rc = lib.lt_round_attrs(which, ctypes.byref(regs),
+                                ctypes.byref(local))
+        check(rc == 0, f"lt_round_attrs: CUDA error {rc}")
+        lt_round[name] = dict(regs=regs.value, local_bytes=local.value)
     log = _build.BUILD_INFO.get("log", "")
     usage = [ln.strip() for ln in log.splitlines()
              if "registers" in ln.lower() or "spill" in ln.lower()
@@ -200,7 +215,8 @@ def phase_build(torch):
               "w") as f:
         f.write(log)
     emit("build", seconds=round(secs, 2), flags=_build.NVCC_FLAGS,
-         fused_round=attrs, **two_prog, resource_usage=usage[:40])
+         fused_round=attrs, **two_prog, **lt_round,
+         resource_usage=usage[:60])
 
 
 def _rays(torch, n, gen, dev, tmax=None):
@@ -669,10 +685,13 @@ def device_kernels(torch, fn):
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def reset_counts(mk, dense):
+def reset_counts(mk, dense, lt=None):
     mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
     mk.K2_LAUNCHES = mk.PLAIN_CALLS = 0
     dense.LAUNCHES = dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
+    if lt is not None:
+        lt.SHADE_LAUNCHES = lt.FINALIZE_SPAWN_LAUNCHES = 0
+        lt.FINALIZE_LAUNCHES = lt.PLAIN_CALLS = 0
 
 
 def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
@@ -896,6 +915,334 @@ def phase_hdr_furnace(torch, dev):
     check(abs(ratio - 1.0) < 0.05, f"HDR furnace ratio {ratio}")
 
 
+def _lt_scene(dev, recipe, cam, cs, max_bounces=8, min_bounces=1, rr=True,
+              stratified=True):
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.integrator.lt import LTSettings
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**getattr(scenes, cam), device=dev)
+    return world, camera, LTSettings(
+        max_bounces=max_bounces, min_bounces=min_bounces, camera_samples=cs,
+        russian_roulette=rr, stratified=stratified)
+
+
+def lt_rays(torch, dense, tab, so, sd, tmax, want):
+    """(shadow rays swept, unblocked among them) of the rays `want` selects
+    ([3, N] origins and directions), by the any-hit sweep kernel."""
+    rays = torch.cat([so, sd, torch.full_like(tmax, 1e-6)[None],
+                      torch.where(want, tmax, 0.0)[None]]).contiguous()
+    blocked = dense.sweep_any(rays, tab)[0] > 0.5
+    return int(want.sum()), int((want & ~blocked).sum())
+
+
+def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
+    """The bounds of K12-LT and K34-LT on one round's inputs. K12-LT: every
+    lane's alive flag, a live lane's 11 state rows, its uniforms and its
+    closest-hit sweep, every lane's Q rows, the tables. K34-LT: every
+    lane's state, its 10 continuation Q rows and RR uniform, a live lane's
+    connection rows, a respawning lane's spawn uniforms (v2: 11) or feed
+    rows (v1: 11, and the connection's 8 where valid), every out row; each
+    unblocked shadow ray tests every prim, a blocked one at least the
+    cheapest test. Shading and spawning arithmetic is not counted."""
+    n = state.shape[1]
+    a, t = scene.a, scene.tabs
+    cs, tab = a.cs, t.dense_tab
+    alive0 = state[lt.LS_ALIVE] > 0.5
+    live = int(alive0.sum())
+    p_bytes = F32 * int(tab.shape[0]) * 11
+    b12 = bound(live * sweep_ops(tab), F32 * (
+        n + live * (11 + 2 * cs + 3) + lt.q2_rows(cs) * n)
+        + table_bytes(t) + p_bytes)
+    rays = []
+    for ci in range(cs):
+        b = lt.Q_CONN + lt.CONN_ROWS * ci
+        rays.append(lt_rays(torch, dense, tab, q[b:b + 3], q[b + 3:b + 6],
+                            q[b + 6], alive0 & (q[b + 6] > 1e-6)))
+    aux = lt.k4_aux_v2(cs) if usp is not None else lt.k4_aux(cs)
+    hw = out[aux["resp"]] > 0.5
+    if usp is not None:
+        sp = lt._spawn_plain(a, usp, t.light_tab, t.spec_tab,
+                             scene.lcdf_tab)
+        want = hw & sp["lv_valid"]
+        rays.append(lt_rays(torch, dense, tab, torch.stack(list(
+            sp["so_lv"])), torch.stack(list(sp["dir_lv"])), sp["tmax_lv"],
+            want))
+        spawn_bytes = F32 * 11 * int(hw.sum())
+        extra = F32 * (t.light_tab.numel() + scene.lcdf_tab.numel())
+    else:
+        f = feed
+        want = hw & (f[lt.F_LV_VALID] > 0.5)
+        rays.append(lt_rays(torch, dense, tab, f[lt.F_LV:lt.F_LV + 3],
+                            f[lt.F_LV + 3:lt.F_LV + 6], f[lt.F_LV + 6], want))
+        spawn_bytes = F32 * (11 * int(hw.sum()) + 8 * int(want.sum()))
+        extra = 0
+    ops = sum(free * sweep_ops(tab) + (swept - free) * min(PRIM_OPS)
+              for swept, free in rays)
+    b34 = bound(ops, F32 * (lt.NS_LT * n + 11 * n + 12 * cs * live
+                            + out.shape[0] * n) + spawn_bytes + extra
+                + p_bytes)
+    return b12, b34, rays
+
+
+def phase_lt_round(torch, dev, cases):
+    """Three chained LT rounds per case from a state of dead lanes with a
+    budget of 2 particles: K12-LT and K34-LT (v2, or v1 after the torch
+    spawn feed) against their twins, each side on its own state; then the
+    kernels', the twins' and the feed's times and the bounds on the second
+    round's inputs (the first round only spawns)."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    res = {}
+    for recipe, cam, cs, v2, lanes, width in cases:
+        world, camera, settings = _lt_scene(dev, recipe, cam, cs)
+        scene = lt.build_lt_scene(world, camera, settings, width, width, dev,
+                                  v2)
+        check(scene.spawn_inkernel == v2, f"{recipe}: route is not "
+              f"{'v2' if v2 else 'v1'}")
+        t, a = scene.tabs, scene.a
+        state0 = torch.zeros((lt.NS_LT, lanes), device=dev)
+        state0[lt.LS_BUDGET] = 2.0
+        n = lanes
+        unif = mk.TorchUniforms(
+            torch.Generator(device=dev).manual_seed(41 + cs))
+        q_disc, o_disc = lt.discrete_rows(cs, v2)
+        aux = lt.k4_aux_v2(cs) if v2 else lt.k4_aux(cs)
+        cells = settings.strata_uv ** 2 * settings.strata_lam
+        sk = sp = state0
+        rounds, inputs = [], None
+        for it in range(3):
+            u = unif.round(it, lt.nu_lt(cs), n, dev)
+            qk = lt.lt_shade(u, sk, scene)
+            qp = lt.lt_shade_plain(u, sp, t.dense_tab, t.prim_tab, t.mat_tab,
+                                   t.spec_tab, a)
+            usp = feed = None
+            if v2:
+                usp = lt.stratify_usp(settings,
+                                      unif.round(it, lt.NUSP, n, dev),
+                                      unif.permutation(it, cells, dev))
+                ok = lt.lt_finalize_spawn(u, usp, sk, qk, scene)
+                op = lt.lt_finalize_spawn_plain(
+                    u, usp, sp, qp, t.dense_tab, t.light_tab, t.spec_tab,
+                    scene.lcdf_tab, a)
+            else:
+                feed = lt.spawn_feed_for(scene, settings, unif, it, n)
+                ok = lt.lt_finalize(u, sk, qk, feed, scene)
+                op = lt.lt_finalize_plain(u, sp, qp, feed, t.dense_tab, a)
+            torch.cuda.synchronize()
+            f12, bad12, err12, rel12 = compare_rows(
+                torch, qk, qp, q_disc, range(qk.shape[0]))
+            f34, bad34, err34, rel34 = compare_rows(
+                torch, ok, op, o_disc, range(ok.shape[0]))
+            splats = (qk[lt.Q_HIT_XYZ + 1] > 0).sum() + sum(
+                (ok[lt.K4_CONN + 4 * ci + 2] > 0).sum() for ci in range(cs))
+            rounds.append(dict(
+                k12=dict(match_frac=f12, bad_rows=bad12, max_abs_err=err12,
+                         max_rel_err_bad=rel12),
+                k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
+                         max_rel_err_bad=rel34),
+                alive=float(ok[lt.LS_ALIVE].sum()),
+                walking=float(qk[lt.Q_ALIVE].sum()),
+                spawned=float(ok[aux["resp"]].sum()), splats=int(splats)))
+            if it == 1:
+                inputs = (u, usp, feed, sk, qk, ok)
+            sk, sp = ok[:lt.NS_LT], op[:lt.NS_LT]
+        u, usp, feed, s1, q1, o1 = inputs
+        rec = dict(
+            lanes=n, prims=int(t.dense_tab.shape[0]), camera_samples=cs,
+            route="v2" if v2 else "v1", rounds=rounds,
+            lt_shade_ms=cuda_ms(torch, lambda: lt.lt_shade(u, s1, scene), 10),
+            lt_shade_plain_ms=cuda_ms(torch, lambda: lt.lt_shade_plain(
+                u, s1, t.dense_tab, t.prim_tab, t.mat_tab, t.spec_tab, a), 2))
+        if v2:
+            rec["finalize_ms"] = cuda_ms(torch, lambda: lt.lt_finalize_spawn(
+                u, usp, s1, q1, scene), 10)
+            rec["finalize_plain_ms"] = cuda_ms(
+                torch, lambda: lt.lt_finalize_spawn_plain(
+                    u, usp, s1, q1, t.dense_tab, t.light_tab, t.spec_tab,
+                    scene.lcdf_tab, a), 2)
+        else:
+            rec["finalize_ms"] = cuda_ms(torch, lambda: lt.lt_finalize(
+                u, s1, q1, feed, scene), 10)
+            rec["finalize_plain_ms"] = cuda_ms(
+                torch, lambda: lt.lt_finalize_plain(u, s1, q1, feed,
+                                                    t.dense_tab, a), 2)
+            rec["spawn_feed_ms"] = cuda_ms(torch, lambda: lt.spawn_feed_for(
+                scene, settings, unif, 1, n), 5)
+            rec["spawn_feed_device_kernels"] = device_kernels(
+                torch, lambda: lt.spawn_feed_for(scene, settings, unif, 1, n))
+        b12, b34, rays = lt_bounds(torch, lt, dense, scene, s1, q1, o1, usp,
+                                   feed)
+        rec.update(lt_shade_bound=b12, finalize_bound=b34,
+                   shadow_rays_swept_free=rays)
+        res[f"{recipe}_{'v2' if v2 else 'v1'}_cs{cs}"] = rec
+        del sk, sp, ok, op, qk, qp, inputs, s1, q1, o1
+        torch.cuda.empty_cache()
+    emit("lt_round", **res)
+    for key, r in res.items():
+        for i, rd in enumerate(r["rounds"]):
+            for k in ("k12", "k34"):
+                check(rd[k]["match_frac"] >= 0.9999,
+                      f"LT {k} {key} #{i}: discrete rows match on only "
+                      f"{rd[k]['match_frac']:.6f} of lanes")
+                check(not rd[k]["bad_rows"],
+                      f"LT {k} {key} #{i}: rows beyond rtol 1e-4 atol 1e-5: "
+                      f"{rd[k]['bad_rows']}")
+        check(r["rounds"][0]["spawned"] > 0 and r["rounds"][1]["walking"] > 0
+              and r["rounds"][1]["splats"] > 0, f"LT {key}: no work")
+    return res
+
+
+def phase_render_lt(torch, dev, recipe, cam, width, ppp, v2, busy=False):
+    """A light-tracing render through render_splatted: K12-LT and the
+    route's K34-LT each launch once a round, the other K34-LT and the plain
+    twins never; exactly width² · ppp particles are spawned; the film is
+    finite and lit. Then a warm render; with `busy`, a third under
+    torch.profiler (the device's busy share and time by kernel); for v1,
+    the spawn feed's time at the render's lane count."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.renderer.splatted import render_splatted
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    world, camera, settings = _lt_scene(dev, recipe, cam, 1)
+
+    def render(seed, stats=None):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return render_splatted(world, camera, settings, width, width, ppp,
+                               generator=gen, device=dev, stats=stats)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mk, dense, lt)
+    stats = {}
+    film, profile, elapsed = render(2026, stats)
+    counts = dict(lt_shade=lt.SHADE_LAUNCHES,
+                  lt_finalize_spawn=lt.FINALIZE_SPAWN_LAUNCHES,
+                  lt_finalize=lt.FINALIZE_LAUNCHES,
+                  plain_calls=lt.PLAIN_CALLS + mk.PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rounds = stats["rounds"]
+    k34, other = (("lt_finalize_spawn", "lt_finalize") if v2
+                  else ("lt_finalize", "lt_finalize_spawn"))
+    check(stats["route"] == ("v2" if v2 else "v1"),
+          f"{recipe}: route {stats['route']}")
+    check(counts["lt_shade"] == counts[k34] == rounds > 0,
+          f"{recipe}: K12-LT/K34-LT launches {counts} != rounds {rounds}")
+    check(counts[other] == 0 and counts["plain_calls"] == 0,
+          f"{recipe}: the other route or plain twins ran: {counts}")
+    n_paths = width * width * ppp
+    check(profile.light_rays == n_paths,
+          f"{recipe}: {profile.light_rays} particles spawned, not {n_paths}")
+    film_h = film.cpu()
+    check(bool(torch.isfinite(film_h).all()), f"LT {recipe}: non-finite film")
+    mean_y = float(film_h[..., 1].mean())
+    check(mean_y > 0.0, f"LT {recipe}: film is black")
+    exr, png = output_film(film_h, f"lt_{recipe}_{width}", Reinhard0(),
+                           output_dir=os.path.join(ROOT, "output"))
+    rays = profile.total_rays
+    _, warm_profile, warm_s = render(2027)
+    rec = dict(scene=recipe, width=width, height=width, paths_per_pixel=ppp,
+               paths=n_paths, max_bounces=settings.max_bounces,
+               route=stats["route"], rounds=rounds, wall_s=elapsed,
+               mrays_per_s=rays / elapsed / 1e6, warm_wall_s=warm_s,
+               warm_mrays_per_s=warm_profile.total_rays / warm_s / 1e6,
+               light_rays=profile.light_rays, camera_rays=profile.camera_rays,
+               bounce_rays=profile.bounce_rays, mean_y=mean_y,
+               peak_gb=peak_gb, launches=counts,
+               exr=os.path.relpath(exr, ROOT), png=os.path.relpath(png, ROOT))
+    if busy:
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            render(2028)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us, end, by_name = 0.0, float("-inf"), {}
+        for t0_, t1_, name in spans:
+            busy_us += max(0.0, t1_ - max(t0_, end))
+            end = max(end, t1_)
+            by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
+        top = dict(sorted(((k[:60], round(v / 1e3, 3)) for k, v in
+                           by_name.items()), key=lambda kv: -kv[1])[:8])
+        rec.update(profiled_wall_ms=wall_us / 1e3,
+                   device_ms=sum(by_name.values()) / 1e3,
+                   device_busy_ms=busy_us / 1e3,
+                   device_busy_share=busy_us / wall_us,
+                   device_kernels=len(spans), device_ms_by_kernel=top)
+    n_pad = lt.lt_init(n_paths, dev)[0].shape[1]
+    if not v2:
+        scene = lt.build_lt_scene(world, camera, settings, width, width, dev)
+        unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(3))
+        rec.update(spawn_feed_lanes=n_pad, spawn_feed_ms=cuda_ms(
+            torch, lambda: lt.spawn_feed_for(scene, settings, unif, 0, n_pad),
+            5))
+    emit("main_path", **rec)
+    return dict(counts, rounds=rounds, lanes=n_pad)
+
+
+def phase_lt_estimators(torch, dev):
+    """Two estimator checks: the light tracer against the path tracer on
+    the Cornell box at 256² (64 paths per pixel against 64 spp, max and min
+    bounces 4, no RR: film mean Y within 0.15), and the in-kernel spawn
+    (v2) against the spawn feed (v1) on the spike-emission box at 64² with
+    4,194,304 particles each (film XYZ totals within rtol 0.15)."""
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.kernels.lt_mega import lt_trace_mega
+    from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.renderer.splatted import render_splatted
+    from pathtracer_tpu_torch.utils.profile import Profile
+
+    world, camera, lt_s = _lt_scene(dev, "cornell_box", "CORNELL_CAMERA", 1,
+                                    max_bounces=4, min_bounces=4, rr=False,
+                                    stratified=False)
+    pt_s = PTSettings(max_bounces=4, min_bounces=4, light_samples=1,
+                      russian_roulette=False)
+    lt_film, _, lt_wall = render_splatted(
+        world, camera, lt_s, 256, 256, 64,
+        generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    pt_film, _, pt_wall = render_regen(
+        world, camera, pt_s, 256, 256, 64,
+        generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    lt_y, pt_y = float(lt_film[..., 1].mean()), float(pt_film[..., 1].mean())
+    sums = {}
+    world, camera, s = _lt_scene(dev, "spike_box", "SPIKE_CAMERA", 1,
+                                 max_bounces=3, stratified=False)
+    n_paths = 64 * 64 * 1024
+    for tag, inkernel in (("v2", None), ("v1", False)):
+        stats = {}
+        film, counters = lt_trace_mega(
+            world, camera, s, 64, 64, n_paths,
+            TorchUniforms(torch.Generator(device=dev).manual_seed(11)),
+            device=dev, spawn_inkernel=inkernel, stats=stats)
+        light_rays = Profile().add_device_counts(
+            counters.cpu().tolist()).light_rays
+        check(stats["route"] == tag and light_rays == n_paths,
+              f"spike box {tag}: route {stats['route']}, "
+              f"{light_rays} particles")
+        sums[tag] = film.sum(dim=0).cpu().tolist()
+    ratios = [x / y for x, y in zip(sums["v2"], sums["v1"])]
+    emit("lt_estimators", lt_mean_y=lt_y, pt_mean_y=pt_y,
+         lt_over_pt=lt_y / pt_y, lt_wall_s=lt_wall, pt_wall_s=pt_wall,
+         spike_xyz_v2=sums["v2"], spike_xyz_v1=sums["v1"],
+         spike_v2_over_v1=ratios)
+    check(abs(lt_y - pt_y) / pt_y < 0.15, f"LT/PT mean Y {lt_y / pt_y}")
+    check(all(abs(r - 1.0) < 0.15 for r in ratios),
+          f"spike box v2/v1 XYZ totals {ratios}")
+
+
 WIDTH = 1080        # the headline film, 1080 x 1080
 SPP = 16
 SWEEP_RAYS = 1 << 20
@@ -905,6 +1252,15 @@ TWO_PROG_CASES = (("gem_cornell", "CORNELL_CAMERA", 1, 1080),
                   ("hdri_blob", "SPHERE_CAMERA", 4, 512),
                   ("hdri_blob", "SPHERE_CAMERA", 1, 512),
                   ("mesh_cornell", "CORNELL_CAMERA", 1, 256))
+# K12-LT + K34-LT against their twins: (recipe, camera, camera samples,
+# in-kernel spawn, lanes, film width)
+LT_CASES = (("chip_lens", "CHIP_LENS_CAMERA", 1, True, 1 << 20, 1080),
+            ("chip_lens", "CHIP_LENS_CAMERA", 2, True, 1 << 20, 1080),
+            ("hdri_blob", "SPHERE_CAMERA", 1, False, 512 * 512 * 4, 512))
+LT_PATHS = 16  # light paths per pixel of the LT render at 1080 x 1080
+# light paths per pixel of the v1 render of hdri_blob at 512 x 512: its
+# 2^20 particles fill 2^20 lanes, the count the v1 case above checks
+LT_HDRI_PATHS = 4
 
 
 def main():
@@ -936,6 +1292,12 @@ def main():
     textured = phase_render_textured(torch, dev, WIDTH, SPP)
     phase_furnace(torch, dev)
     phase_hdr_furnace(torch, dev)
+    ltr = phase_lt_round(torch, dev, LT_CASES)
+    lt_main = phase_render_lt(torch, dev, "chip_lens", "CHIP_LENS_CAMERA",
+                              WIDTH, LT_PATHS, True, busy=True)
+    lt_hdri = phase_render_lt(torch, dev, "hdri_blob", "SPHERE_CAMERA", 512,
+                              LT_HDRI_PATHS, False, busy=True)
+    phase_lt_estimators(torch, dev)
     c1 = rnd["C1"]
     err = max(rd["max_abs_err"] for r in rnd.values() for rd in r["rounds"])
     gem1 = two["gem_cornell_1080_C1"]
@@ -947,6 +1309,16 @@ def main():
 
     def tex_err(k, key="max_abs_err"):
         return max(rd[k][key] for r in tex.values() for rd in r["rounds"])
+
+    def lt_err(k, route):
+        return max(rd[k]["max_abs_err"] for r in ltr.values()
+                   for rd in r["rounds"] if route in (None, r["route"]))
+
+    lt1 = ltr["chip_lens_v2_cs1"]
+    lt_v1 = ltr["hdri_blob_v1_cs1"]
+    check(lt_v1["lanes"] == lt_hdri["lanes"],
+          f"K34-LT v1 was checked at {lt_v1['lanes']} lanes, but the v1 "
+          f"render runs {lt_hdri['lanes']}")
 
     def timed(d, prefix=""):
         """ms, plain_ms and the bound of a phase's record; no PyTorch call
@@ -981,14 +1353,29 @@ def main():
         dict(name="shade", route="cuda", source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:2091",
              launches=textured["shade"], max_abs_err=tex_err("k2"),
-             **timed(tex1["shade"]))],
+             **timed(tex1["shade"])),
+        dict(name="lt_shade", route="cuda", source=src + "lt_round.cu",
+             replaces="pathtracer_tpu/kernels/lt_mega.py:1089",
+             also_replaces="pathtracer_tpu/kernels/lt_mega.py:986",
+             launches=lt_main["lt_shade"], max_abs_err=lt_err("k12", None),
+             **timed(lt1, "lt_shade_")),
+        dict(name="lt_finalize_spawn", route="cuda",
+             source=src + "lt_round.cu",
+             replaces="pathtracer_tpu/kernels/lt_mega.py:1106",
+             launches=lt_main["lt_finalize_spawn"],
+             max_abs_err=lt_err("k34", "v2"), **timed(lt1, "finalize_")),
+        dict(name="lt_finalize", route="cuda", source=src + "lt_round.cu",
+             replaces="pathtracer_tpu/kernels/lt_mega.py:1005",
+             launches=lt_hdri["lt_finalize"],
+             max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_"))],
         # the sweep device code (sweep.cuh) is inlined in all the round
         # kernels; dense_sweep.cu launches it on its own only in this check
         "inlined": [dict(
             name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
             inlined_in=["fused_round", "shade_sweep", "finalize_sweep",
-                        "sweep_closest_rows"],
+                        "sweep_closest_rows", "lt_shade",
+                        "lt_finalize_spawn", "lt_finalize"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
             **timed(dict(ms=sweep["chip"]["closest_ms"],
                          plain_ms=sweep["chip"]["closest_plain_ms"],

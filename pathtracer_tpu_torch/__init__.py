@@ -4,9 +4,11 @@ The port mirrors the JAX package's module paths. It covers the megakernel
 main path: a dense, identity-transform scene of up to 8192 prims with a
 projective thin-lens camera and a constant, Sun or HDR environment,
 rendered by `renderer.persistent.render_regen` through the fused round or
-the two-program round. On a CUDA tensor every kernel of that
-path is a hand-written CUDA kernel (`kernels/csrc/`), built with `nvcc` at
-first use; on a CPU tensor each kernel wrapper runs its plain PyTorch twin.
+the two-program round, and light tracing of the same scenes by
+`renderer.splatted.render_splatted` through the LT round
+(`kernels/lt_mega.py`). On a CUDA tensor every kernel of those paths is a
+hand-written CUDA kernel (`kernels/csrc/`), built with `nvcc` at first use;
+on a CPU tensor each kernel wrapper runs its plain PyTorch twin.
 
 Importing the package builds and loads nothing.
 """

@@ -9,12 +9,7 @@ import math
 
 import torch
 
-
-def random_in_unit_disk(u, v):
-    """Polar mapping: radius sqrt(u), angle 2πv -> [..., 2]."""
-    r = torch.sqrt(u)
-    phi = 2.0 * math.pi * v
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+from pathtracer_tpu_torch.core.sampling import random_in_unit_disk
 
 
 def sample_aperture(u1, u2, radius, blades, sharpness):

@@ -47,6 +47,52 @@ class ProjectiveCamera:
         return o, d, torch.ones(film_u.shape, dtype=torch.float32,
                                 device=film_u.device)
 
+    def get_pixel_for_ray(self, o, d, lam=None):
+        """The inverse of get_ray for splats: a ray from a lens point into
+        the scene (V3s of per-lane tensors) -> (film u, film v, valid)."""
+        w, org = [float(x) for x in self.w], [float(x) for x in self.origin]
+        u, v = [float(x) for x in self.u], [float(x) for x in self.v]
+        focal = float(self.focal_distance)
+        cos_f = d.x * w[0] + d.y * w[1] + d.z * w[2]
+        valid = cos_f > 1e-6
+        t = focal / torch.where(valid, cos_f, 1.0)
+        rel = [p + t * dd - org[i] - focal * w[i]
+               for i, (p, dd) in enumerate(zip(o, d))]
+        fu = rel[0] * u[0] + rel[1] * u[1] + rel[2] * u[2]
+        fv = rel[0] * v[0] + rel[1] * v[1] + rel[2] * v[2]
+        fu = fu / torch.full_like(fu, max(float(self.half_width), 1e-9))
+        fv = fv / torch.full_like(fv, max(float(self.half_height), 1e-9))
+        film_u = (fu + 1.0) * 0.5
+        film_v = (1.0 - fv) * 0.5
+        inside = ((film_u >= 0.0) & (film_u < 1.0) & (film_v >= 0.0)
+                  & (film_v < 1.0))
+        return film_u, film_v, valid & inside
+
+    # the lens-connection protocol of light tracing: the connection point
+    # is sampled on the lens disk; W_e = focal² / (cos³θ · A_film)
+    def sample_lens_point(self, u1, u2):
+        """A point on the lens disk -> V3 (the polar disk map, scaled)."""
+        from pathtracer_tpu_torch.core.sampling import random_in_unit_disk
+        from pathtracer_tpu_torch.kernels.cmath import V3
+
+        xy = random_in_unit_disk(u1, u2) * float(self.lens_radius)
+        org = [float(x) for x in self.origin]
+        u, v = [float(x) for x in self.u], [float(x) for x in self.v]
+        return V3(*[org[i] + xy[..., 0] * u[i] + xy[..., 1] * v[i]
+                    for i in range(3)])
+
+    def lens_area(self) -> float:
+        return float(np.float32(np.pi) * self.lens_radius.cpu().numpy()
+                     * self.lens_radius.cpu().numpy())
+
+    def we_focal(self) -> float:
+        return float(self.focal_distance)
+
+    def we_film_area(self) -> float:
+        hw = self.half_width.cpu().numpy()
+        hh = self.half_height.cpu().numpy()
+        return float((np.float32(2.0) * hw) * (np.float32(2.0) * hh))
+
     def to(self, device) -> "ProjectiveCamera":
         return ProjectiveCamera(**{f.name: getattr(self, f.name).to(device)
                                    for f in dataclasses.fields(self)})

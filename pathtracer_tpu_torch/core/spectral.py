@@ -216,3 +216,54 @@ def evaluate(bank: CurveBank, idx, lam):
     frac = u - i0
     vp = bank.pairs[(idx.long() * res + i0.long())]
     return vp[..., 0] * (1.0 - frac) + vp[..., 1] * frac
+
+
+def cdf_at(bank: CurveBank, idx, lam):
+    """Curve `idx`'s normalised CDF at wavelength(s) `lam` (the lerp of
+    `evaluate` on the CDF knots)."""
+    res = bank.cdf.shape[1]
+    idx, lam = torch.broadcast_tensors(torch.as_tensor(idx, device=lam.device),
+                                       lam)
+    u = (lam - bank.lam_lo) / (bank.lam_hi - bank.lam_lo) * (res - 1)
+    u = torch.clamp(u, 0.0, res - 1 - 1e-4)
+    i0 = u.to(torch.int32)
+    frac = u - i0
+    vp = bank.cdf_pairs[idx.long() * res + i0.long()]
+    return vp[..., 0] * (1.0 - frac) + vp[..., 1] * frac
+
+
+def sample_power_and_pdf(bank: CurveBank, idx, u, bounds: Bounds1D):
+    """A wavelength drawn from curve `idx`'s SPD restricted to `bounds` by
+    inverting its CDF -> (lam, power, pdf per nm). The knot below the
+    target is found by a branchless binary search (9 dependent gathers at
+    512 knots), which counts the knots whose CDF is below the target as a
+    scan of the row does, the CDF being monotone."""
+    res = bank.cdf.shape[1]
+    idx, u = torch.broadcast_tensors(torch.as_tensor(idx, device=u.device), u)
+    idx = idx.long()
+    cdf_lo = cdf_at(bank, idx, torch.full_like(u, bounds.lower))
+    cdf_hi = cdf_at(bank, idx, torch.full_like(u, bounds.upper))
+    span = torch.clamp(cdf_hi - cdf_lo, min=1e-9)
+    target = cdf_lo + u * span
+    cdf_flat = bank.cdf.reshape(-1)
+    base = idx * res
+    if res & (res - 1) == 0:
+        i1 = torch.zeros_like(base)
+        s = res >> 1
+        while s:
+            probe = i1 + s
+            i1 = torch.where(cdf_flat[base + probe - 1] < target, probe, i1)
+            s >>= 1
+    else:
+        i1 = (bank.cdf[idx] < target[..., None]).sum(dim=-1)
+    i1 = torch.clamp(i1, 1, res - 1)
+    cp = bank.cdf_pairs[base + (i1 - 1)]
+    c0, c1 = cp[..., 0], cp[..., 1]
+    frac = torch.clamp((target - c0) / torch.clamp(c1 - c0, min=1e-12), 0.0,
+                       1.0)
+    step = float(np.float32(bank.lam_hi - bank.lam_lo) / np.float32(res - 1))
+    lam = bank.lam_lo + ((i1 - 1).float() + frac) * step
+    lam = torch.clamp(lam, bounds.lower, bounds.upper)
+    power = evaluate(bank, idx, lam)
+    pdf = power / torch.clamp(bank.integral[idx] * span, min=1e-20)
+    return lam, power, pdf

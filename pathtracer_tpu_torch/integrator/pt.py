@@ -1,9 +1,10 @@
 """Integrator settings (the `PTSettings` part of `integrator/pt.py`).
 
-The port's only integrator is the megakernel's regen loop
+The port's path tracer is the megakernel's regen loop
 (`kernels/megakernel.py`: the fused round and the two-program round); the
 XLA wavefront and regen integrators are still to be ported (ROADMAP §1
-items 5 and 8). `medium_aware` is refused until the two-program round's
+items 5 and 8). The light tracer is `integrator/lt.py` with
+`kernels/lt_mega.py`. `medium_aware` is refused until the two-program round's
 medium branch lands.
 """
 

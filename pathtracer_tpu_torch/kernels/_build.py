@@ -118,11 +118,22 @@ _SIGNATURES = {
     # (u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light, spec, args*,
     #  stream)
     "shade_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    # (u, state, q, n, dense, p_dense, prim, p_pad, mat, spec, args*,
+    #  stream)
+    "lt_shade_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    # (u, usp, state, q, out, n, dense, p_dense, light, spec, lcdf, args*,
+    #  stream)
+    "lt_finalize_spawn_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                                 _P, _P],
+    # (u, state, q, feed, out, n, dense, p_dense, args*, stream)
+    "lt_finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     # (c_lanes, regs*, local_bytes*); (which: 0 K12, 1 K34, 2 K2, 3 K1,
-    # c_lanes, ...)
+    # c_lanes, ...); (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1, ...)
     "fused_round_attrs": [_I, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],
+    "lt_round_attrs": [_I, _P, _P],
     "round_args_size": [],
+    "lt_args_size": [],
     "pt_error_string": [_I],
 }
 

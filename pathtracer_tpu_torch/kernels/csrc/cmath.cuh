@@ -225,7 +225,10 @@ PT_DEV GgxGeom ggx_geom(float alpha, V3 wi, V3 wo) {
   return g;
 }
 
-// one spectral lane of eval_ggx_lanes (Radiance transport)
+// one spectral lane of eval_ggx_lanes. kRadiance: Radiance transport (the
+// path tracer), whose transmission carries the η² factor; false: Importance
+// transport (the light tracer), without it
+template <bool kRadiance = true>
 PT_DEV void ggx_lane(const GgxGeom& g, float alpha, bool metallic, float perm,
                      V3 wi, V3 wo, float eta_i, float eta_o, float kappa,
                      bool has_metal, float* f, float* pdf) {
@@ -253,7 +256,9 @@ PT_DEV void ggx_lane(const GgxGeom& g, float alpha, bool metallic, float perm,
     float trans_f = fabsf(cos_ih_t * cos_oh_t) * (1.0f - fres_t) * d_t *
                     g.g_r * safe_div(eta_to * eta_to, denom_t * denom_t) /
                     (g.abs_ci * g.abs_co);
-    float eta_scale = safe_div(eta_from * eta_from, eta_to * eta_to, 1.0f);
+    float eta_scale =
+        kRadiance ? safe_div(eta_from * eta_from, eta_to * eta_to, 1.0f)
+                  : 1.0f;
     float jac_t = safe_div(eta_to * eta_to * fabsf(cos_oh_t),
                            denom_t * denom_t);
     trans_f = trans_f * eta_scale * perm;
@@ -266,7 +271,9 @@ PT_DEV void ggx_lane(const GgxGeom& g, float alpha, bool metallic, float perm,
   *pdf = finite_nonneg(pdf_out);
 }
 
-// sample_ggx (Radiance transport) -> wo, weight; the caller evaluates f/pdf
+// sample_ggx (kRadiance as for ggx_lane) -> wo, weight; the caller
+// evaluates f/pdf
+template <bool kRadiance = true>
 PT_DEV V3 sample_ggx_dir(float alpha, float eta_i, float eta_o, float kappa,
                          bool metallic, float perm, V3 wi, float u1, float u2,
                          float u_lobe, bool has_metal, float* weight) {
@@ -290,7 +297,8 @@ PT_DEV V3 sample_ggx_dir(float alpha, float eta_i, float eta_o, float kappa,
   float g2 = smith_g2(alpha, wi.z, wo.z);
   float g1 = smith_g1(alpha, fabsf(wi.z));
   float g_ratio = safe_div(g2, g1);
-  float eta_scale = safe_div(eta_from * eta_from, eta_to * eta_to, 1.0f);
+  float eta_scale =
+      kRadiance ? safe_div(eta_from * eta_from, eta_to * eta_to, 1.0f) : 1.0f;
   float w_reflect = safe_div(fres * g_ratio, refl_prob);
   float w_trans = g_ratio * eta_scale;
   bool same_hemi = wi.z * wo.z > 0.0f;

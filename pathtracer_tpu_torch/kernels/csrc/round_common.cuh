@@ -1,6 +1,8 @@
 // Device code of the bounce round, shared by the fused round
 // (fused_round.cu) and the two-program round (two_prog_round.cu: K12 and
-// K34).
+// K34); the light tracer's round (lt_round.cu) takes the hit geometry, the
+// spectral lerp, the emission, the light-surface sample and the BSDF eval
+// (in Importance transport: bsdf_eval_lanes<C, false>) from it.
 //
 // It is the per-lane body of pathtracer_tpu/kernels/megakernel.py's
 // _all_kernel_body, _shade_body and _finalize_core: hit attributes,
@@ -115,7 +117,8 @@ __device__ __forceinline__ float emission_value(float spd, float mtype,
   return spd / pt::PI_F * gate;
 }
 
-template <int C>
+// kRadiance: the transport mode of pt::ggx_lane (false: Importance)
+template <int C, bool kRadiance = true>
 __device__ __forceinline__ void bsdf_eval_lanes(
     float mtype, float alpha, float metal, float perm, const float* eta_i,
     const float* eta_o, const float* kappa, const float* refl, V3 wi, V3 wo,
@@ -130,7 +133,7 @@ __device__ __forceinline__ void bsdf_eval_lanes(
     pt::GgxGeom g = pt::ggx_geom(al, wi, wo);
 #pragma unroll
     for (int ci = 0; ci < C; ++ci) {
-      pt::ggx_lane(g, al, metal > 0.5f, perm, wi, wo,
+      pt::ggx_lane<kRadiance>(g, al, metal > 0.5f, perm, wi, wo,
                    pt::maxf(eta_i[ci], 1e-3f), pt::maxf(eta_o[ci], 1e-3f),
                    kappa[ci], has_metal, &f[ci], &pdf[ci]);
     }
@@ -258,40 +261,49 @@ struct Surface {
 // and the material's parameters and spectra at the lane's λs. A lambertian
 // flagged M_TEXF takes its reflectance from the texture-feed rows tf (C
 // rows; null outside the texture-feed round), any other from its baked row
-template <int C>
-__device__ __forceinline__ void surface_at(
-    Lane<C>& L, const float* __restrict__ prim, int p_pad, int pid,
-    float t_hit, float kind, const float* __restrict__ mat,
-    const float* __restrict__ spec, const float* __restrict__ tf, size_t N,
-    int i, const RoundArgs& a, Surface<C>& S) {
+// the hit point, shading normal and geometric normal of a ray (o, d) on
+// prim `pid` at t_hit (an indexed load of its prim_tab column)
+__device__ __forceinline__ void hit_geometry(const float* __restrict__ prim,
+                                             int p_pad, int pid, V3 o, V3 d,
+                                             float t_hit, V3* point,
+                                             V3* normal, V3* gn) {
   auto A = [&](int r) { return __ldg(prim + r * p_pad + pid); };
-  const V3 o = L.o, d = L.d;
   V3 pa{A(2), A(3), A(4)}, pb{A(5), A(6), A(7)}, pc{A(8), A(9), A(10)};
   const float ptype = A(0);
-  const float mat_idf = A(R_MAT), area = A(R_AREA);
-  const int mid = (int)mat_idf;
-  S.point = o + pt::scale(d, t_hit);
+  *point = o + pt::scale(d, t_hit);
   if (ptype == (float)pt::PRIM_TRIANGLE) {
     V3 na{A(R_NA), A(R_NA + 1), A(R_NA + 2)};
     V3 nb{A(R_NB), A(R_NB + 1), A(R_NB + 2)};
     V3 nc{A(R_NC), A(R_NC + 1), A(R_NC + 2)};
     V3 e1 = pb - pa, e2 = pc - pa;
-    S.gn = pt::normalize(pt::cross(e1, e2));
+    *gn = pt::normalize(pt::cross(e1, e2));
     V3 pvec = pt::cross(d, e2);
     float det = pt::dot(e1, pvec);
     float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
     V3 tvec = o - pa;
     float bu = pt::dot(tvec, pvec) * inv_det;
     float bv = pt::dot(d, pt::cross(tvec, e1)) * inv_det;
-    S.normal = pt::normalize(pt::scale(na, 1.0f - bu - bv) +
-                             pt::scale(nb, bu) + pt::scale(nc, bv));
+    *normal = pt::normalize(pt::scale(na, 1.0f - bu - bv) +
+                            pt::scale(nb, bu) + pt::scale(nc, bv));
   } else if (ptype == (float)pt::PRIM_SPHERE) {
-    S.gn = S.normal = pt::normalize(S.point - pa);
+    *gn = *normal = pt::normalize(*point - pa);
   } else if (ptype == (float)pt::PRIM_RECT) {
-    S.gn = S.normal = pt::normalize(pt::cross(pb, pc));
+    *gn = *normal = pt::normalize(pt::cross(pb, pc));
   } else {
-    S.gn = S.normal = pb;
+    *gn = *normal = pb;
   }
+}
+
+template <int C>
+__device__ __forceinline__ void surface_at(
+    Lane<C>& L, const float* __restrict__ prim, int p_pad, int pid,
+    float t_hit, float kind, const float* __restrict__ mat,
+    const float* __restrict__ spec, const float* __restrict__ tf, size_t N,
+    int i, const RoundArgs& a, Surface<C>& S) {
+  const V3 d = L.d;
+  const float area = __ldg(prim + R_AREA * p_pad + pid);
+  const int mid = (int)__ldg(prim + R_MAT * p_pad + pid);
+  hit_geometry(prim, p_pad, pid, L.o, d, t_hit, &S.point, &S.normal, &S.gn);
   auto M = [&](int r) { return __ldg(mat + r * 128 + mid); };
   S.mtype = M(M_TYPE);
   V3 wi_world = -d;

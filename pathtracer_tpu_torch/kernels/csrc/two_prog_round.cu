@@ -20,7 +20,8 @@
 // device code is round_common.cuh, shared with the fused round.
 //
 // One thread runs one lane; the medium branch (medium-aware transport) is
-// not ported yet. What bounds it on the H100: the sweeps. A live lane tests
+// not ported yet. The table walks are tiles.cuh's. What bounds it on the
+// H100: the sweeps. A live lane tests
 // every prim of the table for its closest hit and for each shadow ray
 // (8192 prims x ~60 flops), against ~1 KB of memory traffic per lane and
 // round, so the kernels are compute-bound. The table is up to 8192 x 48 B
@@ -38,34 +39,17 @@
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 using namespace rc;
 using pt::V3;
+using tiles::closest_tiles;
+using tiles::TILE_P;
 
 constexpr int BLOCK = 128;
-constexpr int TILE_P = 256;  // prims per staged tile: 256 x 12 floats = 12 KB
 constexpr int MAX_PRIMS = 8192;  // the megakernel gate
-
-// the closest hit of a live lane's ray (o, d) over the dense table, staged
-// in TILE_P-prim tiles that every thread of the block walks (the syncs need
-// the whole block); ids rise with the tiles, so strict '<' keeps the lowest
-// id among equal t. A miss leaves t_hit = inf, pid = -1
-__device__ __forceinline__ void closest_tiles(const float* __restrict__ dense,
-                                              int p_dense, float* prims,
-                                              bool live, V3 o, V3 d,
-                                              float* t_hit, int* pid) {
-  for (int p0 = 0; p0 < p_dense; p0 += TILE_P) {
-    const int cnt = min(TILE_P, p_dense - p0);
-    __syncthreads();
-    pt::stage_prims(dense, p0, cnt, prims);
-    __syncthreads();
-    if (live)
-      pt::sweep_closest_dev(prims, cnt, p0, o, d, T_MIN, RAY_TMAX, t_hit,
-                            pid);
-  }
-}
 
 __device__ __forceinline__ void load_ray(const float* __restrict__ src,
                                          size_t N, int i, int row0, V3* o,
@@ -245,16 +229,8 @@ __global__ void __launch_bounds__(BLOCK) finalize_sweep_kernel(
       sd = V3{K(b + 3), K(b + 4), K(b + 5)};
       tmax = K(b + 6);
     }
-    bool blocked = false;
-    for (int p0 = 0; p0 < p_dense; p0 += TILE_P) {
-      // stop once no shadow ray of the block is unresolved
-      if (!__syncthreads_or(worth && !blocked)) break;
-      const int cnt = min(TILE_P, p_dense - p0);
-      pt::stage_prims(dense, p0, cnt, prims);
-      __syncthreads();
-      if (worth && !blocked)
-        blocked = pt::sweep_any_dev(prims, cnt, so, sd, T_MIN, tmax);
-    }
+    const bool blocked =
+        tiles::any_hit_tiles(dense, p_dense, prims, worth, so, sd, tmax);
     if (worth && !blocked) {
 #pragma unroll
       for (int ci = 0; ci < C; ++ci) rad[ci] = rad[ci] + K(b + 8 + ci);

@@ -310,9 +310,18 @@ def _np(x):
 def build_mega_scene(world, camera, device=None) -> MegaScene:
     """Host-side numpy bake of the round's tables, element for element the
     JAX package's `build_mega_scene` (without its chunk-AABB and fetch-table
-    rows, which the port does not use)."""
+    rows, which the port does not use), for a scene in the megakernel's
+    gate."""
     if not _mega_gate(world, camera):
         raise NotImplementedError(_NOT_IN_GATE)
+    return bake_mega_scene(world, camera, device)
+
+
+def bake_mega_scene(world, camera, device=None, feeds=True) -> MegaScene:
+    """The bake without a gate: each caller applies its own (the light
+    tracer's takes up to 128 lights and no uv textures). `feeds` False
+    leaves out the environment and texture feeds, which only the regen
+    rounds read."""
     w = world
     device = device if device is not None else w.prims.pa.device
     prims = w.prims
@@ -473,7 +482,7 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
         return torch.as_tensor(a, device=device)
 
     env = None
-    if consts["env_kind"] != ENV_CONSTANT:
+    if feeds and consts["env_kind"] != ENV_CONSTANT:
         # scalars and matrices stay on the host (the feed reads them as
         # Python numbers), the tables go where the lanes are
         host = ("kind", "strength", "curve_idx", "sun_direction",
@@ -486,7 +495,7 @@ def build_mega_scene(world, camera, device=None) -> MegaScene:
         env = EnvFeed(env=e, bank=_to(w.bank, device), tex=_to(w.tex, device),
                       lut=_bake_env_lut(w.env, w.bank, w.tex, device))
     tex_feed_ = None
-    if texf.any():
+    if feeds and texf.any():
         uvtab = np.zeros((p_pad, 16), np.float32)
         uvtab[:p, 0:3] = h["pa"]
         uvtab[:p, 3:6] = h["pb"]
@@ -874,17 +883,18 @@ def _emission_value(spd, mtype, side, sharp, cos_theta, has_sharp):
 
 
 def _bsdf_eval_lanes(mtype, alpha, metallic, perm, eta_i, eta_o, kappa,
-                     refl, wi, wo, has_ggx, has_metal):
-    """BSDF eval for C spectral lanes sharing (wi, wo) -> ([f], [pdf])."""
+                     refl, wi, wo, has_ggx, has_metal,
+                     mode=TransportMode.Radiance):
+    """BSDF eval for C spectral lanes sharing (wi, wo) -> ([f], [pdf]);
+    `mode` Importance drops the η² factor of transmission (light tracing)."""
     C = len(refl)
     if has_ggx:
         a = torch.clamp(alpha, min=1e-4)
         lanes = [(torch.clamp(eta_i[ci], min=1e-3),
                   torch.clamp(eta_o[ci], min=1e-3), kappa[ci])
                  for ci in range(C)]
-        ggx = cmath.eval_ggx_lanes(a, metallic > 0.5, perm, wi, wo,
-                                   TransportMode.Radiance, lanes,
-                                   has_metal=has_metal)
+        ggx = cmath.eval_ggx_lanes(a, metallic > 0.5, perm, wi, wo, mode,
+                                   lanes, has_metal=has_metal)
         is_ggx = mtype == MAT_GGX
     dead = mtype == MAT_PASSTHROUGH
     fs, pdfs = [], []
@@ -1725,7 +1735,9 @@ class TorchUniforms:
     `[rows, n_pad]` blocks of each round, drawn from one `torch.Generator`.
     A round draws one block (`stream` None: the fused round) or two
     (`stream` 0 for K12, 1 for K34); a replay of the JAX draws keys them by
-    (it, stream) as the JAX package's `_k12_call`/`_k34_call` do."""
+    (it, stream) as the JAX package's `_k12_call`/`_k34_call` do. The light
+    tracer (`kernels/lt_mega.py`) also draws per-lane columns and
+    permutations of its strata."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -1738,6 +1750,18 @@ class TorchUniforms:
               stream: int | None = None) -> torch.Tensor:
         return torch.rand((rows, n_pad), generator=self.generator,
                           device=device)
+
+    def lanes(self, it: int, cols: int, n_pad: int, device,
+              stream: int | None = None) -> torch.Tensor:
+        """A `[n_pad, cols]` block: one row of uniforms per lane (the light
+        tracer's spawn feed draws its columns so)."""
+        return torch.rand((n_pad, cols), generator=self.generator,
+                          device=device)
+
+    def permutation(self, it: int, n: int, device,
+                    stream: int | None = None) -> torch.Tensor:
+        """A random permutation of range(n) (stratified spawning)."""
+        return torch.randperm(n, generator=self.generator, device=device)
 
 
 # --------------------------------------------------------- render loop

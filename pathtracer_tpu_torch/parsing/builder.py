@@ -225,6 +225,25 @@ class SceneBuilder:
             float(np.pi * radius * radius), c - radius, c + radius))
         return iid
 
+    def add_camera_surface(self, camera_id: int, origin, direction,
+                           lens_radius: float) -> int:
+        """The camera's lens proxy: a disk of kind 2 (camera) at the lens,
+        so that light paths can hit the lens directly (light tracing's
+        direct lens hits). Returns the instance id, or -1 for a pinhole."""
+        if lens_radius <= 0.0:
+            return -1
+        c = np.asarray(origin, np.float32)
+        n = np.asarray(direction, np.float32)
+        n = n / np.linalg.norm(n)
+        iid = self._new_instance()
+        z3 = np.zeros(3, np.float32)
+        self.prims.append(_Prim(
+            PRIM_DISK, c, n, np.array([lens_radius, 0, 0], np.float32), z3,
+            z3, z3, camera_id, 2, iid,
+            float(np.pi * lens_radius * lens_radius), c - lens_radius,
+            c + lens_radius))
+        return iid
+
     def add_mesh(self, vertices, indices, normals, material_ids,
                  transform=None, kind=None, mesh_key=None,
                  material_override: Optional[int] = None) -> int:

@@ -3,16 +3,13 @@
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from pathtracer_tpu_torch.kernels.megakernel import (
-    TorchUniforms,
     gate_refusal,
     pt_trace_regen_mega,
 )
-from pathtracer_tpu_torch.utils.profile import Profile
+from pathtracer_tpu_torch.renderer.common import timed_render
 
 
 def render_regen(world, camera, settings, width: int, height: int,
@@ -36,17 +33,11 @@ def render_regen(world, camera, settings, width: int, height: int,
     why = gate_refusal(world, camera, settings)
     if why is not None:
         raise NotImplementedError(why)
-    device = torch.device(device) if device is not None \
-        else world.prims.pa.device
-    if uniforms is None:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        uniforms = TorchUniforms(generator)
-    t0 = time.perf_counter()
-    acc, counters = pt_trace_regen_mega(world, camera, settings, width,
-                                        height, min_samples, uniforms,
-                                        device=device, stats=stats)
-    film = (acc / float(min_samples)).reshape(height, width, 3)
-    profile = Profile().add_device_counts(counters.cpu().tolist())
-    elapsed = time.perf_counter() - t0
-    return film, profile, elapsed
+
+    def trace(device, uniforms):
+        acc, counters = pt_trace_regen_mega(world, camera, settings, width,
+                                            height, min_samples, uniforms,
+                                            device=device, stats=stats)
+        return (acc / float(min_samples)).reshape(height, width, 3), counters
+
+    return timed_render(world, generator, uniforms, device, trace)

@@ -43,6 +43,13 @@ CHECKER_WALL = ([1.0, 0.0, 0.0], [0, 1.0, 0], [0, 0, 1.0])
 TEXTURED_CAMERA = dict(look_from=[-2.8, 0.0, 0.0], look_at=[0.0, 0.0, 0.0],
                        vfov_degrees=45.0, focal_distance=2.8,
                        aperture_diameter=0.0, aspect_ratio=1.0)
+# the Cornell camera with a finite aperture (the light tracer's lens-hit
+# scenes put its lens proxy in the scene), and the light-tracing test boxes'
+CHIP_LENS_CAMERA = dict(CORNELL_CAMERA, aperture_diameter=0.12)
+LENS_BOX_CAMERA = dict(CORNELL_CAMERA, vfov_degrees=45.0,
+                       aperture_diameter=0.12)
+SPIKE_CAMERA = dict(CORNELL_CAMERA, vfov_degrees=45.0,
+                    aperture_diameter=0.01)
 FURNACE_CAMERA = dict(look_from=[0.0, -3.0, 0.0], look_at=[0.0, 0.0, 0.0],
                       vfov_degrees=35.0, focal_distance=3.0,
                       aperture_diameter=0.0, aspect_ratio=1.0)
@@ -399,3 +406,62 @@ def checker_tiles(film_y, camera):
     img = film_y.reshape(-1).cpu().numpy()
     return (float(img[sel & odd].mean()), float(img[sel & ~odd].mean()),
             int(sel.sum()))
+
+
+def _lens_proxy(b, cam):
+    """The camera's lens proxy disk (kind 2) in the scene, so that light
+    paths can hit the lens."""
+    look_from = np.asarray(cam["look_from"], np.float64)
+    w = np.asarray(cam["look_at"], np.float64) - look_from
+    b.add_camera_surface(0, look_from, w / np.linalg.norm(w),
+                         cam["aperture_diameter"] / 2.0)
+
+
+def chip_lens(b, spectral):
+    """The chip scene seen through CHIP_LENS_CAMERA's finite aperture, with
+    the lens proxy in the scene: the light tracer's direct lens hits,
+    MIS-paired with its lens connections."""
+    chip_scene(b, spectral)
+    _lens_proxy(b, CHIP_LENS_CAMERA)
+    return b
+
+
+def _white_box(b, spectral, emit_curve, walls):
+    """The unit box of the JAX package's light-tracing tests: white
+    lambertian rects (`walls` of floor, ceiling, back, left, right) and a
+    downward diffuse light under the ceiling."""
+    white = b.add_curve(spectral.FlatCurve(0.7), name="white")
+    emit = b.add_curve(emit_curve, name="emit")
+    b78 = b.add_curve(spectral.FlatCurve(0.78), name="b78")
+    zero = b.add_curve(spectral.FlatCurve(0.0), name="zero")
+    tw = b.add_texture([(np.ones((1, 1), np.float32), white)], name="tw")
+    mw = b.add_lambertian(tw, name="mw")
+    ml = b.add_diffuse_light(emit, b78, SIDE_REVERSE, name="ml")
+    s = 0.5
+    for c, eu, ev in (([s, s, 0.0], [s, 0, 0], [0, s, 0]),
+                      ([s, s, 2 * s], [s, 0, 0], [0, s, 0]),
+                      ([2 * s, s, s], [0, s, 0], [0, 0, s]),
+                      ([s, 2 * s, s], [s, 0, 0], [0, 0, s]),
+                      ([s, 0.0, s], [s, 0, 0], [0, 0, s]))[:walls]:
+        b.add_rect(c, eu, ev, mw)
+    b.add_rect([s, s, 2 * s - 1e-3], [0.2, 0, 0], [0, 0.2, 0], ml)
+    b.set_environment_constant(zero, 0.0)
+    b.env_sampling_probability = 0.0
+    return b
+
+
+def lens_box(b, spectral):
+    """tests/test_render_lt.py's lens-proxy scene: the white box lit by a
+    flat 40 emitter, seen through LENS_BOX_CAMERA's 0.12 aperture with the
+    lens proxy in the scene."""
+    _white_box(b, spectral, spectral.FlatCurve(40.0), 5)
+    _lens_proxy(b, LENS_BOX_CAMERA)
+    return b
+
+
+def spike_box(b, spectral):
+    """tests/test_lt_mega.py's spike-emission box: floor, ceiling and back
+    wall under a light whose spectrum is one narrow spike at 460 nm, so a
+    wrong emission-λ inversion moves the film's chromaticity."""
+    return _white_box(b, spectral, spectral.SpikeCurve(460.0, 8.0, 8.0, 30.0),
+                      3)

@@ -50,6 +50,12 @@ class World:
     center: torch.Tensor  # f32[3] scene bound center
     radius: torch.Tensor  # f32 scene bound radius
 
+    def pick_random_light(self, u):
+        """A uniform light pick per lane -> (prim index, pick pdf)."""
+        nl = max(int(self.n_lights), 1)
+        idx = torch.clamp((u * nl).to(torch.int32), max=nl - 1)
+        return self.lights[idx.long()], float(np.float32(1.0) / np.float32(nl))
+
     def numpy_fields(self) -> dict:
         """The inverse of `world_from_numpy`."""
         out = {}

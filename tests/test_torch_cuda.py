@@ -235,3 +235,64 @@ def test_texfeed_kernels_match_plain(dev, c_lanes):
         assert frac >= 0.9999 and close
         sk, sp = ok[:mk.NS], op[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()
+
+
+def _lt_setup(dev, recipe, cam, cs, spawn_inkernel, lanes=1 << 15):
+    from pathtracer_tpu_torch.integrator.lt import LTSettings
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**getattr(scenes, cam), device=dev)
+    s = LTSettings(max_bounces=8, camera_samples=cs, stratified=True)
+    scene = lt.build_lt_scene(world, camera, s, 128, 128, dev,
+                              spawn_inkernel)
+    state, _ = lt.lt_init(2 * lanes, dev)
+    return lt, s, scene, state
+
+
+@pytest.mark.parametrize("recipe,cam,cs,v2", [
+    ("chip_lens", "CHIP_LENS_CAMERA", 1, True),
+    ("chip_lens", "CHIP_LENS_CAMERA", 2, True),
+    ("chip_lens", "CHIP_LENS_CAMERA", 1, False),
+    ("hdri_blob", "SPHERE_CAMERA", 1, False)])
+def test_lt_kernels_match_plain(dev, recipe, cam, cs, v2):
+    """K12-LT and K34-LT (v2: in-kernel spawn; v1: from the torch spawn
+    feed) against their twins over three chained rounds from a state of
+    dead lanes with budget, each side on its own state."""
+    lt, s, scene, state = _lt_setup(dev, recipe, cam, cs, v2)
+    unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(9))
+    t, a = scene.tabs, scene.a
+    n = state.shape[1]
+    q_disc, o_disc = lt.discrete_rows(cs, v2)
+    aux = lt.k4_aux_v2(cs) if v2 else lt.k4_aux(cs)
+    sk = sp = state
+    spawned = 0.0
+    for it in range(3):
+        u = unif.round(it, lt.nu_lt(cs), n, dev)
+        launches = (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES,
+                    lt.FINALIZE_LAUNCHES)
+        qk = lt.lt_shade(u, sk, scene)
+        qp = lt.lt_shade_plain(u, sp, t.dense_tab, t.prim_tab, t.mat_tab,
+                               t.spec_tab, a)
+        frac, close = match_rows(qk, qp, q_disc)
+        assert frac >= 0.9999 and close
+        if v2:
+            usp = unif.round(it, lt.NUSP, n, dev)
+            ok = lt.lt_finalize_spawn(u, usp, sk, qk, scene)
+            op = lt.lt_finalize_spawn_plain(u, usp, sp, qp, t.dense_tab,
+                                            t.light_tab, t.spec_tab,
+                                            scene.lcdf_tab, a)
+        else:
+            fk = lt.spawn_feed_for(scene, s, unif, it, n)
+            ok = lt.lt_finalize(u, sk, qk, fk, scene)
+            op = lt.lt_finalize_plain(u, sp, qp, fk, t.dense_tab, a)
+        assert (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES,
+                lt.FINALIZE_LAUNCHES) == (launches[0] + 1,
+                                          launches[1] + int(v2),
+                                          launches[2] + int(not v2))
+        frac, close = match_rows(ok, op, o_disc)
+        assert frac >= 0.9999 and close
+        sk, sp = ok[:lt.NS_LT], op[:lt.NS_LT]
+        spawned += float(ok[aux["resp"]].sum())
+    assert spawned == n
+    assert np.isfinite(sk.cpu().numpy()).all()

@@ -1,6 +1,7 @@
 """The port stands without JAX: in a fresh interpreter where `jax` and
 `pathtracer_tpu` cannot be imported, every module of pathtracer_tpu_torch
-imports and a 16x16 @ 1 spp render runs on the CPU. And chip_smoke.py,
+imports, and a 16x16 @ 1 spp path-traced render and a 16x16 @ 2 paths per
+pixel light-traced render run on the CPU. And chip_smoke.py,
 which drives the port on a GPU, exits non-zero and prints no result where
 there is no CUDA device."""
 
@@ -35,6 +36,14 @@ film, profile, _ = render_regen(world, cam, PTSettings(light_samples=2), 16,
                                 16, 1, generator=torch.Generator().manual_seed(0))
 assert film.shape == (16, 16, 3) and bool(torch.isfinite(film).all())
 assert float(film[..., 1].mean()) > 0 and profile.camera_rays == 256
+from pathtracer_tpu_torch.integrator.lt import LTSettings
+from pathtracer_tpu_torch.renderer.splatted import render_splatted
+world = scenes.chip_lens(SceneBuilder(), spectral).build("cpu")
+cam = make_projective_camera(**scenes.CHIP_LENS_CAMERA, device="cpu")
+film, profile, _ = render_splatted(world, cam, LTSettings(max_bounces=4), 16,
+                                   16, 2, generator=torch.Generator().manual_seed(0))
+assert film.shape == (16, 16, 3) and bool(torch.isfinite(film).all())
+assert float(film[..., 1].mean()) > 0 and profile.light_rays == 512
 print("MODULES", len(names))
 """
 

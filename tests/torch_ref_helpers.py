@@ -77,6 +77,8 @@ RECIPES = {
     "sun": (scenes.sun_sphere, scenes.SPHERE_CAMERA),
     "textured": (scenes.textured_cornell, scenes.TEXTURED_CAMERA),
     "textured_sun": (scenes.textured_sun, scenes.SPHERE_CAMERA),
+    "chip_lens": (scenes.chip_lens, scenes.CHIP_LENS_CAMERA),
+    "spike_box": (scenes.spike_box, scenes.SPIKE_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -358,3 +360,171 @@ def check_k2(jk2, k2, alive, light_samples):
         np.testing.assert_allclose(
             y, x, rtol=2e-2 if row == tm.O_FPDF else 5e-3, atol=1e-4,
             err_msg=f"k2 row {row}")
+
+
+# ------------------------------------------------------------- light tracing
+
+
+class LTReplay:
+    """Uniform source for the port's light tracer that yields exactly the
+    blocks the JAX `lt_trace_mega(key)` draws in round `it`: the K12/K34
+    block from fold_in(fold_in(key, it), 0); from kf = fold_in(fold_in(key,
+    it), 2) the v2 spawn rows, the v1 spawn columns and the strata
+    permutation (fold_in(kf, 7)); and the v1 lens columns from
+    fold_in(kf, 1) (the port's stream 3)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def _k(self, it, stream):
+        k = jax.random.fold_in(jax.random.fold_in(self.key, jnp.int32(it)),
+                               2 if stream == 3 else stream)
+        return jax.random.fold_in(k, 1) if stream == 3 else k
+
+    def round(self, it, rows, n_pad, device, stream=None):
+        u = jax.random.uniform(self._k(it, stream), (rows, n_pad))
+        return torch.as_tensor(np.array(u), device=device)
+
+    def lanes(self, it, cols, n_pad, device, stream=None):
+        u = jax.random.uniform(self._k(it, stream), (n_pad, cols))
+        return torch.as_tensor(np.array(u), device=device)
+
+    def permutation(self, it, n, device, stream=None):
+        p = jax.random.permutation(sampling.fold(self._k(it, stream), 7), n)
+        return torch.as_tensor(np.array(p), device=device).long()
+
+
+def jax_lt_setup(jw, jc, lt_settings, width, height, spawn_inkernel):
+    """The JAX tables, frozen consts and settings that `lt_trace_mega` hands
+    its rounds (tables: prim, dense, mat, spec, light, lcdf)."""
+    from pathtracer_tpu.kernels import lt_mega as jlt
+
+    scene = jm.build_mega_scene(jw, jc, jlt._PTShim())
+    consts = dict(scene.consts)
+    consts["lt_a_lens"] = float(np.pi) * float(jc.lens_radius) ** 2
+    consts["lt_a_film"] = float((2.0 * jc.half_width) * (2.0 * jc.half_height))
+    consts["lt_has_proxy"] = bool((np.asarray(jw.prims.mat_kind) == 2).any())
+    consts.pop("tex_feed", None)
+    consts.pop("medium", None)
+    wb = lt_settings.wavelength_bounds
+    lcdf = None
+    if spawn_inkernel:
+        consts["lt_world_radius"] = float(np.asarray(jw.radius))
+        consts["lt_world_center"] = tuple(float(x)
+                                          for x in np.asarray(jw.center))
+        lcdf = jnp.asarray(jlt.bake_lt_spawn_tab(jw, wb))
+    settings = dict(camera_samples=int(lt_settings.camera_samples),
+                    max_bounces=float(lt_settings.max_bounces),
+                    min_bounces=float(lt_settings.min_bounces),
+                    russian_roulette=bool(lt_settings.russian_roulette),
+                    width=float(width), height=float(height),
+                    wb_lo=float(wb.lower), wb_span=float(wb.span),
+                    tile=jm.TILE)
+    tabs = (scene.prim_tab, scene.dense_tab, scene.mat_tab, scene.spec_tab,
+            scene.light_tab, lcdf)
+    return tabs, consts, settings
+
+
+def jax_lt_kernels(tabs, consts, settings):
+    """Jitted interpret-mode K12-LT, K34-LT v2 and K34-LT v1 calls, built
+    exactly as `_lt_round_v2` and `_lt_step` build their pallas_calls."""
+    import functools
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from pathtracer_tpu.kernels import lt_mega as jlt
+
+    prim, dense, mat, spec, light, lcdf = tabs
+    cs = settings["camera_samples"]
+    nu, nq = jlt._nu_lt(cs), jlt._q2_rows(cs)
+    interp = pltpu.InterpretParams()
+
+    def call(kernel, rows_in, full, rows_out):
+        def f(*args):
+            n_pad = args[0].shape[1]
+            return pl.pallas_call(
+                functools.partial(kernel, consts, settings),
+                grid=(n_pad // jm.TILE,),
+                in_specs=[jm._row_spec(r) for r in rows_in]
+                + [jm._full_block_spec(t) for t in full],
+                out_specs=jm._row_spec(rows_out),
+                out_shape=jax.ShapeDtypeStruct((rows_out, n_pad), jnp.float32),
+                interpret=interp)(*args, *full)
+        return jax.jit(f)
+
+    k12 = call(jlt._lt_shade_kernel, [nu, jlt.NS_LT], [dense, prim, mat, spec],
+               nq)
+    k34v2 = (call(jlt._lt_finalize_spawn_kernel,
+                  [nu, jlt.NUSP, jlt.NS_LT, nq], [dense, light, spec, lcdf],
+                  jlt._k4_rows_v2(cs)) if lcdf is not None else None)
+    k34v1 = call(jlt._lt_finalize_kernel, [nu, jlt.NS_LT, nq, jlt.NF], [dense],
+                 jlt._k4_rows(cs))
+    return k12, k34v2, k34v1
+
+
+def both_lt_settings(**kw):
+    from pathtracer_tpu.integrator.lt import LTSettings as JaxLT
+    from pathtracer_tpu_torch.integrator.lt import LTSettings as TorchLT
+
+    return JaxLT(**kw), TorchLT(**kw)
+
+
+def chained_lt(recipe, lt_kw, spawn_inkernel, rounds=3, lanes=2048,
+               budget=2, width=64, height=64):
+    """`rounds` LT rounds of the JAX kernels (interpret mode) and of the
+    port's plain twins, each chained on its own state from the same initial
+    state (every lane dead with `budget` particles), on the uniforms the
+    JAX round draws (LTReplay). v2 runs K12-LT + K34-LT v2; v1 runs K12-LT,
+    the spawn feed and K34-LT v1 (the port's feed against `_lt_spawn_feed`).
+    Returns per round a dict: the states going in, jax/port Q rows, jax/port
+    K34-LT rows, and jax/port spawn-feed rows (v1)."""
+    from pathtracer_tpu.kernels import lt_mega as jlt
+    from pathtracer_tpu_torch.kernels import lt_mega as tlt
+
+    jw, tw, jc, tc = both_worlds(recipe)
+    jsettings, lt_settings = both_lt_settings(**lt_kw)
+    tabs, consts, settings = jax_lt_setup(jw, jc, jsettings, width, height,
+                                          spawn_inkernel)
+    k12, k34v2, k34v1 = jax_lt_kernels(tabs, consts, settings)
+    scene = tlt.build_lt_scene(tw, tc, lt_settings, width, height, "cpu",
+                               spawn_inkernel)
+    key = jax.random.PRNGKey(7)
+    replay = LTReplay(key)
+    cs = lt_settings.camera_samples
+    state0 = np.zeros((tlt.NS_LT, lanes), np.float32)
+    state0[tlt.LS_BUDGET] = budget
+    jstate, tstate = jnp.asarray(state0), torch.as_tensor(state0)
+    out = []
+    for it in range(rounds):
+        u = replay.round(it, tlt.nu_lt(cs), lanes, "cpu", 0)
+        ju = jnp.asarray(u.numpy())
+        jq = k12(ju, jstate)
+        q = tlt.lt_shade(u, tstate, scene)
+        rec = dict(jin=np.asarray(jstate), tin=tstate.numpy().copy(),
+                   jq=np.asarray(jq), q=q.numpy())
+        if spawn_inkernel:
+            kf = jax.random.fold_in(jax.random.fold_in(key, jnp.int32(it)), 2)
+            jusp = jax.random.uniform(kf, (jlt.NUSP, lanes))
+            if lt_settings.stratified:
+                jusp = jlt._stratify_usp(jsettings, jusp, kf)
+            usp = replay.round(it, tlt.NUSP, lanes, "cpu", 2)
+            if lt_settings.stratified:
+                usp = tlt.stratify_usp(lt_settings, usp, replay.permutation(
+                    it, lt_settings.strata_uv ** 2 * lt_settings.strata_lam,
+                    "cpu", 2))
+            rec["usp_equal"] = bool(np.array_equal(np.asarray(jusp),
+                                                   usp.numpy()))
+            jo = k34v2(ju, jusp, jstate, jq)
+            o = tlt.lt_finalize_spawn(u, usp, tstate, q, scene)
+        else:
+            jfeed = jlt._lt_spawn_feed(jw, jsettings, key, jnp.int32(it),
+                                       lanes, jc, width, height)
+            feed = tlt.spawn_feed_for(scene, lt_settings, replay, it, lanes)
+            rec.update(jfeed=np.asarray(jfeed), feed=feed.numpy())
+            jo = k34v1(ju, jstate, jq, jfeed)
+            o = tlt.lt_finalize(u, tstate, q, feed, scene)
+        rec.update(jout=np.asarray(jo), out=o.numpy())
+        out.append(rec)
+        jstate, tstate = jo[:tlt.NS_LT], o[:tlt.NS_LT]
+    return out
