@@ -20,7 +20,15 @@ their twins, the `render_splatted` renders of the chip scene with its lens
 proxy at 1080x1080, 16 light paths per pixel (v2), and of the HDR blob at
 512x512, 4 paths per pixel (v1, with the device's busy share), and two
 estimator checks: light against path tracing on the Cornell box, in-kernel
-spawn against the spawn feed on a spike-emission box. Every phase prints
+spawn against the spawn feed on a spike-emission box. Last of all,
+participating media and the split round K1 | feeds | K2 | K3 | K4: K3
+`sweep_any_rows` on the gem's K2 rows against its twin; three chained
+medium-aware rounds of the fog box at 1080x1080 (the medium instantiations
+of K12, K2, K34 and K4, K1 and K3, each against its twin, and the split
+round's rows against the two-program round's, bit for bit); the fog box
+rendered at 1080x1080, 16 spp through the two-program round and again
+through the split round, the two films equal; and the Beer-Lambert sphere
+and the scattering furnace. Every phase prints
 one JSON line; any failure raises and the script exits non-zero. Before
 the last line, one JSON line lists every kernel with its launches on the
 path that runs it, its agreement with its twin, its time, its twin's and
@@ -131,21 +139,42 @@ def shadow_rays(torch, mk, dense, k2, scene, ls):
     return out
 
 
-def k34_bound(torch, mk, dense, k2, state, scene, a):
+def k34_bound(torch, mk, dense, k2, state, scene, a, sweeps=True):
     """K34: every lane's 32 state rows read and 40 out rows written; a live
-    lane's K2 rows and RR/respawn uniforms; each unblocked shadow ray tests
-    every prim, and a blocked one at least the cheapest single test."""
+    lane's K2 rows (medium-aware: and its scatter flag, C lane weights and 2
+    stack rows) and RR/respawn uniforms; each unblocked shadow ray tests
+    every prim, and a blocked one at least the cheapest single test. K4
+    (`sweeps` False) reads a worth-tracing sample's blocked flag instead of
+    its ray, and sweeps nothing."""
     n = state.shape[1]
     live = int((state[mk.S_ALIVE] > 0.5).sum())
     c, ls = a.c_lanes, a.light_samples
-    k2_live = 3 * c + 9 + ls  # radiance, sample, ratios, pscale, worth
+    # radiance, sample, ratios, pscale, worth
+    k2_live = 3 * c + 9 + ls + ((3 + c) if a.medium else 0)
     nbytes = F32 * (72 * n + live * (k2_live + 6))
     ops = 0
     for worth, free in shadow_rays(torch, mk, dense, k2, scene, ls):
-        nbytes += F32 * (7 * worth + c * free)
-        ops += free * sweep_ops(scene.dense_tab) + (worth - free) * min(
-            PRIM_OPS)
-    return bound(ops, nbytes + F32 * int(scene.dense_tab.shape[0]) * 11)
+        nbytes += F32 * ((7 if sweeps else 1) * worth + c * free)
+        if sweeps:
+            ops += free * sweep_ops(scene.dense_tab) + (worth - free) * min(
+                PRIM_OPS)
+    if sweeps:
+        nbytes += F32 * int(scene.dense_tab.shape[0]) * 11
+    return bound(ops, nbytes)
+
+
+def any_rows_bound(torch, mk, dense, k2, scene, si):
+    """K3 on NEE sample si: every lane's worth flag read and blocked flag
+    written, a worth-tracing lane's ray and tmax (7 rows), the table; an
+    unblocked ray tests every prim, a blocked one at least the cheapest
+    single test."""
+    n = k2.shape[1]
+    worth, free = shadow_rays(torch, mk, dense, k2, scene,
+                              si + 1)[si]
+    return bound(free * sweep_ops(scene.dense_tab)
+                 + (worth - free) * min(PRIM_OPS),
+                 F32 * (2 * n + 7 * worth
+                        + int(scene.dense_tab.shape[0]) * 11))
 
 
 def rows_bound(mk, state, tab):
@@ -184,21 +213,26 @@ def phase_build(torch):
     import ctypes
 
     attrs = {}
-    two_prog = {"shade_sweep": {}, "finalize_sweep": {}, "shade": {},
-                "sweep_closest_rows": {}}
+    # kernel -> (two_prog_attrs's `which`, has C and medium instantiations)
+    which = {"shade_sweep": (0, True), "finalize_sweep": (1, True),
+             "shade": (2, True), "sweep_closest_rows": (3, False),
+             "finalize": (4, True), "sweep_any_rows": (5, False)}
+    two_prog = {name: {} for name in which}
     for c in (1, 4):
         regs, local = ctypes.c_int(), ctypes.c_int()
         rc = lib.fused_round_attrs(c, ctypes.byref(regs), ctypes.byref(local))
         check(rc == 0, f"fused_round_attrs: CUDA error {rc}")
         attrs[f"C{c}"] = dict(regs=regs.value, local_bytes=local.value)
-        for which, name in enumerate(two_prog):
-            if name == "sweep_closest_rows" and c != 1:
+        for name, (k, templated) in which.items():
+            if not templated and c != 1:
                 continue  # one instantiation
-            rc = lib.two_prog_attrs(which, c, ctypes.byref(regs),
-                                    ctypes.byref(local))
-            check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
-            two_prog[name][f"C{c}"] = dict(regs=regs.value,
-                                           local_bytes=local.value)
+            for medium in ((False, True) if templated else (False,)):
+                rc = lib.two_prog_attrs(k + (8 if medium else 0), c,
+                                        ctypes.byref(regs),
+                                        ctypes.byref(local))
+                check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
+                two_prog[name][f"C{c}" + ("_medium" if medium else "")] = \
+                    dict(regs=regs.value, local_bytes=local.value)
     lt_round = {}
     for which, name in enumerate(("lt_shade", "lt_finalize_spawn",
                                   "lt_finalize")):
@@ -216,7 +250,7 @@ def phase_build(torch):
         f.write(log)
     emit("build", seconds=round(secs, 2), flags=_build.NVCC_FLAGS,
          fused_round=attrs, **two_prog, **lt_round,
-         resource_usage=usage[:60])
+         resource_usage=usage[:90])
 
 
 def _rays(torch, n, gen, dev, tmax=None):
@@ -671,9 +705,9 @@ def phase_texfeed(torch, dev, width):
     return res
 
 
-def device_kernels(torch, fn):
+def device_kernels(torch, fn, with_ms=False):
     """The device kernels (and copies) one call of `fn` launches, from
-    torch.profiler."""
+    torch.profiler; `with_ms`: and their device time in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -681,14 +715,52 @@ def device_kernels(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if with_ms:
+        return len(spans), sum(t.end - t.start for t in spans) / 1e3
+    return len(spans)
+
+
+def busy_profile(torch, fn, prefixes=()):
+    """One call of `fn` (which must end by waiting for the card) under
+    torch.profiler -> the profiled wall, the device time, the device's busy
+    time (the union of the kernel intervals) and share, the device kernels,
+    the eight kernels with the most device time, and the device time of the
+    kernels whose names contain one of `prefixes`."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for t0_, t1_, name in spans:
+        busy += max(0.0, t1_ - max(t0_, end))
+        end = max(end, t1_)
+        by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
+    top = dict(sorted(((k[:60], round(v / 1e3, 3)) for k, v in
+                       by_name.items()), key=lambda kv: -kv[1])[:8])
+    rec = dict(profiled_wall_ms=wall_us / 1e3,
+               device_ms=sum(by_name.values()) / 1e3,
+               device_busy_ms=busy / 1e3, device_busy_share=busy / wall_us,
+               device_kernels=len(spans), device_ms_by_kernel=top)
+    if prefixes:
+        rec["round_kernels_ms"] = sum(
+            v for k, v in by_name.items()
+            if any(pre in k for pre in prefixes)) / 1e3
+    return rec
 
 
 def reset_counts(mk, dense, lt=None):
     mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
-    mk.K2_LAUNCHES = mk.PLAIN_CALLS = 0
+    mk.K2_LAUNCHES = mk.K4_LAUNCHES = mk.PLAIN_CALLS = 0
     dense.LAUNCHES = dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
+    dense.ANY_ROWS_LAUNCHES = dense.ANY_ROWS_PLAIN_CALLS = 0
     if lt is not None:
         lt.SHADE_LAUNCHES = lt.FINALIZE_SPAWN_LAUNCHES = 0
         lt.FINALIZE_LAUNCHES = lt.PLAIN_CALLS = 0
@@ -793,25 +865,6 @@ def phase_render_textured(torch, dev, width, spp):
                            output_dir=os.path.join(ROOT, "output"))
     rays = profile.total_rays
     _, warm_profile, warm_s = render(2027)
-
-    from torch.profiler import ProfilerActivity, profile as profiler
-
-    with profiler(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render(2028)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end, by_name = 0.0, float("-inf"), {}
-    for t0_, t1_, name in spans:
-        busy += max(0.0, t1_ - max(t0_, end))
-        end = max(end, t1_)
-        by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
-    device_us = sum(by_name.values())
-    top = dict(sorted(((k[:60], round(v / 1e3, 3)) for k, v in
-                       by_name.items()), key=lambda kv: -kv[1])[:8])
     emit("main_path", scene="textured_cornell", width=width, height=width,
          spp=spp, c_lanes=1, rounds=rounds, wall_s=elapsed,
          mrays_per_s=rays / elapsed / 1e6, warm_wall_s=warm_s,
@@ -820,9 +873,7 @@ def phase_render_textured(torch, dev, width, spp):
          shadow_rays=profile.shadow_rays, env_hits=profile.env_hits,
          mean_y=mean_y, checker_odd_y=odd, checker_even_y=even,
          checker_pixels=n_sel, peak_gb=peak_gb, launches=counts,
-         profiled_wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-         device_busy_ms=busy / 1e3, device_busy_share=busy / wall_us,
-         device_kernels=len(spans), device_ms_by_kernel=top,
+         **busy_profile(torch, lambda: render(2028)),
          exr=os.path.relpath(exr, ROOT), png=os.path.relpath(png, ROOT))
     return dict(counts, rounds=rounds)
 
@@ -1159,28 +1210,7 @@ def phase_render_lt(torch, dev, recipe, cam, width, ppp, v2, busy=False):
                peak_gb=peak_gb, launches=counts,
                exr=os.path.relpath(exr, ROOT), png=os.path.relpath(png, ROOT))
     if busy:
-        from torch.profiler import ProfilerActivity, profile as profiler
-
-        with profiler(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            render(2028)
-            wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy_us, end, by_name = 0.0, float("-inf"), {}
-        for t0_, t1_, name in spans:
-            busy_us += max(0.0, t1_ - max(t0_, end))
-            end = max(end, t1_)
-            by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
-        top = dict(sorted(((k[:60], round(v / 1e3, 3)) for k, v in
-                           by_name.items()), key=lambda kv: -kv[1])[:8])
-        rec.update(profiled_wall_ms=wall_us / 1e3,
-                   device_ms=sum(by_name.values()) / 1e3,
-                   device_busy_ms=busy_us / 1e3,
-                   device_busy_share=busy_us / wall_us,
-                   device_kernels=len(spans), device_ms_by_kernel=top)
+        rec.update(busy_profile(torch, lambda: render(2028)))
     n_pad = lt.lt_init(n_paths, dev)[0].shape[1]
     if not v2:
         scene = lt.build_lt_scene(world, camera, settings, width, width, dev)
@@ -1243,6 +1273,367 @@ def phase_lt_estimators(torch, dev):
           f"spike box v2/v1 XYZ totals {ratios}")
 
 
+def _medium_scene(torch, dev, recipe, cam, c_lanes, **kw):
+    """`_scene` under medium-aware settings (the bake then carries the
+    medium feed's tables)."""
+    import dataclasses
+
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    world, camera, settings, _ = _scene(torch, dev, recipe, cam, c_lanes,
+                                        **kw)
+    settings = dataclasses.replace(settings, medium_aware=True)
+    return world, camera, settings, mk.build_mega_scene(world, camera, dev,
+                                                        settings)
+
+
+def phase_any_rows(torch, dev, width):
+    """K3 on the K2 rows of the gem's first round at the film's lane count:
+    each NEE sample's blocked mask against the twin's (equal on every lane,
+    and 0 on every lane whose sample is not worth a ray), with its time,
+    the twin's and its bound."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    world, camera, settings, scene = _scene(torch, dev, "gem_cornell",
+                                            "CORNELL_CAMERA", 1)
+    a = mk.RoundArgs.make(scene.consts, settings, width, width)
+    n = width * width
+    n_pad = -(-n // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(61)
+    state0, _ = mk.mega_init(
+        camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+        n_pad, 8)
+    ls = a.light_samples
+    u12 = torch.rand((mk.n_u_rows(ls), n_pad), generator=gen, device=dev)
+    k2 = mk.shade_sweep(u12, state0, scene, a)
+    res = dict(lanes=n_pad, prims=int(scene.dense_tab.shape[0]), samples=[])
+    for si in range(ls):
+        row0 = mk.O_NEE + mk.NEE_ROWS * si
+
+        def run():
+            return dense.sweep_any_rows(k2, scene.dense_tab, row0, row0 + 6,
+                                        live_row=row0 + 7)
+
+        def twin():
+            return dense.sweep_any_rows_plain(k2, scene.dense_tab, row0,
+                                              row0 + 6, row0 + 7)
+
+        k, pl = run(), twin()
+        torch.cuda.synchronize()
+        worth = k2[row0 + 7] > 0.5
+        check(torch.equal(k, pl), f"K3 sample {si}: masks differ on "
+              f"{int((k != pl).sum())} lanes")
+        check(not bool(k[0][~worth].any()),
+              f"K3 sample {si}: a lane without a shadow ray reads blocked")
+        res["samples"].append(dict(
+            worth=int(worth.sum()), blocked=int(k.sum()),
+            mismatches=int((k != pl).sum()), ms=cuda_ms(torch, run, 10),
+            plain_ms=cuda_ms(torch, twin, 2),
+            **any_rows_bound(torch, mk, dense, k2, scene, si)))
+    emit("any_rows_sweep", **res)
+    return res
+
+
+def phase_medium_rounds(torch, dev, width):
+    """Three chained medium-aware rounds of fog_cornell at C = 1 and 4, each
+    side on its own state from one camera spawn: the medium instantiations
+    of K12 and K34 against their twins; on the kernels' state the split
+    round's K1, K2 (fed the same medium rows), K3 and K4 against theirs, its
+    K2 rows equal to K12's and its out rows equal to K34's bit for bit.
+    Then the kernels', the twins' and the medium feed's times and the bounds
+    on the third round's inputs (the camera spawn is in vacuum: the first
+    round scatters nothing), and the device kernels of one feed call."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    res = {}
+    for c in (1, 4):
+        world, camera, settings, scene = _medium_scene(
+            torch, dev, "fog_cornell", "CORNELL_CAMERA", c)
+        check(scene.med is not None and not mk.fused_ok(scene),
+              "fog_cornell does not ride the medium branch")
+        a = mk.RoundArgs.make(scene.consts, settings, width, width)
+        n = width * width
+        n_pad = -(-n // mk.TILE) * mk.TILE
+        gen = torch.Generator(device=dev).manual_seed(71 + c)
+        state0, _ = mk.mega_init(
+            camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+            n_pad, 16)
+        ls = a.light_samples
+        k2_disc = [mk.O_AT_SURF, mk.O_ENV_CT, mk.O_SHADOW_CT, mk.O_SAMPLE_OK,
+                   mk.O_SCAT, mk.O_MSTK, mk.O_MSTK + 1] + [
+            mk.O_NEE + mk.NEE_ROWS * si + 7 for si in range(ls)]
+        out_disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.S_MSTK0,
+                    mk.S_MSTK1, mk.O4_BOUNCE_CT, mk.O4_CAMERA_CT]
+        medium_rows = list(range(mk.O_SCAT, mk.O_NEE))
+        tabs = mk._tables(scene)
+
+        def cmp(k, p, disc, rows):
+            f, bad, err, rel = compare_rows(torch, k, p, disc, rows)
+            return dict(match_frac=f, bad_rows=bad, max_abs_err=err,
+                        max_rel_err_bad=rel)
+
+        def k3(k2, si, plain=False):
+            row0 = mk.O_NEE + mk.NEE_ROWS * si
+            fn = dense.sweep_any_rows_plain if plain else dense.sweep_any_rows
+            return fn(k2, scene.dense_tab, row0, row0 + 6, row0 + 7)
+
+        sk = sp = state0
+        rounds, last = [], None
+        for r in range(3):
+            u12 = torch.rand((mk.n_u_rows(ls, True), n_pad), generator=gen,
+                             device=dev)
+            u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+            mfk = mk.med_feed(scene.med, sk, u12, ls, c)
+            mfp = mk.med_feed(scene.med, sp, u12, ls, c)
+            k2k = mk.shade_sweep(u12, sk, scene, a, None, mfk)
+            k2p = mk.shade_sweep_plain(u12, sp, a=a, mf=mfp, **tabs)
+            ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+            op = mk.finalize_sweep_plain(u34, sp, k2p, scene.dense_tab, a)
+            # the split round on the kernels' state
+            tp = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O,
+                                          mk.S_ALIVE)
+            tpp = dense.sweep_closest_rows_plain(sk, scene.dense_tab, mk.S_O,
+                                                 mk.S_ALIVE)
+            k2s = mk.shade(u12, sk, tp, scene, a, None, None, mfk)
+            k2sp = mk.shade_plain(u12, sk, tp, scene.prim_tab, scene.mat_tab,
+                                  scene.light_tab, scene.spec_tab, a, None,
+                                  None, mfk)
+            blks = [k3(k2s, si) for si in range(ls)]
+            blks_p = [k3(k2s, si, plain=True) for si in range(ls)]
+            o4 = mk.finalize(u34, sk, k2s, blks, scene, a)
+            o4p = mk.finalize_plain(u34, sk, k2s, blks, a)
+            torch.cuda.synchronize()
+            rec = dict(
+                k12=cmp(k2k, k2p, k2_disc, range(k2k.shape[0])),
+                k12_medium_rows=cmp(k2k, k2p, k2_disc, medium_rows),
+                k34=cmp(ok, op, out_disc, range(mk.NS)),
+                k1_max_abs_err_t=compare_hits(torch, tp, tpp,
+                                              f"medium K1 C{c} #{r}"),
+                k2=cmp(k2s, k2sp, k2_disc, range(k2s.shape[0])),
+                k3_mismatches=sum(int((b != bp).sum())
+                                  for b, bp in zip(blks, blks_p)),
+                k4=cmp(o4, o4p, out_disc, range(mk.NS)),
+                split_k2_equal=bool(torch.equal(k2s, k2k)),
+                split_out_equal=bool(torch.equal(o4, ok)),
+                alive=float(ok[mk.S_ALIVE].sum()),
+                scattered=float(k2k[mk.O_SCAT].sum()),
+                in_medium=float((ok[mk.S_MSTK0] > 0).sum()),
+                two_deep=float((ok[mk.S_MSTK0] > 256).sum()))
+            rounds.append(rec)
+            last = (sk, u12, u34, mfk, tp, k2k, blks)
+            sk, sp = ok[:mk.NS], op[:mk.NS]
+        s2, u12, u34, mf2, tp2, k2_2, blks2 = last
+        fed = mk.mf_idx(c)["n"]
+
+        def ms(fn, reps=10):
+            return cuda_ms(torch, fn, reps)
+
+        kernels = dict(
+            shade_sweep=dict(
+                ms=ms(lambda: mk.shade_sweep(u12, s2, scene, a, None, mf2)),
+                plain_ms=ms(lambda: mk.shade_sweep_plain(
+                    u12, s2, a=a, mf=mf2, **tabs), 2),
+                **shade_bound(mk, s2, scene, a, True, fed + 6)),
+            finalize_sweep=dict(
+                ms=ms(lambda: mk.finalize_sweep(u34, s2, k2_2, scene, a)),
+                plain_ms=ms(lambda: mk.finalize_sweep_plain(
+                    u34, s2, k2_2, scene.dense_tab, a), 2),
+                **k34_bound(torch, mk, dense, k2_2, s2, scene, a)),
+            sweep_closest_rows=dict(
+                ms=ms(lambda: dense.sweep_closest_rows(
+                    s2, scene.dense_tab, mk.S_O, mk.S_ALIVE)),
+                plain_ms=ms(lambda: dense.sweep_closest_rows_plain(
+                    s2, scene.dense_tab, mk.S_O, mk.S_ALIVE), 2),
+                **rows_bound(mk, s2, scene.dense_tab)),
+            shade=dict(
+                ms=ms(lambda: mk.shade(u12, s2, tp2, scene, a, None, None,
+                                       mf2)),
+                plain_ms=ms(lambda: mk.shade_plain(
+                    u12, s2, tp2, scene.prim_tab, scene.mat_tab,
+                    scene.light_tab, scene.spec_tab, a, None, None, mf2), 2),
+                **shade_bound(mk, s2, scene, a, False, 2 + fed + 6)),
+            sweep_any_rows=dict(
+                ms=ms(lambda: k3(k2_2, 0)),
+                plain_ms=ms(lambda: k3(k2_2, 0, plain=True), 2),
+                **any_rows_bound(torch, mk, dense, k2_2, scene, 0)),
+            finalize=dict(
+                ms=ms(lambda: mk.finalize(u34, s2, k2_2, blks2, scene, a)),
+                plain_ms=ms(lambda: mk.finalize_plain(u34, s2, k2_2, blks2,
+                                                      a), 2),
+                **k34_bound(torch, mk, dense, k2_2, s2, scene, a,
+                            sweeps=False)))
+        feed_kernels, feed_device_ms = device_kernels(
+            torch, lambda: mk.med_feed(scene.med, s2, u12, ls, c),
+            with_ms=True)
+        unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(1))
+        res[f"C{c}"] = dict(
+            lanes=n_pad, live=int((s2[mk.S_ALIVE] > 0.5).sum()),
+            rounds=rounds,
+            med_feed_ms=ms(lambda: mk.med_feed(scene.med, s2, u12, ls, c)),
+            med_feed_device_ms=feed_device_ms,
+            device_kernels=dict(
+                med_feed=feed_kernels,
+                two_prog_round=device_kernels(
+                    torch, lambda: mk.two_prog_round(s2, scene, a, unif, 0)),
+                split_round=device_kernels(
+                    torch, lambda: mk.split_round(s2, scene, a, unif, 0))),
+            **kernels)
+        del sk, sp, ok, op, k2k, k2p, k2s, k2sp, o4, o4p, last, s2, k2_2
+        torch.cuda.empty_cache()
+    emit("medium_rounds", **res)
+    for key, r in res.items():
+        for i, rd in enumerate(r["rounds"]):
+            for k in ("k12", "k34", "k2", "k4"):
+                check(rd[k]["match_frac"] >= 0.9999,
+                      f"medium {k} {key} #{i}: discrete rows match on only "
+                      f"{rd[k]['match_frac']:.6f} of lanes")
+                check(not rd[k]["bad_rows"],
+                      f"medium {k} {key} #{i}: rows beyond rtol 1e-4 atol "
+                      f"1e-5: {rd[k]['bad_rows']}")
+            check(rd["k3_mismatches"] == 0,
+                  f"medium K3 {key} #{i}: {rd['k3_mismatches']} lanes differ")
+            check(rd["split_k2_equal"] and rd["split_out_equal"],
+                  f"medium {key} #{i}: the split round's rows differ from "
+                  "the two-program round's")
+        check(r["rounds"][-1]["scattered"] > 0
+              and r["rounds"][-1]["two_deep"] > 0,
+              f"medium {key}: no lane scattered or sat in both media")
+    return res
+
+
+def phase_render_medium(torch, dev, width, spp):
+    """fog_cornell under medium-aware settings through render_regen: the
+    two-program route (K12 and K34 once a round, after the medium feed),
+    warm and under torch.profiler (the device's busy share, and the share
+    of the device time outside K12 and K34: the feed, the uniform draws and
+    the counter sums); then the split route from the same seed (K1, K2 and
+    K4 once a round, K3 once per NEE sample). The fused kernel and the
+    plain twins never run, and the two films are equal bit for bit."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    world, camera, settings, _ = _medium_scene(torch, dev, "fog_cornell",
+                                               "CORNELL_CAMERA", 1)
+
+    def render(seed, stepper=None, stats=None):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return render_regen(world, camera, settings, width, width, spp,
+                            generator=gen, device=dev, stats=stats,
+                            stepper=stepper)
+
+    def counted(stepper):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mk, dense)
+        stats = {}
+        film, profile, elapsed = render(2026, stepper, stats)
+        counts = dict(
+            shade_sweep=mk.SHADE_LAUNCHES, finalize_sweep=mk.FINALIZE_LAUNCHES,
+            sweep_closest_rows=dense.ROWS_LAUNCHES, shade=mk.K2_LAUNCHES,
+            sweep_any_rows=dense.ANY_ROWS_LAUNCHES, finalize=mk.K4_LAUNCHES,
+            fused_round=mk.FUSED_LAUNCHES,
+            plain_calls=(mk.PLAIN_CALLS + dense.ROWS_PLAIN_CALLS
+                         + dense.ANY_ROWS_PLAIN_CALLS))
+        return (film, profile, elapsed, counts, stats["rounds"],
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    film, profile, elapsed, counts, rounds, peak_gb = counted(None)
+    check(counts["shade_sweep"] == counts["finalize_sweep"] == rounds > 0,
+          f"fog_cornell: K12/K34 launches {counts} != rounds {rounds}")
+    check(all(counts[k] == 0 for k in (
+        "sweep_closest_rows", "shade", "sweep_any_rows", "finalize",
+        "fused_round", "plain_calls")),
+        f"fog_cornell: another route or plain twins ran: {counts}")
+    film_h = film.cpu()
+    check(bool(torch.isfinite(film_h).all()), "fog_cornell: non-finite film")
+    mean_y = float(film_h[..., 1].mean())
+    check(mean_y > 0.0, "fog_cornell: film is black")
+    exr, png = output_film(film_h, f"fog_cornell_{width}", Reinhard0(),
+                           output_dir=os.path.join(ROOT, "output"))
+    _, warm_profile, warm_s = render(2027)
+    busy = busy_profile(torch, lambda: render(2028),
+                        prefixes=("shade_sweep_kernel",
+                                  "finalize_sweep_kernel"))
+    rec = dict(scene="fog_cornell", width=width, height=width, spp=spp,
+               c_lanes=1, medium_aware=True, rounds=rounds, wall_s=elapsed,
+               mrays_per_s=profile.total_rays / elapsed / 1e6,
+               warm_wall_s=warm_s,
+               warm_mrays_per_s=warm_profile.total_rays / warm_s / 1e6,
+               camera_rays=profile.camera_rays,
+               bounce_rays=profile.bounce_rays,
+               shadow_rays=profile.shadow_rays, env_hits=profile.env_hits,
+               mean_y=mean_y, peak_gb=peak_gb, launches=counts, **busy,
+               feed_share=1.0 - busy["round_kernels_ms"]
+               / busy["device_ms"],
+               exr=os.path.relpath(exr, ROOT), png=os.path.relpath(png, ROOT))
+    emit("main_path", **rec)
+
+    film_s, profile_s, elapsed_s, counts_s, rounds_s, peak_s = counted(
+        "split")
+    ls = settings.light_samples
+    check(counts_s["sweep_closest_rows"] == counts_s["shade"]
+          == counts_s["finalize"] == rounds_s > 0
+          and counts_s["sweep_any_rows"] == ls * rounds_s,
+          f"fog_cornell split: K1/K2/K3/K4 launches {counts_s} != rounds "
+          f"{rounds_s} (K3: x{ls})")
+    check(all(counts_s[k] == 0 for k in (
+        "shade_sweep", "finalize_sweep", "fused_round", "plain_calls")),
+        f"fog_cornell split: another route or plain twins ran: {counts_s}")
+    check(rounds_s == rounds and torch.equal(film_s, film),
+          "fog_cornell: the split film differs from the two-program film")
+    check(profile_s.total_rays == profile.total_rays,
+          "fog_cornell: the split render's counters differ")
+    _, warm_ps, warm_ss = render(2027, "split")
+    emit("main_path", scene="fog_cornell", stepper="split", width=width,
+         height=width, spp=spp, c_lanes=1, medium_aware=True, rounds=rounds_s,
+         wall_s=elapsed_s, mrays_per_s=profile_s.total_rays / elapsed_s / 1e6,
+         warm_wall_s=warm_ss,
+         warm_mrays_per_s=warm_ps.total_rays / warm_ss / 1e6,
+         peak_gb=peak_s, launches=counts_s, film_equals_two_prog=True)
+    return dict(two_prog=dict(counts, rounds=rounds),
+                split=dict(counts_s, rounds=rounds_s))
+
+
+def phase_medium_checks(torch, dev):
+    """Two analytic answers through the medium branch on the card, at the
+    bounds of the CPU tests (tests/test_torch_render_medium.py), 48 x 48 @
+    64 spp with four λ lanes: the absorbing sphere's centre over its
+    corners within 0.08 of exp(-1), and the pure scatterer in the unit
+    furnace within 0.05 of unity."""
+    import math
+
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+
+    res = {}
+    for recipe, bounces, want, tol in (
+            ("absorbing_sphere", 6, math.exp(-1.0), 0.08),
+            ("scattering_furnace", 64, 1.0, 0.05)):
+        world, camera, _, _ = _scene(torch, dev, recipe, "MEDIUM_CAMERA", 4)
+        settings = PTSettings(max_bounces=bounces, min_bounces=bounces,
+                              light_samples=0, russian_roulette=False,
+                              medium_aware=True, hwss=True)
+        gen = torch.Generator(device=dev).manual_seed(81)
+        film, _, elapsed = render_regen(world, camera, settings, 48, 48, 64,
+                                        generator=gen, device=dev)
+        y = film[..., 1].cpu()
+        centre = y[20:28, 20:28].mean()
+        corner = torch.cat([y[:8, :8].reshape(-1), y[:8, -8:].reshape(-1),
+                            y[-8:, :8].reshape(-1),
+                            y[-8:, -8:].reshape(-1)]).mean()
+        res[recipe] = dict(ratio=float(centre / corner), expected=want,
+                           wall_s=elapsed)
+        check(abs(res[recipe]["ratio"] - want) < tol,
+              f"{recipe}: centre/corner {res[recipe]['ratio']} is not "
+              f"within {tol} of {want}")
+    emit("medium_checks", **res)
+
+
 WIDTH = 1080        # the headline film, 1080 x 1080
 SPP = 16
 SWEEP_RAYS = 1 << 20
@@ -1298,6 +1689,10 @@ def main():
     lt_hdri = phase_render_lt(torch, dev, "hdri_blob", "SPHERE_CAMERA", 512,
                               LT_HDRI_PATHS, False, busy=True)
     phase_lt_estimators(torch, dev)
+    k3 = phase_any_rows(torch, dev, WIDTH)
+    med = phase_medium_rounds(torch, dev, WIDTH)
+    fog = phase_render_medium(torch, dev, WIDTH, SPP)
+    phase_medium_checks(torch, dev)
     c1 = rnd["C1"]
     err = max(rd["max_abs_err"] for r in rnd.values() for rd in r["rounds"])
     gem1 = two["gem_cornell_1080_C1"]
@@ -1314,6 +1709,15 @@ def main():
         return max(rd[k]["max_abs_err"] for r in ltr.values()
                    for rd in r["rounds"] if route in (None, r["route"]))
 
+    def med_err(k):
+        return max(rd[k]["max_abs_err"] for r in med.values()
+                   for rd in r["rounds"])
+
+    # K3's masks are 0/1: its error is the count of lanes that differ
+    k3_err = float(sum(s["mismatches"] for s in k3["samples"])
+                   + sum(rd["k3_mismatches"] for r in med.values()
+                         for rd in r["rounds"]))
+    med1 = med["C1"]
     lt1 = ltr["chip_lens_v2_cs1"]
     lt_v1 = ltr["hdri_blob_v1_cs1"]
     check(lt_v1["lanes"] == lt_hdri["lanes"],
@@ -1335,13 +1739,16 @@ def main():
              launches=main_path["launches"], max_abs_err=err, **timed(c1)),
         dict(name="shade_sweep", route="cuda", source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:2137",
-             launches=gem["shade_sweep"], max_abs_err=two_err("k12"),
+             launches=gem["shade_sweep"],
+             medium_launches=fog["two_prog"]["shade_sweep"],
+             max_abs_err=max(two_err("k12"), med_err("k12")),
              **timed(gem1, "shade_sweep_")),
         dict(name="finalize_sweep", route="cuda",
              source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:2204",
              launches=gem["finalize_sweep"],
-             max_abs_err=max(two_err("k34"), tex_err("k34")),
+             medium_launches=fog["two_prog"]["finalize_sweep"],
+             max_abs_err=max(two_err("k34"), tex_err("k34"), med_err("k34")),
              **timed(gem1, "finalize_sweep_")),
         dict(name="sweep_closest_rows", route="cuda",
              source=src + "two_prog_round.cu",
@@ -1352,8 +1759,19 @@ def main():
              **timed(tex1["sweep_closest_rows"])),
         dict(name="shade", route="cuda", source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:2091",
-             launches=textured["shade"], max_abs_err=tex_err("k2"),
+             launches=textured["shade"],
+             medium_launches=fog["split"]["shade"],
+             max_abs_err=max(tex_err("k2"), med_err("k2")),
              **timed(tex1["shade"])),
+        dict(name="sweep_any_rows", route="cuda",
+             source=src + "two_prog_round.cu",
+             replaces="pathtracer_tpu/kernels/dense.py:742",
+             launches=fog["split"]["sweep_any_rows"], max_abs_err=k3_err,
+             **timed(med1["sweep_any_rows"])),
+        dict(name="finalize", route="cuda", source=src + "two_prog_round.cu",
+             replaces="pathtracer_tpu/kernels/megakernel.py:2160",
+             launches=fog["split"]["finalize"], max_abs_err=med_err("k4"),
+             **timed(med1["finalize"])),
         dict(name="lt_shade", route="cuda", source=src + "lt_round.cu",
              replaces="pathtracer_tpu/kernels/lt_mega.py:1089",
              also_replaces="pathtracer_tpu/kernels/lt_mega.py:986",
@@ -1374,7 +1792,7 @@ def main():
             name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
             inlined_in=["fused_round", "shade_sweep", "finalize_sweep",
-                        "sweep_closest_rows", "lt_shade",
+                        "sweep_closest_rows", "sweep_any_rows", "lt_shade",
                         "lt_finalize_spawn", "lt_finalize"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
             **timed(dict(ms=sweep["chip"]["closest_ms"],

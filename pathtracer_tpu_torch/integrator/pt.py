@@ -4,8 +4,8 @@ The port's path tracer is the megakernel's regen loop
 (`kernels/megakernel.py`: the fused round and the two-program round); the
 XLA wavefront and regen integrators are still to be ported (ROADMAP §1
 items 5 and 8). The light tracer is `integrator/lt.py` with
-`kernels/lt_mega.py`. `medium_aware` is refused until the two-program round's
-medium branch lands.
+`kernels/lt_mega.py`. `medium_aware` turns on the tracked-medium transport
+of the two-program and split rounds.
 """
 
 from __future__ import annotations

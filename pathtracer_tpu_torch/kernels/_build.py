@@ -107,17 +107,22 @@ _SIGNATURES = {
     #  spec_rows, args*, stream)
     "fused_round_launch": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
                            _I, _P, _P],
-    # (u, state, ef, k2, n, dense, p_dense, prim, p_pad, mat, light, spec,
-    #  args*, stream)
-    "shade_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
-                           _P, _P],
+    # (u, state, ef, mf, k2, n, dense, p_dense, prim, p_pad, mat, light,
+    #  spec, args*, stream)
+    "shade_sweep_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P,
+                           _P, _P, _P],
     # (u, state, k2, out, n, dense, p_dense, args*, stream)
     "finalize_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _P],
     # (src, row0, alive_row, dense, p_dense, out, n, stream)
     "sweep_closest_rows_launch": [_P, _I, _I, _P, _I, _P, _I, _P],
-    # (u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light, spec, args*,
-    #  stream)
-    "shade_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    # (u, state, tp, ef, tf, mf, k2, n, prim, p_pad, mat, light, spec,
+    #  args*, stream)
+    "shade_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+                     _P],
+    # (src, row0, tmax_row, live_row | -1, dense, p_dense, out, n, stream)
+    "sweep_any_rows_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _P],
+    # (u, state, k2, blk, out, n, args*, stream)
+    "finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _P],
     # (u, state, q, n, dense, p_dense, prim, p_pad, mat, spec, args*,
     #  stream)
     "lt_shade_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
@@ -128,6 +133,7 @@ _SIGNATURES = {
     # (u, state, q, feed, out, n, dense, p_dense, args*, stream)
     "lt_finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     # (c_lanes, regs*, local_bytes*); (which: 0 K12, 1 K34, 2 K2, 3 K1,
+    # 4 K4, 5 K3; + 8 for the medium instantiation of K12, K34, K2, K4;
     # c_lanes, ...); (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1, ...)
     "fused_round_attrs": [_I, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],

@@ -8,8 +8,12 @@
 // _all_kernel_body, _shade_body and _finalize_core: hit attributes,
 // emission and environment adds with MIS, the NEE light sample, BSDF eval
 // and sample with the HWSS pdf ratios, Russian roulette, XYZ accumulation on
-// death, the thin-lens respawn and the state write-out. The Pallas one-hot
-// MXU fetches (_prim_attr_fetch, _sel_rows, the light rows) are indexed
+// death, the thin-lens respawn and the state write-out, with the medium
+// branch of medium-aware transport (the free flight against the surface
+// hit, the Beer-Lambert lane weights, the phase function at a scatter, the
+// tracked medium stack) as the template parameter MEDIUM of the functions
+// it touches, so the surface instantiations compile without it. The Pallas
+// one-hot MXU fetches (_prim_attr_fetch, _sel_rows, the light rows) are indexed
 // loads through the read-only cache, and _spectral_fetch is an f32 lerp of
 // each curve row at the lane's λ. The plain twins are
 // kernels/megakernel.py:_shade and _finalize_core, in the same operation
@@ -26,7 +30,7 @@
 // linkage
 struct RoundArgs {
   int c_lanes, light_samples, env_kind, n_mats, n_lights, has_ggx, has_metal;
-  int has_sharp, rr_enabled, only_direct, cam_blades;
+  int has_sharp, rr_enabled, only_direct, cam_blades, medium;
   float p_env, p_env_div, q_env_div, pick_pdf, sa_scale, n_lights_f, inv_ls;
   float lam_lo, lam_span, env_rz0, env_rz1, env_rz2;
   float env_rot_inv[9];
@@ -34,6 +38,7 @@ struct RoundArgs {
   float cam_origin[3], cam_u[3], cam_v[3], cam_fw[3];
   float cam_half_w, cam_half_h, cam_lens_r, cam_sharp, cam_seg, cam_half_seg;
   float cam_cos_pi_bl;
+  float env_tr_dist;  // 2 x the scene bound's radius (environment NEE's Tr)
 };
 
 namespace rc {
@@ -48,6 +53,7 @@ constexpr int ENV_CONSTANT = 0;
 constexpr int S_O = 0, S_D = 3, S_LAM = 6, S_BETA = 10, S_RAD = 14;
 constexpr int S_ACC = 18, S_DONE = 21, S_ALIVE = 22, S_BOUNCE = 23;
 constexpr int S_PREV_PDF = 24, S_PIX = 25, S_PDFR = 26, NS = 32;
+constexpr int S_MSTK0 = 30, S_MSTK1 = 31;  // the packed medium stack
 constexpr int O4_BOUNCE_CT = NS, O4_CAMERA_CT = NS + 1, O4_SHADOW_CT = NS + 2;
 constexpr int O4_ENV_CT = NS + 3, NK4 = NS + 8;
 
@@ -55,12 +61,13 @@ constexpr int O4_ENV_CT = NS + 3, NK4 = NS + 8;
 constexpr int O_RAD = 0, O_AT_SURF = 4, O_ENV_CT = 5, O_SHADOW_CT = 6;
 constexpr int O_FPDF = 7, O_SAMPLE_OK = 8, O_RATIO = 9, O_ONEW = 13;
 constexpr int O_DNEW = 16, O_PSCALE = 19, O_NEE = 30, NEE_ROWS = 12;
+constexpr int O_SCAT = 23, O_MEDW = 24, O_MSTK = 28;  // the medium rows
 
 // prim_tab / mat_tab / light_tab rows
 constexpr int R_NA = 11, R_NB = 14, R_NC = 17, R_MAT = 20, R_KIND = 21;
 constexpr int R_AREA = 22;
 constexpr int M_TYPE = 0, M_ALPHA = 1, M_METAL = 2, M_PERM = 3, M_SIDE = 4;
-constexpr int M_SHARP = 5, M_RSCALE = 6, M_TEXF = 7;
+constexpr int M_SHARP = 5, M_RSCALE = 6, M_TEXF = 7, M_INNER = 8, M_OUTER = 9;
 constexpr int L_PA = 0, L_PB = 3, L_PC = 6, L_PTYPE = 9, L_AREA = 10;
 constexpr int L_MAT = 11, L_MTYPE = 12, L_SIDE = 13, L_SHARP = 14;
 constexpr float MAT_GGX = 1.f, MAT_DIFFUSE_LIGHT = 2.f, MAT_SHARP_LIGHT = 3.f;
@@ -71,6 +78,8 @@ constexpr float T_MIN = 1e-6f;  // INTERSECTION_TIME_OFFSET
 constexpr float RAY_TMAX = 1e9f;
 constexpr float TWO_PI2 = (float)(2.0 * 3.14159265358979323846 *
                                   3.14159265358979323846);
+constexpr float FOUR_PI = (float)(4.0 * 3.14159265358979323846);
+constexpr float RAYLEIGH_NORM = (float)(3.0 / (16.0 * 3.14159265358979323846));
 
 __device__ __forceinline__ int k2_rows(int ls) {
   return (O_NEE + NEE_ROWS * ls + 7) / 8 * 8;
@@ -252,6 +261,7 @@ __device__ __forceinline__ void escape_add(Lane<C>& L,
 template <int C>
 struct Surface {
   V3 point, normal, gn, tgt, btg, wi_local;
+  int mid;  // material id
   float mtype, alpha, metal, perm;
   float eta_i[C], eta_o[C], kappa[C], refl[C];
 };
@@ -305,6 +315,7 @@ __device__ __forceinline__ void surface_at(
   const int mid = (int)__ldg(prim + R_MAT * p_pad + pid);
   hit_geometry(prim, p_pad, pid, L.o, d, t_hit, &S.point, &S.normal, &S.gn);
   auto M = [&](int r) { return __ldg(mat + r * 128 + mid); };
+  S.mid = mid;
   S.mtype = M(M_TYPE);
   V3 wi_world = -d;
   if (a.n_lights > 0 && kind == 1.0f) {
@@ -341,6 +352,101 @@ __device__ __forceinline__ void surface_at(
   }
 }
 
+// ---------------------------------------------------------------- the media
+
+// what the medium branch keeps of one lane: whether its free flight ended
+// before the surface (a scatter at scat_p), and of the medium feed the σ_t
+// sums, the scatterer's g per λ and kind, and the lane weights
+template <int C>
+struct MedLane {
+  bool scattered, in_med, is_ray;
+  V3 scat_p;
+  float sig_t[C], g[C], medw[C];
+};
+
+// medium-feed rows (kernels/megakernel.py:mf_idx)
+template <int C>
+struct Mf {
+  static constexpr int FLIGHT = 0, SIGT = 1, SIGS = 1 + C, SSH = 1 + 2 * C;
+  static constexpr int WO = SSH + 1, PHPDF = WO + 3, PHS = PHPDF + 1;
+  static constexpr int G = PHS + C, ISRAY = G + C, INMED = ISRAY + 1;
+};
+
+// the free flight against the surface hit: scatter or not, the travelled
+// distance, and the hero-divide-out Beer-Lambert lane weights, applied to
+// the throughput before any radiance add
+template <int C>
+__device__ __forceinline__ void med_flight(Lane<C>& L,
+                                           const float* __restrict__ mf,
+                                           size_t N, int i, bool hit,
+                                           float t_hit, MedLane<C>& M) {
+  auto F = [&](int r) { return mf[r * N + i]; };
+  const float flight = F(Mf<C>::FLIGHT), ss_hero = F(Mf<C>::SSH);
+  M.in_med = F(Mf<C>::INMED) > 0.5f;
+  M.is_ray = F(Mf<C>::ISRAY) > 0.5f;
+  const float surf_t = hit ? t_hit : RAY_TMAX;
+  M.scattered = flight < surf_t;
+  const float travel = pt::minf(pt::minf(flight, surf_t), 1e8f);
+  const float inv_ssh = ss_hero > 0.0f ? 1.0f / ss_hero : 0.0f;
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) {
+    M.sig_t[ci] = F(Mf<C>::SIGT + ci);
+    M.g[ci] = F(Mf<C>::G + ci);
+    const float w_exp = expf(-(M.sig_t[ci] - ss_hero) * travel);
+    float lane_w =
+        M.scattered ? F(Mf<C>::SIGS + ci) * inv_ssh * w_exp : w_exp;
+    if (!M.in_med) lane_w = 1.0f;
+    M.medw[ci] = lane_w;
+    L.beta[ci] = L.beta[ci] * lane_w;
+  }
+  M.scat_p = L.o + pt::scale(L.d, travel);
+}
+
+// the closed-form HG or Rayleigh phase toward a direction at cosine cos_sc
+// to the ray, with the scatterer's fed g
+__device__ __forceinline__ float phase_toward(float g, bool is_ray,
+                                              float cos_sc) {
+  if (is_ray) return RAYLEIGH_NORM * (1.0f + cos_sc * cos_sc);
+  const float g2 = g * g;
+  const float den = 1.0f + g2 - 2.0f * g * cos_sc;
+  return (1.0f - g2) /
+         pt::maxf(FOUR_PI * den * sqrtf(pt::maxf(den, 1e-12f)), 1e-12f);
+}
+
+// the 4 medium ids of the two packed state rows
+__device__ __forceinline__ void unpack_stack(float r0, float r1, float* stk) {
+  stk[0] = fmodf(floorf(r0 + 0.5f), 256.0f);
+  stk[1] = floorf((r0 + 0.5f) / 256.0f);
+  stk[2] = fmodf(floorf(r1 + 0.5f), 256.0f);
+  stk[3] = floorf((r1 + 0.5f) / 256.0f);
+}
+
+// a transmission through a boundary whose two media differ: the first
+// occurrence of the departed medium leaves the stack, the entered one
+// takes the first empty slot
+__device__ __forceinline__ void stack_cross(float* stk, bool entering,
+                                            float inner, float outer) {
+  if (inner == outer) return;
+  const float rm_id = entering ? outer : inner;
+  const float add_id = entering ? inner : outer;
+  if (rm_id > 0.5f) {
+    for (int k = 0; k < 4; ++k) {
+      if (stk[k] == rm_id) {
+        stk[k] = 0.0f;
+        break;
+      }
+    }
+  }
+  if (add_id > 0.5f) {
+    for (int k = 0; k < 4; ++k) {
+      if (stk[k] < 0.5f) {
+        stk[k] = add_id;
+        break;
+      }
+    }
+  }
+}
+
 // one NEE sample: the shadow ray, whether it is worth tracing, and its
 // contribution if unblocked
 template <int C>
@@ -351,13 +457,19 @@ struct NeeSample {
   float contrib[C];
 };
 
-template <int C>
-__device__ __forceinline__ void nee_sample(
-    const Lane<C>& L, const Surface<C>& S, int si, float u_pick, float u1,
-    float u2, const float* __restrict__ light, const float* __restrict__ spec,
-    const float* __restrict__ ef, size_t N, int i, const RoundArgs& a,
-    NeeSample<C>& r) {
+// MEDIUM: at a scatter (M.scattered; S is then not set) the sample leaves
+// the scatter point without a normal offset, the phase toward the light is
+// the throughput and the hero pdf, and every sample is weighted by the
+// transmittance of the tracked media over the shadow distance
+template <int C, bool MEDIUM>
+__device__ __forceinline__ void nee_sample_m(
+    const Lane<C>& L, const Surface<C>& S, const MedLane<C>& M, int si,
+    float u_pick, float u1, float u2, const float* __restrict__ light,
+    const float* __restrict__ spec, const float* __restrict__ ef, size_t N,
+    int i, const RoundArgs& a, NeeSample<C>& r) {
   const bool fed = a.env_kind != ENV_CONSTANT;
+  const bool scat = MEDIUM && M.scattered;
+  const V3 src_p = scat ? M.scat_p : S.point;
   bool chose_env = false;
   float u_pick2 = u_pick;
   if (a.p_env > 0.0f) {
@@ -375,7 +487,7 @@ __device__ __forceinline__ void nee_sample(
   V3 lpt, ln;
   sample_surface_light(Lr(L_PTYPE), lpa, lpb, lpc, u1, u2, &lpt, &ln);
   float area_pdf = 1.0f / pt::maxf(Lr(L_AREA), 1e-20f);
-  V3 to_l = lpt - S.point;
+  V3 to_l = lpt - src_p;
   float dist2 = pt::maxf(pt::length_squared(to_l), 1e-12f);
   float dist = sqrtf(dist2);
   V3 dir_l = pt::scale(to_l, 1.0f / dist);
@@ -402,11 +514,20 @@ __device__ __forceinline__ void nee_sample(
     }
     nee_tmax = RAY_TMAX;
   }
-  V3 wo_local = pt::to_local(S.tgt, S.btg, S.normal, nee_dir);
   float thr[C], nee_p[C], le[C];
-  bsdf_eval_lanes<C>(S.mtype, S.alpha, S.metal, S.perm, S.eta_i, S.eta_o,
-                     S.kappa, S.refl, S.wi_local, wo_local, a.has_ggx,
-                     a.has_metal, thr, nee_p);
+  float abs_wo_z = 1.0f;
+  if (scat) {
+    const float cos_sc = pt::dot(L.d, nee_dir);
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci)
+      thr[ci] = nee_p[ci] = phase_toward(M.g[ci], M.is_ray, cos_sc);
+  } else {
+    V3 wo_local = pt::to_local(S.tgt, S.btg, S.normal, nee_dir);
+    bsdf_eval_lanes<C>(S.mtype, S.alpha, S.metal, S.perm, S.eta_i, S.eta_o,
+                       S.kappa, S.refl, S.wi_local, wo_local, a.has_ggx,
+                       a.has_metal, thr, nee_p);
+    abs_wo_z = fabsf(wo_local.z);
+  }
   const float l_mat = Lr(L_MAT), l_mtype = Lr(L_MTYPE);
   const float l_side = Lr(L_SIDE), l_sharp = Lr(L_SHARP);
   const int env_row = 5 * a.n_mats;
@@ -421,15 +542,19 @@ __device__ __forceinline__ void nee_sample(
       le[ci] = emission_value(spd_l, l_mtype, l_side, l_sharp, cos_l,
                               a.has_sharp);
     }
-    thr[ci] = thr[ci] * fabsf(wo_local.z);
+    if (!scat) thr[ci] = thr[ci] * abs_wo_z;
     max_le = max_nan(max_le, le[ci]);
     max_thr = max_nan(max_thr, thr[ci]);
   }
   r.worth = max_le > 0.0f && nee_pdf > 1e-12f && max_thr > 0.0f;
   float w_nee = balance(nee_pdf, pt::maxf(nee_p[0], 0.0f));
-  r.so = S.point +
-         pt::scale(S.gn, NORMAL_OFFSET * pt::signf(pt::dot(S.gn, nee_dir) +
-                                                   1e-9f));
+  if (scat) {
+    r.so = src_p;
+  } else {
+    r.so = S.point +
+           pt::scale(S.gn, NORMAL_OFFSET * pt::signf(pt::dot(S.gn, nee_dir) +
+                                                     1e-9f));
+  }
   r.dir = nee_dir;
   r.tmax = nee_tmax;
   float inv_pdf = nee_pdf > 1e-12f ? 1.0f / pt::maxf(nee_pdf, 1e-12f) : 0.0f;
@@ -438,6 +563,26 @@ __device__ __forceinline__ void nee_sample(
     r.contrib[ci] = L.beta[ci] * L.s_mis * thr[ci] * le[ci] * w_nee *
                     inv_pdf * a.inv_ls;
   }
+  if (MEDIUM) {
+    const float tr_dist =
+        pt::minf((a.p_env > 0.0f && chose_env) ? a.env_tr_dist : dist, 1e8f);
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci) {
+      r.contrib[ci] = r.contrib[ci] *
+                      (M.in_med ? expf(-M.sig_t[ci] * tr_dist) : 1.0f);
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void nee_sample(
+    const Lane<C>& L, const Surface<C>& S, int si, float u_pick, float u1,
+    float u2, const float* __restrict__ light, const float* __restrict__ spec,
+    const float* __restrict__ ef, size_t N, int i, const RoundArgs& a,
+    NeeSample<C>& r) {
+  MedLane<C> none;
+  nee_sample_m<C, false>(L, S, none, si, u_pick, u1, u2, light, spec, ef, N, i,
+                         a, r);
 }
 
 // the BSDF sample of the hero lane and the HWSS throughput and pdf ratios
@@ -447,6 +592,7 @@ struct Bounce {
   float f_pdf;
   bool sample_ok;  // f_pdf > 1e-12
   float ratios[C], pscale[C];
+  float wo_z;  // the sampled direction's local z (a boundary crossing's side)
 };
 
 template <int C>
@@ -468,6 +614,7 @@ __device__ __forceinline__ void bsdf_sample(const Surface<C>& S, float ub0,
     ratio_hero = pt::minf(S.refl[0], 1.0f);
   }
   if (S.mtype == MAT_PASSTHROUGH) ratio_hero = 0.0f;
+  B.wo_z = wo_s.z;
   float f_l[C], p_l[C];
   bsdf_eval_lanes<C>(S.mtype, S.alpha, S.metal, S.perm, S.eta_i, S.eta_o,
                      S.kappa, S.refl, S.wi_local, wo_s, a.has_ggx, a.has_metal,
@@ -495,19 +642,44 @@ __device__ __forceinline__ void bsdf_sample(const Surface<C>& S, float ub0,
   for (int ci = 1; ci < C; ++ci) B.pscale[ci] = p_l[ci] * inv_p0;
 }
 
+// the continuation of a scatter: along the fed phase-sampled direction from
+// the scatter point; phase value = pdf, so the hero ratio is 1 and the
+// companions' throughput and pdf ratios are the fed phase ratios
+template <int C>
+__device__ __forceinline__ void scatter_bounce(const float* __restrict__ mf,
+                                               size_t N, int i,
+                                               const MedLane<C>& M,
+                                               Bounce<C>& B) {
+  auto F = [&](int r) { return mf[r * N + i]; };
+  B.d_new = V3{F(Mf<C>::WO), F(Mf<C>::WO + 1), F(Mf<C>::WO + 2)};
+  B.o_new = M.scat_p;
+  B.f_pdf = F(Mf<C>::PHPDF);
+  B.sample_ok = true;
+  B.wo_z = 0.0f;
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) {
+    B.ratios[ci] = F(Mf<C>::PHS + ci);
+    B.pscale[ci] = ci == 0 ? 1.0f : B.ratios[ci];
+  }
+}
+
 // ----------------------------------------------------------- the finalize
 
-// Russian roulette and continuation of a lane at a surface -> whether the
+// Russian roulette and continuation of a lane at a surface (MEDIUM: or at a
+// scatter, which always has a sample, with hero ratio 1) -> whether the
 // path continues, and its next throughput
-template <int C>
+template <int C, bool MEDIUM = false>
 __device__ __forceinline__ bool continue_path(const Lane<C>& L,
                                               const Bounce<C>& B, float u_rr,
                                               const RoundArgs& a,
-                                              float* beta_next) {
+                                              float* beta_next,
+                                              bool scattered = false) {
   float ratio_best = B.ratios[0];
 #pragma unroll
   for (int ci = 1; ci < C; ++ci) ratio_best = max_nan(ratio_best, B.ratios[ci]);
-  const bool sample_ok = B.sample_ok && ratio_best > 0.0f;
+  if (MEDIUM && scattered) ratio_best = 1.0f;
+  const bool sample_ok =
+      (MEDIUM && scattered) || (B.sample_ok && ratio_best > 0.0f);
   float p_cont = 1.0f;
   if (a.rr_enabled && L.bounce_ct >= a.min_bounces)
     p_cont = pt::clampf(ratio_best, 0.05f, 1.0f);
@@ -527,13 +699,15 @@ __device__ __forceinline__ bool continue_path(const Lane<C>& L,
 
 // death -> XYZ accumulate, the respawn at the lane's owning pixel (uniform
 // rows u_row0 + 1 .. + 5) and the write-out of the state rows and the
-// counter rows of a live lane
-template <int C>
+// counter rows of a live lane. MEDIUM: the packed medium stack rows become
+// mstk_new on a continuation and 0 (vacuum) on a respawn
+template <int C, bool MEDIUM = false>
 __device__ __forceinline__ void finalize_write(
     const float* __restrict__ state, const float* __restrict__ u,
     float* __restrict__ out, size_t N, int i, const Lane<C>& L,
     const float* rad, bool cp, const float* beta_next, const Bounce<C>& B,
-    int u_row0, const RoundArgs& a, float shadow_ct, float env_ct) {
+    int u_row0, const RoundArgs& a, float shadow_ct, float env_ct,
+    const float* mstk_new = nullptr) {
   auto S = [&](int r) { return state[r * N + i]; };
   auto O = [&](int r, float v) { out[r * N + i] = v; };
   auto U = [&](int r) { return u[r * N + i]; };
@@ -628,7 +802,11 @@ __device__ __forceinline__ void finalize_write(
   O(S_BOUNCE, cp ? L.bounce_ct + 1.0f : (hw ? 0.0f : L.bounce_ct));
   O(S_PREV_PDF, cp ? B.f_pdf : (hw ? 0.0f : L.prev_pdf));
   O(S_PIX, S(S_PIX));
-  for (int r = S_PDFR + C_LANES; r < NS; ++r) O(r, S(r));
+  for (int r = S_PDFR + C_LANES; r < (MEDIUM ? S_MSTK0 : NS); ++r) O(r, S(r));
+  if (MEDIUM) {
+    for (int k = 0; k < 2; ++k)
+      O(S_MSTK0 + k, cp ? mstk_new[k] : (hw ? 0.0f : S(S_MSTK0 + k)));
+  }
   O(O4_BOUNCE_CT, cp ? 1.0f : 0.0f);
   O(O4_CAMERA_CT, hw ? 1.0f : 0.0f);
   O(O4_SHADOW_CT, shadow_ct);

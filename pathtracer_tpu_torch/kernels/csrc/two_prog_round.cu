@@ -1,17 +1,22 @@
 // The two-program bounce round, K12 (closest-hit sweep + shading) and K34
-// (NEE shadow sweeps + finalize), and the texture-feed round's K1 (the
-// closest-hit rows sweep) and K2 (shading from K1's rows).
+// (NEE shadow sweeps + finalize), the texture-feed round's K1 (the
+// closest-hit rows sweep) and K2 (shading from K1's rows), and the split
+// round's K3 (the any-hit rows sweep of one NEE sample's shadow rays) and
+// K4 (the finalize, fed K3's blocked masks).
 //
 // Replaces pathtracer_tpu/kernels/megakernel.py:_k12_call (the Pallas call
 // of _shade_sweep_kernel -> _shade_body), _k34_call (the Pallas call of
 // _finalize_sweep_kernel -> _finalize_body -> _finalize_core) and _k2_call
 // (the Pallas call of _shade_kernel -> _shade_body), and
 // pathtracer_tpu/kernels/dense.py:sweep_closest_rows (the Pallas call of
-// _closest_rows_kernel): the rounds of every megakernel scene outside the
-// fused gate, up to 8192 prims and with constant, Sun and HDR
-// environments. K12 writes the K2 rows that K34 reads ([k2_rows(ls), n]:
-// radiance after the emission adds, the BSDF sample and its ratios, and per
-// light sample the shadow ray, its worth and its contribution); K34 writes
+// _closest_rows_kernel), sweep_any_rows (the Pallas call of
+// _any_rows_kernel) and megakernel.py:_k4_call (the Pallas call of
+// _finalize_kernel -> _finalize_body -> _finalize_core): the rounds of every
+// megakernel scene outside the fused gate, up to 8192 prims, with constant,
+// Sun and HDR environments and with medium-aware transport. K12 writes the
+// K2 rows that K34 reads ([k2_rows(ls), n]: radiance after the emission
+// adds, the BSDF sample and its ratios, and per light sample the shadow ray,
+// its worth and its contribution); K34 writes
 // the new state and counter rows ([40, n]). Scenes with uv-textured
 // lambertians split K12 in two, because the texture feed between them
 // (torch, kernels/megakernel.py:tex_feed) needs the hit: K1 writes [8, n]
@@ -19,10 +24,19 @@
 // textured lambertian's reflectance from the feed's rows. The per-lane
 // device code is round_common.cuh, shared with the fused round.
 //
-// One thread runs one lane; the medium branch (medium-aware transport) is
-// not ported yet. The table walks are tiles.cuh's. What bounds it on the
-// H100: the sweeps. A live lane tests
-// every prim of the table for its closest hit and for each shadow ray
+// K3 reads a sample's shadow ray and tmax in place from the K2 rows and
+// writes one row, 1 where the ray is blocked; it walks the table with the
+// any-hit walk K34 runs inline, so the two agree lane for lane, and like K34
+// it sweeps only the lanes whose sample is worth a ray (the Pallas kernel
+// sweeps all and writes an 8-row block, 7 rows of it zero). K4 is K34's
+// finalize (finalize_lane, shared) with the masks read instead of swept. It
+// is bound by its bytes: the state in, the K2 rows, the out rows.
+//
+// One thread runs one lane. The medium branch is the template parameter
+// MEDIUM of K12, K2, K34 and K4 (round_common.cuh): the surface
+// instantiations compile without it. The table walks are tiles.cuh's. What
+// bounds K12, K34, K1 and K3 on the H100: the sweeps. A live lane tests every
+// prim of the table for its closest hit and for each shadow ray
 // (8192 prims x ~60 flops), against ~1 KB of memory traffic per lane and
 // round, so the kernels are compute-bound. The table is up to 8192 x 48 B
 // = 384 KB, more than a block's shared memory, so it is staged in tiles of
@@ -83,13 +97,18 @@ __global__ void __launch_bounds__(BLOCK) sweep_closest_rows_kernel(
 }
 
 // the K2 rows of one lane from its closest hit (pid -1: none): shading, the
-// NEE samples and the BSDF sample; all 0 for a dead lane
-template <int C>
+// NEE samples and the BSDF sample; all 0 for a dead lane. MEDIUM: from the
+// medium-feed rows mf, a lane whose free flight ends before the hit
+// scatters there (NEE and continuation from the scatter point), and the
+// medium rows (scattered, lane weights, the stack after a crossing) are
+// written for every live lane
+template <int C, bool MEDIUM>
 __device__ __forceinline__ void shade_lane(
     bool live, float t_hit, int pid, const float* __restrict__ u,
     const float* __restrict__ state, const float* __restrict__ ef,
-    const float* __restrict__ tf, float* __restrict__ k2, size_t N, int i,
-    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
+    const float* __restrict__ tf, const float* __restrict__ mf,
+    float* __restrict__ k2, size_t N, int i, const float* __restrict__ prim,
+    int p_pad, const float* __restrict__ mat,
     const float* __restrict__ light, const float* __restrict__ spec,
     const RoundArgs& a) {
   const int ls = a.light_samples;
@@ -104,18 +123,27 @@ __device__ __forceinline__ void shade_lane(
   load_lane<C>(state, N, i, a, L);
   const bool hit = pid >= 0;
   const float kind = hit ? __ldg(prim + R_KIND * p_pad + pid) : 0.0f;
-  const bool at_surface = hit && kind != 2.0f;
-  if (!hit) escape_add<C>(L, spec, ef, N, i, a);
+  MedLane<C> M;
+  M.scattered = false;
+  if (MEDIUM) med_flight<C>(L, mf, N, i, hit, t_hit, M);
+  const bool scattered = MEDIUM && M.scattered;
+  const bool at_surface = hit && kind != 2.0f && !scattered;
+  const bool escaped = !hit && !scattered;
+  if (escaped) escape_add<C>(L, spec, ef, N, i, a);
+  float stk[4];
+  if (MEDIUM)
+    unpack_stack(state[S_MSTK0 * N + i], state[S_MSTK1 * N + i], stk);
 
   float shadow_ct = 0.0f;
-  if (at_surface) {
+  if (at_surface || scattered) {
     Surface<C> S;
-    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, tf, N, i, a,
-                  S);
+    if (at_surface)
+      surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, tf, N, i, a,
+                    S);
     for (int si = 0; si < ls; ++si) {
       NeeSample<C> r;
-      nee_sample<C>(L, S, si, U(3 * si), U(3 * si + 1), U(3 * si + 2), light,
-                    spec, ef, N, i, a, r);
+      nee_sample_m<C, MEDIUM>(L, S, M, si, U(3 * si), U(3 * si + 1),
+                              U(3 * si + 2), light, spec, ef, N, i, a, r);
       const int b = O_NEE + NEE_ROWS * si;
       K(b + 0, r.so.x);
       K(b + 1, r.so.y);
@@ -131,7 +159,14 @@ __device__ __forceinline__ void shade_lane(
       if (r.worth) shadow_ct += 1.0f;
     }
     Bounce<C> B;
-    bsdf_sample<C>(S, U(3 * ls), U(3 * ls + 1), U(3 * ls + 2), a, B);
+    if (at_surface) {
+      bsdf_sample<C>(S, U(3 * ls), U(3 * ls + 1), U(3 * ls + 2), a, B);
+      if (MEDIUM && B.wo_z * S.wi_local.z < 0.0f)
+        stack_cross(stk, B.wo_z < 0.0f, __ldg(mat + M_INNER * 128 + S.mid),
+                    __ldg(mat + M_OUTER * 128 + S.mid));
+    } else {
+      scatter_bounce<C>(mf, N, i, M, B);
+    }
     K(O_FPDF, B.f_pdf);
     K(O_SAMPLE_OK, B.sample_ok ? 1.0f : 0.0f);
 #pragma unroll
@@ -146,7 +181,8 @@ __device__ __forceinline__ void shade_lane(
     K(O_DNEW + 1, B.d_new.y);
     K(O_DNEW + 2, B.d_new.z);
   } else {
-    for (int r = O_FPDF; r < O_NEE + NEE_ROWS * ls; ++r) K(r, 0.0f);
+    for (int r = O_FPDF; r < O_SCAT; ++r) K(r, 0.0f);
+    for (int r = O_NEE; r < O_NEE + NEE_ROWS * ls; ++r) K(r, 0.0f);
   }
   for (int ci = C; ci < C_LANES; ++ci) {
     K(O_RATIO + ci, 0.0f);
@@ -156,17 +192,27 @@ __device__ __forceinline__ void shade_lane(
   for (int ci = 0; ci < C; ++ci) K(O_RAD + ci, L.rad[ci]);
   for (int ci = C; ci < C_LANES; ++ci) K(O_RAD + ci, 0.0f);
   K(O_AT_SURF, at_surface ? 1.0f : 0.0f);
-  K(O_ENV_CT, hit ? 0.0f : 1.0f);
+  K(O_ENV_CT, escaped ? 1.0f : 0.0f);
   K(O_SHADOW_CT, shadow_ct);
-  for (int r = O_PSCALE + C_LANES; r < O_NEE; ++r) K(r, 0.0f);  // medium
+  if (MEDIUM) {
+    K(O_SCAT, scattered ? 1.0f : 0.0f);
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci) K(O_MEDW + ci, M.medw[ci]);
+    for (int ci = C; ci < C_LANES; ++ci) K(O_MEDW + ci, 1.0f);
+    K(O_MSTK, stk[0] + 256.0f * stk[1]);
+    K(O_MSTK + 1, stk[2] + 256.0f * stk[3]);
+  } else {
+    for (int r = O_SCAT; r < O_NEE; ++r) K(r, 0.0f);
+  }
   for (int r = O_NEE + NEE_ROWS * ls; r < nk2; ++r) K(r, 0.0f);
 }
 
 // K12: the closest hit, then the shading
-template <int C>
+template <int C, bool MEDIUM>
 __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
-    const float* __restrict__ ef, float* __restrict__ k2, int n,
+    const float* __restrict__ ef, const float* __restrict__ mf,
+    float* __restrict__ k2, int n,
     const float* __restrict__ dense, int p_dense,
     const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
     const float* __restrict__ light, const float* __restrict__ spec,
@@ -181,17 +227,18 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
   int pid = -1;
   closest_tiles(dense, p_dense, prims, live, o, d, &t_hit, &pid);
   if (i >= n) return;
-  shade_lane<C>(live, t_hit, pid, u, state, ef, nullptr, k2, N, i, prim,
-                p_pad, mat, light, spec, a);
+  shade_lane<C, MEDIUM>(live, t_hit, pid, u, state, ef, nullptr, mf, k2, N, i,
+                        prim, p_pad, mat, light, spec, a);
 }
 
 // K2: the shading from K1's rows tp [8, n] (t, prim id | -1), with the
 // texture-feed rows tf [tf_rows(C), n] (null: every reflectance baked)
-template <int C>
+template <int C, bool MEDIUM>
 __global__ void __launch_bounds__(BLOCK) shade_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ tp, const float* __restrict__ ef,
-    const float* __restrict__ tf, float* __restrict__ k2, int n,
+    const float* __restrict__ tf, const float* __restrict__ mf,
+    float* __restrict__ k2, int n,
     const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
     const float* __restrict__ light, const float* __restrict__ spec,
     const RoundArgs a) {
@@ -199,11 +246,50 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
   if (i >= n) return;
   const size_t N = (size_t)n;
   const bool live = state[S_ALIVE * N + i] > 0.5f;
-  shade_lane<C>(live, tp[i], live ? (int)tp[N + i] : -1, u, state, ef, tf,
-                k2, N, i, prim, p_pad, mat, light, spec, a);
+  shade_lane<C, MEDIUM>(live, tp[i], live ? (int)tp[N + i] : -1, u, state, ef,
+                        tf, mf, k2, N, i, prim, p_pad, mat, light, spec, a);
 }
 
-template <int C>
+// the finalize of one live lane from its K2 rows and its radiance after the
+// NEE samples: RR, death -> XYZ, respawn, write-out (uniform rows 0 .. 5).
+// MEDIUM: the lane weights go on the throughput, a scatter continues like a
+// surface sample, and the stack rows follow. Shared by K34 and K4.
+template <int C, bool MEDIUM>
+__device__ __forceinline__ void finalize_lane(
+    const float* __restrict__ u, const float* __restrict__ state,
+    const float* __restrict__ k2, float* __restrict__ out, size_t N, int i,
+    const RoundArgs& a, const float* rad) {
+  auto K = [&](int r) { return k2[r * N + i]; };
+  Lane<C> L;
+  load_lane<C>(state, N, i, a, L);
+  bool scattered = false;
+  float mstk[2] = {0.0f, 0.0f};
+  if (MEDIUM) {
+    scattered = K(O_SCAT) > 0.5f;
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci) L.beta[ci] = L.beta[ci] * K(O_MEDW + ci);
+    mstk[0] = K(O_MSTK);
+    mstk[1] = K(O_MSTK + 1);
+  }
+  Bounce<C> B;
+  B.f_pdf = K(O_FPDF);
+  B.sample_ok = K(O_SAMPLE_OK) > 0.5f;
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) {
+    B.ratios[ci] = K(O_RATIO + ci);
+    B.pscale[ci] = K(O_PSCALE + ci);
+  }
+  B.o_new = V3{K(O_ONEW), K(O_ONEW + 1), K(O_ONEW + 2)};
+  B.d_new = V3{K(O_DNEW), K(O_DNEW + 1), K(O_DNEW + 2)};
+  float beta_next[C];
+  bool cp = false;
+  if (K(O_AT_SURF) > 0.5f || scattered)
+    cp = continue_path<C, MEDIUM>(L, B, u[i], a, beta_next, scattered);
+  finalize_write<C, MEDIUM>(state, u, out, N, i, L, rad, cp, beta_next, B, 0, a,
+                            0.0f, 0.0f, mstk);
+}
+
+template <int C, bool MEDIUM>
 __global__ void __launch_bounds__(BLOCK) finalize_sweep_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ k2, float* __restrict__ out, int n,
@@ -241,62 +327,157 @@ __global__ void __launch_bounds__(BLOCK) finalize_sweep_kernel(
     pass_through(state, out, N, i);
     return;
   }
+  finalize_lane<C, MEDIUM>(u, state, k2, out, N, i, a, rad);
+}
 
-  // ---- RR, death -> XYZ, respawn, write-out (uniform rows 0 .. 5)
-  Lane<C> L;
-  load_lane<C>(state, N, i, a, L);
-  Bounce<C> B;
-  B.f_pdf = K(O_FPDF);
-  B.sample_ok = K(O_SAMPLE_OK) > 0.5f;
-#pragma unroll
-  for (int ci = 0; ci < C; ++ci) {
-    B.ratios[ci] = K(O_RATIO + ci);
-    B.pscale[ci] = K(O_PSCALE + ci);
+// K3: whether anything blocks the ray read in place from rows row0 ..
+// row0 + 5 of src within (T_MIN, src[tmax_row]) -> out [1, n], 1 = blocked.
+// Only lanes whose row live_row is > 0.5 are swept (live_row < 0: all);
+// the others read 0
+__global__ void __launch_bounds__(BLOCK) sweep_any_rows_kernel(
+    const float* __restrict__ src, int row0, int tmax_row, int live_row,
+    const float* __restrict__ dense, int p_dense, float* __restrict__ out,
+    int n) {
+  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const size_t N = (size_t)n;
+  const bool want =
+      i < n && (live_row < 0 || src[live_row * N + i] > 0.5f);
+  V3 so{0.f, 0.f, 0.f}, sd{0.f, 0.f, 0.f};
+  float tmax = 0.0f;
+  if (want) {
+    load_ray(src, N, i, row0, &so, &sd);
+    tmax = src[tmax_row * N + i];
   }
-  B.o_new = V3{K(O_ONEW), K(O_ONEW + 1), K(O_ONEW + 2)};
-  B.d_new = V3{K(O_DNEW), K(O_DNEW + 1), K(O_DNEW + 2)};
-  float beta_next[C];
-  bool cp = false;
-  if (K(O_AT_SURF) > 0.5f)
-    cp = continue_path<C>(L, B, u[i], a, beta_next);
-  finalize_write<C>(state, u, out, N, i, L, rad, cp, beta_next, B, 0, a,
-                    0.0f, 0.0f);
+  const bool blocked =
+      tiles::any_hit_tiles(dense, p_dense, prims, want, so, sd, tmax);
+  if (i < n) out[i] = blocked ? 1.0f : 0.0f;
 }
 
-template <int C>
-int launch_shade(const float* u, const float* state, const float* ef,
-                 float* k2, int n, const float* dense, int p_dense,
-                 const float* prim, int p_pad, const float* mat,
-                 const float* light, const float* spec, const RoundArgs& a,
-                 cudaStream_t stream) {
-  int grid = (n + BLOCK - 1) / BLOCK;
-  shade_sweep_kernel<C><<<grid, BLOCK, 0, stream>>>(
-      u, state, ef, k2, n, dense, p_dense, prim, p_pad, mat, light, spec, a);
-  return (int)cudaGetLastError();
+// K4: the finalize fed the blocked masks blk [light_samples, n] (row si:
+// NEE sample si, read only where the sample was worth a ray)
+template <int C, bool MEDIUM>
+__global__ void __launch_bounds__(BLOCK) finalize_kernel(
+    const float* __restrict__ u, const float* __restrict__ state,
+    const float* __restrict__ k2, const float* __restrict__ blk,
+    float* __restrict__ out, int n, const RoundArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  if (!(state[S_ALIVE * N + i] > 0.5f)) {
+    pass_through(state, out, N, i);
+    return;
+  }
+  auto K = [&](int r) { return k2[r * N + i]; };
+  float rad[C];
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) rad[ci] = K(O_RAD + ci);
+  for (int si = 0; si < a.light_samples; ++si) {
+    const int b = O_NEE + NEE_ROWS * si;
+    if (K(b + 7) > 0.5f && !(blk[si * N + i] > 0.5f)) {
+#pragma unroll
+      for (int ci = 0; ci < C; ++ci) rad[ci] = rad[ci] + K(b + 8 + ci);
+    }
+  }
+  finalize_lane<C, MEDIUM>(u, state, k2, out, N, i, a, rad);
 }
 
-template <int C>
-int launch_k2(const float* u, const float* state, const float* tp,
-              const float* ef, const float* tf, float* k2, int n,
-              const float* prim, int p_pad, const float* mat,
-              const float* light, const float* spec, const RoundArgs& a,
-              cudaStream_t stream) {
-  int grid = (n + BLOCK - 1) / BLOCK;
-  shade_kernel<C><<<grid, BLOCK, 0, stream>>>(u, state, tp, ef, tf, k2, n,
-                                              prim, p_pad, mat, light, spec,
-                                              a);
-  return (int)cudaGetLastError();
+// calls `fn.template operator()<C, MEDIUM>()` for the arguments' C and
+// medium flag; cudaErrorInvalidValue for any other C
+template <typename F>
+int dispatch(const RoundArgs& a, F fn) {
+  const bool m = a.medium != 0;
+  if (a.c_lanes == 1)
+    return m ? fn.template operator()<1, true>()
+             : fn.template operator()<1, false>();
+  if (a.c_lanes == 4)
+    return m ? fn.template operator()<4, true>()
+             : fn.template operator()<4, false>();
+  return (int)cudaErrorInvalidValue;
 }
 
-template <int C>
-int launch_finalize(const float* u, const float* state, const float* k2,
-                    float* out, int n, const float* dense, int p_dense,
-                    const RoundArgs& a, cudaStream_t stream) {
-  int grid = (n + BLOCK - 1) / BLOCK;
-  finalize_sweep_kernel<C><<<grid, BLOCK, 0, stream>>>(u, state, k2, out, n,
-                                                       dense, p_dense, a);
-  return (int)cudaGetLastError();
-}
+struct LaunchShadeSweep {
+  const float *u, *state, *ef, *mf;
+  float* k2;
+  int n;
+  const float* dense;
+  int p_dense;
+  const float* prim;
+  int p_pad;
+  const float *mat, *light, *spec;
+  const RoundArgs& a;
+  cudaStream_t stream;
+  template <int C, bool MEDIUM>
+  int operator()() const {
+    shade_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
+                                    stream>>>(
+        u, state, ef, mf, k2, n, dense, p_dense, prim, p_pad, mat, light,
+        spec, a);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct LaunchShade {
+  const float *u, *state, *tp, *ef, *tf, *mf;
+  float* k2;
+  int n;
+  const float* prim;
+  int p_pad;
+  const float *mat, *light, *spec;
+  const RoundArgs& a;
+  cudaStream_t stream;
+  template <int C, bool MEDIUM>
+  int operator()() const {
+    shade_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+        u, state, tp, ef, tf, mf, k2, n, prim, p_pad, mat, light, spec, a);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct LaunchFinalizeSweep {
+  const float *u, *state, *k2;
+  float* out;
+  int n;
+  const float* dense;
+  int p_dense;
+  const RoundArgs& a;
+  cudaStream_t stream;
+  template <int C, bool MEDIUM>
+  int operator()() const {
+    finalize_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
+                                       stream>>>(u, state, k2, out, n, dense,
+                                                 p_dense, a);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct LaunchFinalize {
+  const float *u, *state, *k2, *blk;
+  float* out;
+  int n;
+  const RoundArgs& a;
+  cudaStream_t stream;
+  template <int C, bool MEDIUM>
+  int operator()() const {
+    finalize_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+        u, state, k2, blk, out, n, a);
+    return (int)cudaGetLastError();
+  }
+};
+
+// the kernel function of (which: 0 K12, 1 K34, 2 K2, 4 K4) at <C, MEDIUM>
+struct KernelOf {
+  int which;
+  const void** fn;
+  template <int C, bool MEDIUM>
+  int operator()() const {
+    *fn = which == 0   ? (const void*)shade_sweep_kernel<C, MEDIUM>
+          : which == 1 ? (const void*)finalize_sweep_kernel<C, MEDIUM>
+          : which == 2 ? (const void*)shade_kernel<C, MEDIUM>
+                       : (const void*)finalize_kernel<C, MEDIUM>;
+    return 0;
+  }
+};
 
 int attrs(const void* fn, int* regs, int* local_bytes) {
   cudaFuncAttributes fa;
@@ -311,25 +492,24 @@ int attrs(const void* fn, int* regs, int* local_bytes) {
 
 extern "C" {
 
-// K12: u [n_u_rows(ls), n], state [32, n], ef [ef_rows(ls, C), n] (null for
-// a constant environment) -> k2 [k2_rows(ls), n]; tables as baked by
+// K12: u [n_u_rows(ls, medium), n], state [32, n], ef [ef_rows(ls, C), n]
+// (null for a constant environment), mf [mf_rows(C), n] (null unless
+// medium-aware) -> k2 [k2_rows(ls), n]; tables as baked by
 // kernels/megakernel.py:build_mega_scene. Returns a cudaError_t.
 int shade_sweep_launch(const float* u, const float* state, const float* ef,
-                       float* k2, int n, const float* dense, int p_dense,
-                       const float* prim, int p_pad, const float* mat,
-                       const float* light, const float* spec,
-                       const RoundArgs* args, cudaStream_t stream) {
+                       const float* mf, float* k2, int n, const float* dense,
+                       int p_dense, const float* prim, int p_pad,
+                       const float* mat, const float* light,
+                       const float* spec, const RoundArgs* args,
+                       cudaStream_t stream) {
   if (n <= 0) return 0;
   if (p_dense > MAX_PRIMS || p_pad < p_dense ||
-      (args->env_kind != ENV_CONSTANT) != (ef != nullptr))
+      (args->env_kind != ENV_CONSTANT) != (ef != nullptr) ||
+      (args->medium != 0) != (mf != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (args->c_lanes == 1)
-    return launch_shade<1>(u, state, ef, k2, n, dense, p_dense, prim, p_pad,
-                           mat, light, spec, *args, stream);
-  if (args->c_lanes == 4)
-    return launch_shade<4>(u, state, ef, k2, n, dense, p_dense, prim, p_pad,
-                           mat, light, spec, *args, stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(*args, LaunchShadeSweep{u, state, ef, mf, k2, n, dense,
+                                          p_dense, prim, p_pad, mat, light,
+                                          spec, *args, stream});
 }
 
 // K1: src [>= row0 + 6, n] (rays in rows row0 .. row0 + 5, alive flag in
@@ -345,23 +525,33 @@ int sweep_closest_rows_launch(const float* src, int row0, int alive_row,
   return (int)cudaGetLastError();
 }
 
-// K2: u [n_u_rows(ls), n], state [32, n], tp [8, n], ef as K12's, tf
-// [tf_rows(C), n] or null -> k2 [k2_rows(ls), n]
+// K3: src (rays in rows row0 .. row0 + 5, tmax in row tmax_row, the lanes
+// to sweep flagged in row live_row, or live_row < 0 for all), dense
+// [p_dense, 128] -> out [1, n]
+int sweep_any_rows_launch(const float* src, int row0, int tmax_row,
+                          int live_row, const float* dense, int p_dense,
+                          float* out, int n, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
+  int grid = (n + BLOCK - 1) / BLOCK;
+  sweep_any_rows_kernel<<<grid, BLOCK, 0, stream>>>(
+      src, row0, tmax_row, live_row, dense, p_dense, out, n);
+  return (int)cudaGetLastError();
+}
+
+// K2: u [n_u_rows(ls, medium), n], state [32, n], tp [8, n], ef and mf as
+// K12's, tf [tf_rows(C), n] or null -> k2 [k2_rows(ls), n]
 int shade_launch(const float* u, const float* state, const float* tp,
-                 const float* ef, const float* tf, float* k2, int n,
-                 const float* prim, int p_pad, const float* mat,
+                 const float* ef, const float* tf, const float* mf, float* k2,
+                 int n, const float* prim, int p_pad, const float* mat,
                  const float* light, const float* spec, const RoundArgs* args,
                  cudaStream_t stream) {
   if (n <= 0) return 0;
-  if ((args->env_kind != ENV_CONSTANT) != (ef != nullptr))
+  if ((args->env_kind != ENV_CONSTANT) != (ef != nullptr) ||
+      (args->medium != 0) != (mf != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (args->c_lanes == 1)
-    return launch_k2<1>(u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light,
-                        spec, *args, stream);
-  if (args->c_lanes == 4)
-    return launch_k2<4>(u, state, tp, ef, tf, k2, n, prim, p_pad, mat, light,
-                        spec, *args, stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(*args, LaunchShade{u, state, tp, ef, tf, mf, k2, n, prim,
+                                     p_pad, mat, light, spec, *args, stream});
 }
 
 // K34: u [8, n], state [32, n], k2 [k2_rows(ls), n] -> out [40, n]
@@ -370,27 +560,39 @@ int finalize_sweep_launch(const float* u, const float* state, const float* k2,
                           const RoundArgs* args, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
-  if (args->c_lanes == 1)
-    return launch_finalize<1>(u, state, k2, out, n, dense, p_dense, *args,
-                              stream);
-  if (args->c_lanes == 4)
-    return launch_finalize<4>(u, state, k2, out, n, dense, p_dense, *args,
-                              stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(*args, LaunchFinalizeSweep{u, state, k2, out, n, dense,
+                                             p_dense, *args, stream});
+}
+
+// K4: u [8, n], state [32, n], k2 [k2_rows(ls), n], blk [ls, n] (null only
+// for ls = 0) -> out [40, n]
+int finalize_launch(const float* u, const float* state, const float* k2,
+                    const float* blk, float* out, int n,
+                    const RoundArgs* args, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (args->light_samples > 0 && blk == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(*args,
+                  LaunchFinalize{u, state, k2, blk, out, n, *args, stream});
 }
 
 // registers per thread and local (spill) bytes of K12 (which 0), K34 (1),
-// K2 (2) at C lanes, or K1 (3)
+// K2 (2) or K4 (4) at C lanes (+ 8: the medium instantiation), or of K1 (3)
+// or K3 (5)
 int two_prog_attrs(int which, int c, int* regs, int* local_bytes) {
-  const bool c1 = c == 1;
-  const void* fn =
-      which == 0 ? (c1 ? (const void*)shade_sweep_kernel<1>
-                       : (const void*)shade_sweep_kernel<4>)
-      : which == 1 ? (c1 ? (const void*)finalize_sweep_kernel<1>
-                         : (const void*)finalize_sweep_kernel<4>)
-      : which == 2 ? (c1 ? (const void*)shade_kernel<1>
-                         : (const void*)shade_kernel<4>)
-                   : (const void*)sweep_closest_rows_kernel;
+  const int k = which & 7;
+  const void* fn = nullptr;
+  if (k == 3) {
+    fn = (const void*)sweep_closest_rows_kernel;
+  } else if (k == 5) {
+    fn = (const void*)sweep_any_rows_kernel;
+  } else {
+    RoundArgs a{};
+    a.c_lanes = c;
+    a.medium = (which & 8) ? 1 : 0;
+    int rc = dispatch(a, KernelOf{k, &fn});
+    if (rc != 0) return rc;
+  }
   return attrs(fn, regs, local_bytes);
 }
 

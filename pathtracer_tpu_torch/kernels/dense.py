@@ -10,9 +10,12 @@ on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
 `sweep_any_plain`) on CPU tensors. `sweep_closest_rows` (K1 of the
 texture-feed round) reads the rays in place from rows of the megakernel
 state and writes `[8, N]` rows (t, prim id); its kernel is in
-`csrc/two_prog_round.cu`, its twin `sweep_closest_rows_plain`. The closest
-hit is the minimum t, ties to the minimum prim id, exactly as the JAX sweep
-reduces its chunks.
+`csrc/two_prog_round.cu`, its twin `sweep_closest_rows_plain`.
+`sweep_any_rows` (K3 of the split round) reads each lane's shadow ray and
+its tmax in place from the K2 rows and writes the blocked mask; its kernel
+is in the same file, its twin `sweep_any_rows_plain`. The closest hit is the
+minimum t, ties to the minimum prim id, exactly as the JAX sweep reduces its
+chunks.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ LAUNCHES = 0
 # launches of the rows sweep's kernel, and calls of its plain twin
 ROWS_LAUNCHES = 0
 ROWS_PLAIN_CALLS = 0
+# the same for the any-hit rows sweep (K3)
+ANY_ROWS_LAUNCHES = 0
+ANY_ROWS_PLAIN_CALLS = 0
 
 
 def pack_prims_np(ptype, valid, pa, pb, pc):
@@ -242,6 +248,28 @@ def sweep_closest_rows_plain(src, tab, row0: int, alive_row: int):
     return out
 
 
+def sweep_any_rows_plain(src, tab, row0: int, tmax_row: int,
+                         live_row: int | None = None):
+    """Whether anything blocks the rays in rows row0 .. row0 + 5 of src
+    (origin, direction) within (INTERSECTION_TIME_OFFSET, src[tmax_row]) ->
+    [1, N] f32, 1 = blocked. With `live_row`, only the lanes whose row
+    live_row is > 0.5 are swept and the others read 0, as the kernel
+    writes them."""
+    global ANY_ROWS_PLAIN_CALLS
+    ANY_ROWS_PLAIN_CALLS += 1
+    n = src.shape[1]
+    out = torch.zeros((1, n), dtype=torch.float32, device=src.device)
+    live = (src[live_row] > 0.5 if live_row is not None
+            else torch.ones(n, dtype=torch.bool, device=src.device))
+    rays = src[row0:row0 + 6][:, live]
+    out[0, live] = sweep_any_cols(
+        tab, *[rays[k][:, None] for k in range(6)],
+        torch.full((rays.shape[1], 1), INTERSECTION_TIME_OFFSET,
+                   device=src.device),
+        src[tmax_row][live][:, None]).float()
+    return out
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -318,6 +346,45 @@ def sweep_closest_rows(src, tab, row0: int, alive_row: int):
         raise RuntimeError(f"sweep_closest_rows: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
     ROWS_LAUNCHES += 1
+    return out
+
+
+def sweep_any_rows(src, tab, row0: int, tmax_row: int,
+                   live_row: int | None = None):
+    """K3: the any-hit sweep of the rays read in place from rows of src
+    (the K2 rows: one NEE sample's shadow ray at row0 .. row0 + 5, its tmax
+    at tmax_row) -> [1, N] f32, 1 = blocked: the CUDA kernel on a CUDA
+    tensor, the plain twin on a CPU tensor.
+
+    The Pallas kernel writes an [8, N] block whose rows 1-7 are zero, an
+    alignment device of its compiler; the port writes row 0 alone. The
+    Pallas kernel also sweeps every lane, though the finalize reads the
+    mask only where the sample was worth a ray: with `live_row` (the
+    sample's worth flag, row0 + 7) the port skips the other lanes and
+    writes 0 there, as K1 skips dead lanes; None sweeps every lane."""
+    global ANY_ROWS_LAUNCHES
+    _check(src, tab, rows=None)
+    rows = [row0, row0 + 5, tmax_row] + ([] if live_row is None
+                                         else [live_row])
+    if not all(0 <= r < src.shape[0] for r in rows):
+        raise ValueError(f"rows {row0}..{row0 + 5}, {tmax_row} and "
+                         f"{live_row} are not all in src [{src.shape[0]}, N]")
+    if src.device.type == "cpu":
+        return sweep_any_rows_plain(src, tab, row0, tmax_row, live_row)
+    from pathtracer_tpu_torch.kernels import _build
+
+    out = torch.empty((1, src.shape[1]), dtype=torch.float32,
+                      device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    rc = _build.library().sweep_any_rows_launch(
+        ctypes.c_void_p(src.data_ptr()), row0, tmax_row,
+        -1 if live_row is None else live_row,
+        ctypes.c_void_p(tab.data_ptr()), tab.shape[0],
+        ctypes.c_void_p(out.data_ptr()), src.shape[1], ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"sweep_any_rows: CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+    ANY_ROWS_LAUNCHES += 1
     return out
 
 

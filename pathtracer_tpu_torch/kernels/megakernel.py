@@ -19,23 +19,38 @@ counter rows. A round takes one of three routes, as the JAX package's
   each lane's uv and texture value at its λs) -> `shade` (K2: shading from
   the hit rows) -> `finalize_sweep` (K34);
 - the two-program round for every other scene in the gate (up to 8192
-  prims; constant, Sun and HDR environments): `env_feed` (torch, Sun and
-  HDR only) -> `shade_sweep` (K12: closest hit + shading, writing the
+  prims; constant, Sun and HDR environments; medium-aware transport):
+  `env_feed` (torch, Sun and HDR only) and `med_feed` (torch, medium-aware
+  settings only) -> `shade_sweep` (K12: closest hit + shading, writing the
   `[k2_rows(ls), n_pad]` K2 rows `O_*`) -> `finalize_sweep` (K34: NEE shadow
   sweeps + finalize). K2, K12 and K34 are in `csrc/two_prog_round.cu`.
 
+`stepper="split"` runs every scene of the gate through the split round
+instead (`split_round`, the JAX package's five-program pipeline): K1 ->
+the feeds -> K2 -> `dense.sweep_any_rows` (K3, once per NEE sample) ->
+`finalize` (K4: the finalize fed K3's blocked masks). It renders the same
+film as the default routes bit for bit.
+
+Medium-aware transport (`settings.medium_aware`) tracks a stack of up to
+four media per lane in the packed state rows `S_MSTK0/1`. `med_feed` turns
+the stack, the lane's λs and direction and four more uniform rows into the
+free-flight distance, the σ sums, the scatterer's phase parameters and the
+phase-sampled direction; K12/K2 decide scatter against surface, weight the
+throughput by Beer-Lambert, shade a scatter point with the phase function
+and move the stack across boundaries; K34/K4 continue from the scatter.
+
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 torch twin (`fused_round_plain`, `shade_sweep_plain`, `shade_plain`,
-`finalize_sweep_plain`) on CPU tensors. Outputs are second buffers, not
-in-place updates, so a kernel and its twin can run on the same input. Random numbers come from
-outside the kernels: the render loop draws uniform blocks per round from a
-uniform source (`TorchUniforms`, or a test's replay of the JAX draws).
+`finalize_sweep_plain`, `finalize_plain`) on CPU tensors. Outputs are
+second buffers, not in-place updates, so a kernel and its twin can run on
+the same input. Random numbers come from outside the kernels: the render
+loop draws uniform blocks per round from a uniform source
+(`TorchUniforms`, or a test's replay of the JAX draws).
 
 Scope (`mega_available`): projective camera, identity transforms, at most
 8192 prims, 24 materials and 16 lights; multi-texel textures only as a
-lambertian's reflectance or the HDR map. Medium-aware settings are in the
-JAX package's gate but not ported yet: `gate_refusal` names the ROADMAP
-item that ports them.
+lambertian's reflectance or the HDR map; medium-aware settings with at
+most 16 media.
 """
 
 from __future__ import annotations
@@ -48,7 +63,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch.core import cie
+from pathtracer_tpu_torch.core import cie, spectral
 from pathtracer_tpu_torch.geometry.soa import (
     PRIM_RECT,
     PRIM_SPHERE,
@@ -60,6 +75,7 @@ from pathtracer_tpu_torch.kernels.dense import (
     PBF,
     pack_prims_np,
     sweep_any_cols,
+    sweep_any_rows,
     sweep_closest_cols,
     sweep_closest_rows,
 )
@@ -69,6 +85,12 @@ from pathtracer_tpu_torch.materials.tables import (
     MAT_LAMBERTIAN,
     MAT_PASSTHROUGH,
     MAT_SHARP_LIGHT,
+)
+from pathtracer_tpu_torch.mediums.tables import (
+    MED_RAYLEIGH,
+    medium_coefficients,
+    phase_eval,
+    phase_sample,
 )
 from pathtracer_tpu_torch.prelude import (
     INTERSECTION_TIME_OFFSET,
@@ -98,6 +120,9 @@ S_ACC = 18
 S_DONE, S_ALIVE, S_BOUNCE, S_PREV_PDF = 21, 22, 23, 24
 S_PIX = 25  # owning pixel index (f32, exact below 2^24)
 S_PDFR = 26  # C_LANES rows: spectral-MIS pdf-ratio products (lane0 == 1)
+# the tracked-medium stack: 4 medium ids packed two to a row as
+# id_even + 256 * id_odd (ids < 256, so exact in f32); 0 rows = vacuum
+S_MSTK0, S_MSTK1 = 30, 31
 NS = 32
 
 # ---- round output rows: new state + per-lane counter indicators
@@ -119,7 +144,10 @@ O_RATIO = 9        # 4: throughput ratios of the BSDF sample
 O_ONEW = 13        # 3
 O_DNEW = 16        # 3
 O_PSCALE = 19      # 4: per-lane pdf ratio p_c/p_0 at the sampled direction
-O_MEDIUM = 23      # 7 rows of the medium branch (0 until it is ported)
+# the medium branch's rows (0 unless the settings are medium-aware)
+O_SCAT = 23        # the lane scattered in a medium before its surface hit
+O_MEDW = 24        # 4: free-flight lane weights on the throughput
+O_MSTK = 28        # 2: the packed medium stack after a boundary crossing
 O_NEE = 30         # per light sample: so(3) dir(3) tmax worth contrib(4)
 NEE_ROWS = 12
 NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
@@ -144,21 +172,25 @@ _L_PA, _L_PB, _L_PC = 0, 3, 6
 _L_PTYPE, _L_AREA, _L_MAT, _L_MTYPE, _L_SIDE, _L_SHARP = 9, 10, 11, 12, 13, 14
 _NL_ROWS = 16
 
-# launches of the CUDA kernels (SHADE_LAUNCHES: K12, K2_LAUNCHES: K2), and
-# calls of any plain twin (the K1 rows sweep counts in kernels/dense.py)
+# launches of the CUDA kernels (SHADE_LAUNCHES: K12, K2_LAUNCHES: K2,
+# FINALIZE_LAUNCHES: K34, K4_LAUNCHES: K4), and calls of any plain twin (the
+# K1 and K3 rows sweeps count in kernels/dense.py)
 FUSED_LAUNCHES = 0
 SHADE_LAUNCHES = 0
 K2_LAUNCHES = 0
 FINALIZE_LAUNCHES = 0
+K4_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _NOT_IN_GATE = ("the megakernel takes projective cameras, identity "
                 "transforms, at most 8192 prims, 24 materials and 16 lights "
                 "and spectral curves of 512 knots; other scenes need the "
                 "regen integrator without kernels (ROADMAP §1 item 5)")
-_MEDIUM = ("medium-aware transport rides the medium branch of the "
-           "two-program round, the next slice (ROADMAP §2, queue 2: "
-           "mediums/ and the medium feed)")
+_TOO_MANY_MEDIA = ("medium-aware transport takes at most 16 media: the "
+                   "medium feed gathers each medium's curves per lane; "
+                   "larger tables need the regen integrator without kernels "
+                   "(ROADMAP §1 item 5)")
+MAX_MEDIA = 16
 _NOT_FUSED = ("the fused round takes at most 4 chunks of 32 prims under a "
               "constant environment without uv textures; other scenes ride "
               "the two-program or the texture-feed round")
@@ -170,9 +202,10 @@ def nu_rows(light_samples: int) -> int:
     return -(-(3 * light_samples + 9) // 8) * 8
 
 
-def n_u_rows(light_samples: int) -> int:
-    """K12's uniform rows: 3 per NEE sample + 3 (BSDF), padded."""
-    return -(-(3 * light_samples + 3) // 8) * 8
+def n_u_rows(light_samples: int, medium: bool = False) -> int:
+    """K12's uniform rows: 3 per NEE sample + 3 (BSDF) + 4 when
+    medium-aware (free flight, scatterer pick, phase u1 and u2), padded."""
+    return -(-(3 * light_samples + 3 + (4 if medium else 0)) // 8) * 8
 
 
 def k2_rows(light_samples: int) -> int:
@@ -190,15 +223,43 @@ def ef_rows(light_samples: int, c_lanes: int) -> int:
     return -(-((c_lanes + 1) + light_samples * (4 + c_lanes)) // 8) * 8
 
 
+def mf_idx(c_lanes: int) -> dict:
+    """Row offsets of the medium-feed block for C λ lanes."""
+    C = c_lanes
+    i = {"flight": 0,       # free-flight distance at the hero σ_s (vacuum: 3e38)
+         "sigt": 1,         # C: Σ σ_t over the tracked stack, per λ
+         "sigs": 1 + C,     # C: Σ σ_s
+         "ssh": 1 + 2 * C}  # the hero Σ σ_s (the flight's rate)
+    i["wo"] = i["ssh"] + 1      # 3: the phase-sampled continuation direction
+    i["phpdf"] = i["wo"] + 3    # the hero phase pdf at that direction
+    i["phs"] = i["phpdf"] + 1   # C: companion / hero phase ratio (lane 0 = 1)
+    i["g"] = i["phs"] + C       # C: the scatterer's HG g per λ
+    i["isray"] = i["g"] + C     # the scatterer is Rayleigh
+    i["inmed"] = i["isray"] + 1  # any tracked medium is not vacuum
+    i["n"] = i["inmed"] + 1
+    return i
+
+
+def mf_rows(c_lanes: int) -> int:
+    return -(-mf_idx(c_lanes)["n"] // 8) * 8
+
+
+def _unpack_stack_rows(r0, r1):
+    """The 4 medium ids of the two packed state rows (f32 each)."""
+    return [torch.remainder(torch.floor(r0 + 0.5), 256.0),
+            torch.floor(fdiv(r0 + 0.5, 256.0)),
+            torch.remainder(torch.floor(r1 + 0.5), 256.0),
+            torch.floor(fdiv(r1 + 0.5, 256.0))]
+
+
 # ------------------------------------------------------------------ gate
 
 
 def gate_refusal(world, camera, settings):
-    """Why the megakernel does not render this scene, or None if it does:
-    the JAX package's `mega_available`, except that medium-aware settings
-    are refused with the ROADMAP item that ports them."""
-    if settings.medium_aware:
-        return _MEDIUM
+    """Why the megakernel does not render this scene, or None if it does
+    (the JAX package's `mega_available`)."""
+    if settings.medium_aware and int(world.mediums.count) > MAX_MEDIA:
+        return _TOO_MANY_MEDIA
     if not _mega_gate(world, camera):
         return _NOT_IN_GATE
     return None
@@ -249,11 +310,11 @@ def _mega_gate(world, camera) -> bool:
 
 def fused_ok(scene) -> bool:
     """The fused round's gate on a baked scene: the JAX driver's `fused_ok`
-    without its environment levers (a constant environment, no texture feed
-    and at most 4 chunks)."""
+    without its environment levers (a constant environment, no texture or
+    medium feed and at most 4 chunks)."""
     return scene.dense_tab.shape[0] // PBF <= FUSED_MAX_CHUNKS \
         and scene.consts["env_kind"] == ENV_CONSTANT \
-        and not scene.consts["tex_feed"]
+        and not scene.consts["tex_feed"] and not scene.consts["medium"]
 
 
 # ------------------------------------------------------------------ bake
@@ -271,6 +332,7 @@ class MegaScene:
     consts: dict             # host scalars (numbers and tuples)
     env: object = None       # None (constant env) or the Sun/HDR EnvFeed
     tex: object = None       # None or the TexFeed of uv-textured lambertians
+    med: object = None       # None or the MedFeed of medium-aware settings
 
 
 @dataclasses.dataclass
@@ -302,26 +364,40 @@ class TexFeed:
     lut: dict = None
 
 
+@dataclasses.dataclass
+class MedFeed:
+    """What `med_feed` needs under medium-aware settings: the medium table
+    and the curve bank on the device."""
+
+    meds: object
+    bank: object
+
+
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
 
 
-def build_mega_scene(world, camera, device=None) -> MegaScene:
+def build_mega_scene(world, camera, device=None, settings=None) -> MegaScene:
     """Host-side numpy bake of the round's tables, element for element the
     JAX package's `build_mega_scene` (without its chunk-AABB and fetch-table
     rows, which the port does not use), for a scene in the megakernel's
-    gate."""
+    gate. Medium-aware `settings` add the medium feed's tables and set
+    `consts["medium"]`."""
     if not _mega_gate(world, camera):
         raise NotImplementedError(_NOT_IN_GATE)
-    return bake_mega_scene(world, camera, device)
+    medium = bool(settings is not None and settings.medium_aware)
+    if medium and int(world.mediums.count) > MAX_MEDIA:
+        raise NotImplementedError(_TOO_MANY_MEDIA)
+    return bake_mega_scene(world, camera, device, medium=medium)
 
 
-def bake_mega_scene(world, camera, device=None, feeds=True) -> MegaScene:
+def bake_mega_scene(world, camera, device=None, feeds=True,
+                    medium=False) -> MegaScene:
     """The bake without a gate: each caller applies its own (the light
     tracer's takes up to 128 lights and no uv textures). `feeds` False
     leaves out the environment and texture feeds, which only the regen
-    rounds read."""
+    rounds read; `medium` adds the medium feed of medium-aware settings."""
     w = world
     device = device if device is not None else w.prims.pa.device
     prims = w.prims
@@ -473,6 +549,7 @@ def bake_mega_scene(world, camera, device=None, feeds=True) -> MegaScene:
         cam_blades=int(camera.blades),
         cam_sharp=float(camera.blade_sharpness),
         tex_feed=bool(texf.any()),
+        medium=bool(medium),
         radius=float(_np(w.radius)),
     )
     dense_tab = pack_prims_np(h["ptype"], h["valid"], h["pa"], h["pb"],
@@ -509,9 +586,11 @@ def bake_mega_scene(world, camera, device=None, feeds=True) -> MegaScene:
             mat2tex=dev(mat2tex), uvtab=dev(uvtab),
             lut=_bake_tex_lut(w.bank, w.tex, sorted(
                 {int(tex_id[i]) for i in range(m) if texf[i]}), device))
+    med = (MedFeed(meds=_to(w.mediums, device), bank=_to(w.bank, device))
+           if medium else None)
     return MegaScene(prim_tab=dev(tab), dense_tab=dev(dense_tab),
                      mat_tab=dev(mt), light_tab=dev(lt), spec_tab=dev(st),
-                     consts=consts, env=env, tex=tex_feed_)
+                     consts=consts, env=env, tex=tex_feed_, med=med)
 
 
 def _to(obj, device):
@@ -733,6 +812,72 @@ def tex_feed(feed: TexFeed, state, tp, c_lanes: int):
     return tf
 
 
+def med_feed(feed: MedFeed, state, u, light_samples: int, c_lanes: int):
+    """The per-lane medium rows K12 and K2 read under medium-aware settings
+    -> mf [mf_rows(C), n_pad] (rows `mf_idx`; the JAX package's `_med_feed`,
+    plain torch on the lanes' device). Everything that does not need the
+    hit distance: from the lane's packed medium stack, its λs and its
+    direction, the σ_t and σ_s sums over the stack, the free flight at the
+    hero λ (uniform row 3·ls + 3), the scatterer picked by σ_s share
+    (+ 4), the direction sampled from its phase function (+ 5, + 6) with the
+    hero pdf and the companion lanes' phase ratios, and its g per λ for the
+    kernels' closed-form phase toward a NEE direction. A lane in vacuum
+    flies 3e38, a finite stand-in for inf that keeps the f32 rows clean."""
+    meds, bank = feed.meds, feed.bank
+    C = c_lanes
+    lam = state[S_LAM:S_LAM + C]  # [C, n]
+    d = state[S_D:S_D + 3]
+    stack_m = torch.stack(_unpack_stack_rows(state[S_MSTK0],
+                                             state[S_MSTK1])).long()  # [4, n]
+    # the four stack slots' coefficients in one pass -> [4, C, n], summed
+    # in slot order as the JAX feed's loop sums them
+    ss, sa, _ = medium_coefficients(meds, bank, stack_m[:, None, :],
+                                    lam[None])
+    sigma_s = ss[0] + ss[1] + ss[2] + ss[3]
+    sigma_a = sa[0] + sa[1] + sa[2] + sa[3]
+    sigma_t = sigma_s + sigma_a
+    ss_hero = sigma_s[0]
+    base = 3 * light_samples + 3
+    u_flight, u_pick, u_ph1, u_ph2 = u[base], u[base + 1], u[base + 2], \
+        u[base + 3]
+    # the per-medium race of exponential flights is one exponential at the
+    # summed rate and a categorical pick by σ_s share
+    flight = torch.where(
+        ss_hero > 1e-12,
+        -torch.log(torch.clamp(1.0 - u_flight, min=1e-12))
+        / torch.clamp(ss_hero, min=1e-12), 3e38)
+    cum = torch.cumsum(ss[:, 0], dim=0)  # [4, n]: the hero λ, by slot
+    pick = u_pick * torch.clamp(ss_hero, min=1e-20)
+    slot = torch.clamp((cum < pick[None, :]).sum(dim=0), max=3)
+    scat_med = torch.gather(stack_m, 0, slot[None, :])[0]
+    in_med = (stack_m != 0).any(dim=0)
+    wo_med, ph_pdf = phase_sample(meds, bank, scat_med, lam[0], d.T, u_ph1,
+                                  u_ph2)
+    wo = wo_med.unbind(-1)
+    cos_sc = d[0] * wo[0] + d[1] * wo[1] + d[2] * wo[2]
+    ph = phase_eval(meds, bank, scat_med[None, :], lam, cos_sc[None, :])
+    ok = ph[0] > 0.0
+    ph_scale = torch.where(ok, ph / torch.where(ok, ph[0], 1.0), 0.0)
+    is_ray = meds.mtype[scat_med] == MED_RAYLEIGH
+    g = torch.where(is_ray, 0.0, spectral.evaluate(
+        bank, meds.g_idx[scat_med][None, :], lam))
+    i = mf_idx(C)
+    mf = torch.zeros((mf_rows(C), state.shape[1]), dtype=torch.float32,
+                     device=state.device)
+    mf[i["flight"]] = flight
+    mf[i["sigt"]:i["sigt"] + C] = sigma_t
+    mf[i["sigs"]:i["sigs"] + C] = sigma_s
+    mf[i["ssh"]] = ss_hero
+    mf[i["wo"]:i["wo"] + 3] = torch.stack(wo)
+    mf[i["phpdf"]] = ph_pdf
+    mf[i["phs"]] = 1.0
+    mf[i["phs"] + 1:i["phs"] + C] = ph_scale[1:]
+    mf[i["g"]:i["g"] + C] = g
+    mf[i["isray"]] = is_ray.float()
+    mf[i["inmed"]] = in_med.float()
+    return mf
+
+
 # ------------------------------------------------------- round arguments
 
 
@@ -771,6 +916,8 @@ class RoundArgs:
     cam_lens_r: float
     cam_blades: int
     cam_sharp: float
+    medium: bool = False  # medium-aware transport
+    radius: float = 1.0   # the scene bound's radius (NEE transmittance)
 
     @staticmethod
     def make(consts: dict, settings, width: int, height: int) -> "RoundArgs":
@@ -794,7 +941,8 @@ class RoundArgs:
             cam_w=c["cam_w"], cam_half_w=c["cam_half_w"],
             cam_half_h=c["cam_half_h"], cam_focal=c["cam_focal"],
             cam_lens_r=c["cam_lens_r"], cam_blades=c["cam_blades"],
-            cam_sharp=c["cam_sharp"])
+            cam_sharp=c["cam_sharp"], medium=bool(c.get("medium", False)),
+            radius=c["radius"])
 
 
 class _CArgs(ctypes.Structure):
@@ -805,7 +953,7 @@ class _CArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "c_lanes", "light_samples", "env_kind", "n_mats", "n_lights",
         "has_ggx", "has_metal", "has_sharp", "rr_enabled", "only_direct",
-        "cam_blades")
+        "cam_blades", "medium")
     ] + [(n, ctypes.c_float) for n in (
         "p_env", "p_env_div", "q_env_div", "pick_pdf", "sa_scale", "n_lights_f",
         "inv_ls", "lam_lo", "lam_span", "env_rz0", "env_rz1", "env_rz2")
@@ -816,7 +964,7 @@ class _CArgs(ctypes.Structure):
         "cam_origin", "cam_u", "cam_v", "cam_fw")
     ] + [(n, ctypes.c_float) for n in (
         "cam_half_w", "cam_half_h", "cam_lens_r", "cam_sharp", "cam_seg",
-        "cam_half_seg", "cam_cos_pi_bl")]
+        "cam_half_seg", "cam_cos_pi_bl", "env_tr_dist")]
 
 
 def _c_args(a: RoundArgs) -> _CArgs:
@@ -853,6 +1001,9 @@ def _c_args(a: RoundArgs) -> _CArgs:
     s.cam_seg = 2.0 * math.pi / bl
     s.cam_half_seg = (2.0 * math.pi / bl) / 2.0
     s.cam_cos_pi_bl = float(np.cos(np.float32(math.pi / bl)))
+    s.medium = a.medium
+    # the distance an environment NEE sample's transmittance is taken over
+    s.env_tr_dist = 2.0 * a.radius
     return s
 
 
@@ -1028,8 +1179,20 @@ def _closest(dense_tab, st):
         _col(torch.full_like(o.x, RAY_TMAX)))
 
 
+def _phase_toward(g, is_ray, cos_sc):
+    """The closed-form HG or Rayleigh phase toward a direction at cosine
+    `cos_sc` to the ray, with the scatterer's fed g."""
+    g2 = g * g
+    den = 1.0 + g2 - 2.0 * g * cos_sc
+    p_hg = (1.0 - g2) / torch.clamp(
+        4.0 * math.pi * den * torch.sqrt(torch.clamp(den, min=1e-12)),
+        min=1e-12)
+    p_ray = 3.0 / (16.0 * math.pi) * (1.0 + cos_sc * cos_sc)
+    return torch.where(is_ray, p_ray, p_hg)
+
+
 def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
-           a: RoundArgs, ef=None, tf=None):
+           a: RoundArgs, ef=None, tf=None, mf=None, state=None):
     """The shading shared by the fused round, K12 and K2 (the JAX package's
     `_all_kernel_body` and `_shade_body` up to the BSDF sample): hit
     attributes, the environment escape and light-hit emission adds with
@@ -1037,7 +1200,13 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
     shadow-tested) and the BSDF sample with its HWSS ratios. `ef` holds the
     environment-feed rows of a Sun or HDR environment, `tf` the
     texture-feed rows that replace the baked reflectance of lambertians
-    flagged `_M_TEXF`."""
+    flagged `_M_TEXF`, `mf` the medium-feed rows of medium-aware settings
+    (with `state`, for the packed medium stack): a lane whose free flight
+    ends before its surface hit scatters there instead, its throughput
+    takes the Beer-Lambert lane weights before any radiance add, its NEE
+    leaves the scatter point weighted by the phase function and the
+    transmittance to the light, it continues along the fed phase-sampled
+    direction, and a lane that crosses a boundary moves its stack."""
     ls = a.light_samples
     C = a.c_lanes
     nee_enabled = ls > 0
@@ -1045,7 +1214,8 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
     n_mats = a.n_mats
     n_lights = a.n_lights
     env_fed = a.env_kind != ENV_CONSTANT
-    o, d, lam, beta, s_mis = st.o, st.d, st.lam, st.beta, st.s_mis
+    o, d, lam, beta, s_mis = st.o, st.d, st.lam, list(st.beta), st.s_mis
+    medium = a.medium
     rad = list(st.rad)
     alive, bounce_ct, prev_pdf = st.alive, st.bounce_ct, st.prev_pdf
     ones = torch.ones_like(prev_pdf)
@@ -1059,11 +1229,40 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
     point, normal, gn, mat_id, kind, area = _hit_attributes(attr, o, d, t_hit)
     at_surface = alive & hit & (kind != 2.0)
 
+    if medium:
+        mfi = mf_idx(C)
+        flight = mf[mfi["flight"]]
+        sig_t = [mf[mfi["sigt"] + ci] for ci in range(C)]
+        sig_s = [mf[mfi["sigs"] + ci] for ci in range(C)]
+        ss_hero = mf[mfi["ssh"]]
+        in_med = mf[mfi["inmed"]] > 0.5
+        g_scat = [mf[mfi["g"] + ci] for ci in range(C)]
+        is_ray = mf[mfi["isray"]] > 0.5
+        surf_t = torch.where(hit, t_hit, RAY_TMAX)
+        scattered = alive & (flight < surf_t)
+        travel = torch.clamp(torch.minimum(flight, surf_t), max=1e8)
+        inv_ssh = torch.where(ss_hero > 0.0,
+                              1.0 / torch.where(ss_hero > 0.0, ss_hero, 1.0),
+                              0.0)
+        # hero-divide-out Beer-Lambert lane weights
+        medw = []
+        for ci in range(C):
+            w_exp = torch.exp(-(sig_t[ci] - ss_hero) * travel)
+            lane_w = torch.where(scattered, sig_s[ci] * inv_ssh * w_exp,
+                                 w_exp)
+            lane_w = torch.where(in_med, lane_w, 1.0)
+            medw.append(lane_w)
+            beta[ci] = beta[ci] * lane_w
+        at_surface = at_surface & ~scattered
+        scat_p = o + d.scale(travel)
+    else:
+        scattered = torch.zeros_like(alive)
+
     R = [_spectral_rows(spec_tab, lam[ci], a.lam_lo, a.lam_hi)
          for ci in range(C)]
 
     env_row = 5 * n_mats
-    escaped = alive & ~hit
+    escaped = alive & ~hit & ~scattered
     if nee_enabled and p_env > 0.0:
         if env_fed:
             env_nee_pdf = ef[C] * p_env
@@ -1109,6 +1308,8 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
 
     tgt, btg = cmath.orthonormal_basis(normal)
     wi_local = cmath.to_local(tgt, btg, normal, wi_world)
+    # the NEE source point: the scatter point of a medium event
+    point_m = cmath.where(scattered, scat_p, point) if medium else point
 
     alpha = mat(_M_ALPHA, mat_id)
     metal = mat(_M_METAL, mat_id)
@@ -1152,7 +1353,7 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
             lp, ln = _sample_surface_light(lrow(_L_PTYPE), lpa, lpb, lpc,
                                            u1, u2)
             area_pdf = 1.0 / torch.clamp(lrow(_L_AREA), min=1e-20)
-            to_l = lp - point
+            to_l = lp - point_m
             dist2 = torch.clamp(cmath.length_squared(to_l), min=1e-12)
             dist = torch.sqrt(dist2)
             dir_l = to_l.scale(1.0 / dist)
@@ -1208,22 +1409,44 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
                 else:
                     le_ci = le_inst
                 thr_ci = nee_fs[ci] * torch.abs(wo_local.z)
+                if medium:
+                    # at a scatter the phase toward the NEE direction is
+                    # the throughput and the hero pdf
+                    ph_ci = _phase_toward(g_scat[ci], is_ray,
+                                          cmath.dot(d, nee_dir))
+                    thr_ci = torch.where(scattered, ph_ci, thr_ci)
+                    if ci == 0:
+                        pdf_s0 = torch.where(scattered, ph_ci, nee_pdfs[0])
                 max_le = torch.maximum(max_le, le_ci)
                 max_thr = torch.maximum(max_thr, thr_ci)
                 thr.append(thr_ci)
                 le.append(le_ci)
-            worth = (at_surface & (max_le > 0.0) & (nee_pdf > 1e-12)
+            nee_src = (at_surface | scattered) if medium else at_surface
+            worth = (nee_src & (max_le > 0.0) & (nee_pdf > 1e-12)
                      & (max_thr > 0.0))
-            w_nee = _balance(nee_pdf, torch.clamp(nee_pdfs[0], min=0.0))
+            w_nee = _balance(nee_pdf, torch.clamp(
+                pdf_s0 if medium else nee_pdfs[0], min=0.0))
             so = point + gn.scale(NORMAL_OFFSET * torch.sign(
                 cmath.dot(gn, nee_dir) + 1e-9))
+            if medium:
+                # no normal offset at a scatter point
+                so = cmath.where(scattered, scat_p, so)
             inv_pdf = torch.where(nee_pdf > 1e-12,
                                   1.0 / torch.clamp(nee_pdf, min=1e-12), 0.0)
             contrib = [beta[ci] * s_mis * thr[ci] * le[ci] * w_nee * inv_pdf
                        * inv_ls for ci in range(C)]
+            if medium:
+                # transmittance through the tracked media over the shadow
+                # distance (an environment sample: the scene's diameter)
+                tr_dist = (torch.where(chose_env, 2.0 * a.radius, dist)
+                           if p_env > 0.0 else dist)
+                tr_dist = torch.clamp(tr_dist, max=1e8)
+                contrib = [contrib[ci] * torch.where(
+                    in_med, torch.exp(-sig_t[ci] * tr_dist), 1.0)
+                    for ci in range(C)]
             nee.append(SimpleNamespace(so=so, dir=nee_dir, tmax=nee_tmax,
                                        worth=worth, contrib=contrib))
-            shadow_ct = shadow_ct + (at_surface & worth).float()
+            shadow_ct = shadow_ct + worth.float()
 
     # ---- BSDF sample + HWSS ratios
     u_b = [u[3 * ls + i] for i in range(3)]
@@ -1269,10 +1492,51 @@ def _shade(u, st, t_hit, pid, prim_tab, mat_tab, light_tab, spec_tab,
                          1.0 / torch.where(p_lanes[0] > 0.0, p_lanes[0], 1.0),
                          0.0)
     pscale = [ones if ci == 0 else p_lanes[ci] * inv_p0 for ci in range(C)]
+    sample_ok = f_pdf > 1e-12
+    med = None
+    if medium:
+        # a scatter continues along the fed phase-sampled direction from
+        # the scatter point; phase value = pdf, so the hero ratio is 1 and
+        # the companions' ratios and pdf ratios are the fed phase ratios
+        wo_m = V3(mf[mfi["wo"]], mf[mfi["wo"] + 1], mf[mfi["wo"] + 2])
+        ph_s = [mf[mfi["phs"] + ci] for ci in range(C)]
+        d_new = cmath.where(scattered, wo_m, d_new)
+        o_new = cmath.where(scattered, scat_p, o_new)
+        f_pdf = torch.where(scattered, mf[mfi["phpdf"]], f_pdf)
+        ratios = [torch.where(scattered, ph_s[ci], ratios[ci])
+                  for ci in range(C)]
+        pscale = [pscale[ci] if ci == 0
+                  else torch.where(scattered, ph_s[ci], pscale[ci])
+                  for ci in range(C)]
+        sample_ok = sample_ok | scattered
+        # a transmission through a boundary whose two media differ removes
+        # the first occurrence of the departed medium from the stack and
+        # pushes the entered one into the first empty slot
+        stack = _unpack_stack_rows(state[S_MSTK0], state[S_MSTK1])
+        crossed = at_surface & (wo_local_s.z * wi_local.z < 0.0)
+        entering = wo_local_s.z < 0.0
+        inner, outer = mat(_M_INNER, mat_id), mat(_M_OUTER, mat_id)
+        do_tr = crossed & (inner != outer)
+        rm_id = torch.where(entering, outer, inner)
+        add_id = torch.where(entering, inner, outer)
+        seen = torch.zeros_like(alive)
+        for k in range(4):
+            match = (stack[k] == rm_id) & do_tr & (rm_id > 0.5)
+            stack[k] = torch.where(match & ~seen, 0.0, stack[k])
+            seen = seen | match
+        seen = torch.zeros_like(alive)
+        for k in range(4):
+            empty = stack[k] < 0.5
+            sel = empty & ~seen & do_tr & (add_id > 0.5)
+            seen = seen | empty
+            stack[k] = torch.where(sel, add_id, stack[k])
+        med = SimpleNamespace(
+            scattered=scattered, medw=medw,
+            mstk=[stack[0] + 256.0 * stack[1], stack[2] + 256.0 * stack[3]])
     return SimpleNamespace(
         rad=rad, at_surface=at_surface, env_ct=escaped.float(),
-        shadow_ct=shadow_ct, nee=nee, f_pdf=f_pdf, sample_ok=f_pdf > 1e-12,
-        ratios=ratios, o_new=o_new, d_new=d_new, pscale=pscale)
+        shadow_ct=shadow_ct, nee=nee, f_pdf=f_pdf, sample_ok=sample_ok,
+        ratios=ratios, o_new=o_new, d_new=d_new, pscale=pscale, med=med)
 
 
 def _resolve_nee(dense_tab, nee, rad):
@@ -1293,14 +1557,21 @@ def _resolve_nee(dense_tab, nee, rad):
 
 
 def _finalize_core(state, st, a: RoundArgs, rad, at_surface, f_pdf,
-                   sample_ok, ratios, o_new, d_new, pscale, u_rr, rnd):
-    """The finalize shared by the fused round and K34 (the JAX package's
+                   sample_ok, ratios, o_new, d_new, pscale, u_rr, rnd,
+                   med=None):
+    """The finalize shared by the fused round, K34 and K4 (the JAX package's
     `_finalize_core`): Russian roulette and continuation, XYZ accumulation
     on death, the thin-lens respawn at the lane's owning pixel and the
-    state write-out -> out [NK4, N] (counter rows past the camera row 0)."""
+    state write-out -> out [NK4, N] (counter rows past the camera row 0).
+    `med` carries the medium rows of a medium-aware round (scattered, the
+    lane weights medw, the new packed stack rows mstk): the weights go on
+    the throughput, a scatter always continues with hero ratio 1, and the
+    stack follows a continuation and empties on a respawn."""
     C = a.c_lanes
     dev = state.device
     lam, beta, acc = st.lam, st.beta, list(st.acc)
+    if med is not None:
+        beta = [beta[ci] * med.medw[ci] for ci in range(C)]
     alive, bounce_ct, prev_pdf = st.alive, st.bounce_ct, st.prev_pdf
     o, d = st.o, st.d
     ones = torch.ones_like(prev_pdf)
@@ -1309,7 +1580,12 @@ def _finalize_core(state, st, a: RoundArgs, rad, at_surface, f_pdf,
     ratio_best = ratios[0]
     for ci in range(1, C):
         ratio_best = torch.maximum(ratio_best, ratios[ci])
-    sample_ok = sample_ok & (ratio_best > 0.0)
+    if med is not None:
+        ratio_best = torch.where(med.scattered, 1.0, ratio_best)
+        sample_ok = med.scattered | (sample_ok & (ratio_best > 0.0))
+        at_surface = at_surface | med.scattered
+    else:
+        sample_ok = sample_ok & (ratio_best > 0.0)
     if a.russian_roulette:
         rr_on = bounce_ct >= a.min_bounces
         p_cont = torch.where(rr_on, torch.clamp(ratio_best, 0.05, 1.0), 1.0)
@@ -1410,6 +1686,10 @@ def _finalize_core(state, st, a: RoundArgs, rad, at_surface, f_pdf,
         pr = state[S_PDFR + ci]
         out[S_PDFR + ci] = torch.where(cp, pr * pscale[ci],
                                        torch.where(hw, 1.0, pr))
+    if med is not None:
+        for i, row in enumerate((S_MSTK0, S_MSTK1)):
+            out[row] = torch.where(cp, med.mstk[i],
+                                   torch.where(hw, 0.0, state[row]))
     out[O4_BOUNCE_CT] = cp.float()
     out[O4_CAMERA_CT] = hw.float()
     out[O4_CAMERA_CT + 1:NK4] = 0.0
@@ -1437,38 +1717,51 @@ def fused_round_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
 
 
 def shade_sweep_plain(u, state, dense_tab, prim_tab, mat_tab, light_tab,
-                      spec_tab, a: RoundArgs, ef=None):
+                      spec_tab, a: RoundArgs, ef=None, mf=None):
     """K12 in plain torch: closest hit + shading -> k2 [k2_rows(ls), N] (the
     JAX package's `_shade_sweep_kernel` -> `_shade_body`). Surface rows are 0
-    on lanes not at a surface, and every row of a dead lane is 0."""
+    on lanes neither at a surface nor scattered, and every row of a dead
+    lane is 0. `mf` is `med_feed`'s rows under medium-aware settings."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     st = _lane_state(state, a.c_lanes)
     t_hit, pid = _closest(dense_tab, st)
     return _k2_out(state, st, a, _shade(u, st, t_hit, pid, prim_tab, mat_tab,
-                                        light_tab, spec_tab, a, ef))
+                                        light_tab, spec_tab, a, ef, None, mf,
+                                        state))
 
 
 def shade_plain(u, state, tp, prim_tab, mat_tab, light_tab, spec_tab,
-                a: RoundArgs, ef=None, tf=None):
+                a: RoundArgs, ef=None, tf=None, mf=None):
     """K2 in plain torch: shading from K1's hit rows tp (t, prim id) -> k2
     [k2_rows(ls), N], as K12 writes them (the JAX package's `_shade_kernel`
-    -> `_shade_body`); `tf` is `tex_feed`'s rows or None."""
+    -> `_shade_body`); `tf` is `tex_feed`'s rows or None, `mf` `med_feed`'s
+    or None."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     st = _lane_state(state, a.c_lanes)
     return _k2_out(state, st, a, _shade(u, st, tp[0], tp[1], prim_tab,
                                         mat_tab, light_tab, spec_tab, a, ef,
-                                        tf))
+                                        tf, mf, state))
 
 
 def _k2_out(state, st, a: RoundArgs, sh):
-    """The K2 rows of a shading result: surface rows 0 on lanes not at a
-    surface, every row of a dead lane 0."""
+    """The K2 rows of a shading result: surface rows 0 on lanes that are
+    neither at a surface nor scattered in a medium, every row of a dead
+    lane 0. The medium rows (scattered, the lane weights, 1 past C, and the
+    packed stack) are written for every live lane."""
     C, ls = a.c_lanes, a.light_samples
     k2 = torch.zeros((k2_rows(ls), state.shape[1]), dtype=torch.float32,
                      device=state.device)
     surf = sh.at_surface
+    if sh.med is not None:
+        surf = surf | sh.med.scattered
+        k2[O_SCAT] = sh.med.scattered.float()
+        for ci in range(C_LANES):
+            k2[O_MEDW + ci] = torch.where(
+                st.alive, sh.med.medw[ci] if ci < C else 1.0, 0.0)
+        for i in range(2):
+            k2[O_MSTK + i] = torch.where(st.alive, sh.med.mstk[i], 0.0)
 
     def put(row, v, mask=surf):
         k2[row] = torch.where(mask, v, 0.0)
@@ -1477,7 +1770,7 @@ def _k2_out(state, st, a: RoundArgs, sh):
         put(O_RAD + ci, sh.rad[ci], st.alive)
         put(O_RATIO + ci, sh.ratios[ci])
         put(O_PSCALE + ci, sh.pscale[ci])
-    k2[O_AT_SURF] = surf.float()
+    k2[O_AT_SURF] = sh.at_surface.float()
     k2[O_ENV_CT] = sh.env_ct
     k2[O_SHADOW_CT] = sh.shadow_ct
     put(O_FPDF, sh.f_pdf)
@@ -1501,7 +1794,6 @@ def finalize_sweep_plain(u, state, k2, dense_tab, a: RoundArgs):
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     C, ls = a.c_lanes, a.light_samples
-    st = _lane_state(state, C)
 
     def k(i):
         return k2[i]
@@ -1514,13 +1806,48 @@ def finalize_sweep_plain(u, state, k2, dense_tab, a: RoundArgs):
             dir=V3(k(b + 3), k(b + 4), k(b + 5)), tmax=k(b + 6),
             worth=k(b + 7) > 0.5, contrib=[k(b + 8 + ci) for ci in range(C)]))
     rad = _resolve_nee(dense_tab, nee, [k(O_RAD + ci) for ci in range(C)])
+    return _finalize_k2(u, state, k2, a, rad)
+
+
+def finalize_plain(u, state, k2, blks, a: RoundArgs):
+    """K4 in plain torch: the finalize fed one blocked mask per NEE sample
+    (`blks[si]` [>= 1, N], row 0 > 0.5 = blocked, as K3 writes it) instead
+    of sweeping -> out [NK4, N] (the JAX package's `_finalize_kernel` ->
+    `_finalize_body`). A sample's mask is read only where the sample was
+    worth a ray. A dead lane passes its state through with zero counters."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    C = a.c_lanes
+    rad = [k2[O_RAD + ci] for ci in range(C)]
+    for si in range(a.light_samples):
+        b = O_NEE + NEE_ROWS * si
+        ok = (k2[b + 7] > 0.5) & ~(blks[si][0] > 0.5)
+        rad = [rad[ci] + torch.where(ok, k2[b + 8 + ci], 0.0)
+               for ci in range(C)]
+    return _finalize_k2(u, state, k2, a, rad)
+
+
+def _finalize_k2(u, state, k2, a: RoundArgs, rad):
+    """The tail K34 and K4 share: `_finalize_core` on the K2 rows with the
+    resolved radiance, and the dead lanes' pass-through."""
+    C = a.c_lanes
+    st = _lane_state(state, C)
+
+    def k(i):
+        return k2[i]
+
+    med = None
+    if a.medium:
+        med = SimpleNamespace(scattered=k(O_SCAT) > 0.5,
+                              medw=[k(O_MEDW + ci) for ci in range(C)],
+                              mstk=[k(O_MSTK), k(O_MSTK + 1)])
     out = _finalize_core(
         state, st, a, rad, k(O_AT_SURF) > 0.5, k(O_FPDF),
         k(O_SAMPLE_OK) > 0.5, [k(O_RATIO + ci) for ci in range(C)],
         V3(k(O_ONEW), k(O_ONEW + 1), k(O_ONEW + 2)),
         V3(k(O_DNEW), k(O_DNEW + 1), k(O_DNEW + 2)),
         [k(O_PSCALE + ci) for ci in range(C)], u_rr=u[0],
-        rnd=[u[1 + i] for i in range(5)])
+        rnd=[u[1 + i] for i in range(5)], med=med)
     passthrough = torch.cat([state, torch.zeros_like(out[NS:])])
     return torch.where(st.alive[None, :], out, passthrough)
 
@@ -1624,24 +1951,45 @@ def fused_round(u, state, scene: MegaScene, a: RoundArgs):
     return out
 
 
-def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None):
-    """K12 -> k2 [k2_rows(ls), N]: the CUDA kernel on CUDA tensors, the
-    plain twin on CPU tensors. `ef` is `env_feed`'s rows for a Sun or HDR
-    environment and None for a constant one."""
-    global SHADE_LAUNCHES
-    _check_round(u, state, scene, a, 3 * a.light_samples + 3,
-                 MEGA_MAX_PRIMS, _NOT_IN_GATE)
-    fed = a.env_kind != ENV_CONSTANT
-    if fed != (ef is not None):
+def _check_feeds(state, a: RoundArgs, ef, mf, tp=None, tf=None):
+    """The feed rows of K12 and K2: `ef` exactly for Sun and HDR
+    environments, `mf` exactly under medium-aware settings, each (and K2's
+    `tp` and `tf`) of its shape."""
+    n = state.shape[1]
+    if (a.env_kind != ENV_CONSTANT) != (ef is not None):
         raise ValueError("ef must be given exactly for Sun and HDR "
                          "environments")
-    if fed:
-        _check_tensors(state=state, ef=ef)
-        if ef.shape != (ef_rows(a.light_samples, a.c_lanes), state.shape[1]):
-            raise ValueError(f"ef must be [{ef_rows(a.light_samples, a.c_lanes)}"
-                             f", N], got {tuple(ef.shape)}")
+    if a.medium != (mf is not None):
+        raise ValueError("mf must be given exactly for medium-aware "
+                         "settings")
+    for name, x, rows in (("tp", tp, 8),
+                          ("ef", ef, ef_rows(a.light_samples, a.c_lanes)),
+                          ("tf", tf, tf_rows(a.c_lanes)),
+                          ("mf", mf, mf_rows(a.c_lanes))):
+        if x is None:
+            continue
+        _check_tensors(state=state, **{name: x})
+        if x.shape != (rows, n):
+            raise ValueError(f"{name} must be [{rows}, N], got "
+                             f"{tuple(x.shape)}")
+
+
+def _k12_u_rows(a: RoundArgs) -> int:
+    return 3 * a.light_samples + 3 + (4 if a.medium else 0)
+
+
+def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None, mf=None):
+    """K12 -> k2 [k2_rows(ls), N]: the CUDA kernel on CUDA tensors, the
+    plain twin on CPU tensors. `ef` is `env_feed`'s rows for a Sun or HDR
+    environment and None for a constant one; `mf` is `med_feed`'s rows
+    under medium-aware settings and None otherwise."""
+    global SHADE_LAUNCHES
+    _check_round(u, state, scene, a, _k12_u_rows(a), MEGA_MAX_PRIMS,
+                 _NOT_IN_GATE)
+    _check_feeds(state, a, ef, mf)
     if state.device.type == "cpu":
-        return shade_sweep_plain(u, state, a=a, ef=ef, **_tables(scene))
+        return shade_sweep_plain(u, state, a=a, ef=ef, mf=mf,
+                                 **_tables(scene))
     lib = _lib()
     n = state.shape[1]
     k2 = torch.empty((k2_rows(a.light_samples), n), dtype=torch.float32,
@@ -1649,7 +1997,7 @@ def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None):
     cargs = _c_args(a)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.shade_sweep_launch(
-        _ptr(u), _ptr(state), _ptr(ef), _ptr(k2), n,
+        _ptr(u), _ptr(state), _ptr(ef), _ptr(mf), _ptr(k2), n,
         _ptr(scene.dense_tab), scene.dense_tab.shape[0],
         _ptr(scene.prim_tab), scene.prim_tab.shape[1],
         _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
@@ -1659,40 +2007,30 @@ def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None):
     return k2
 
 
-def shade(u, state, tp, scene: MegaScene, a: RoundArgs, ef=None, tf=None):
+def shade(u, state, tp, scene: MegaScene, a: RoundArgs, ef=None, tf=None,
+          mf=None):
     """K2 -> k2 [k2_rows(ls), N] from K1's rows tp [8, N]: the CUDA kernel
-    on CUDA tensors, the plain twin on CPU tensors. `ef` as for
+    on CUDA tensors, the plain twin on CPU tensors. `ef` and `mf` as for
     `shade_sweep`; `tf` is `tex_feed`'s rows, required for a scene with
     uv-textured lambertians."""
     global K2_LAUNCHES
-    _check_round(u, state, scene, a, 3 * a.light_samples + 3,
-                 MEGA_MAX_PRIMS, _NOT_IN_GATE)
+    _check_round(u, state, scene, a, _k12_u_rows(a), MEGA_MAX_PRIMS,
+                 _NOT_IN_GATE)
     n = state.shape[1]
-    fed = a.env_kind != ENV_CONSTANT
-    if fed != (ef is not None):
-        raise ValueError("ef must be given exactly for Sun and HDR "
-                         "environments")
     if scene.consts["tex_feed"] and tf is None:
         raise ValueError("a scene with uv-textured lambertians needs tf")
-    for name, x, rows in (("tp", tp, 8),
-                          ("ef", ef, ef_rows(a.light_samples, a.c_lanes)),
-                          ("tf", tf, tf_rows(a.c_lanes))):
-        if x is None:
-            continue
-        _check_tensors(state=state, **{name: x})
-        if x.shape != (rows, n):
-            raise ValueError(f"{name} must be [{rows}, N], got "
-                             f"{tuple(x.shape)}")
+    _check_feeds(state, a, ef, mf, tp, tf)
     if state.device.type == "cpu":
         return shade_plain(u, state, tp, scene.prim_tab, scene.mat_tab,
-                           scene.light_tab, scene.spec_tab, a, ef, tf)
+                           scene.light_tab, scene.spec_tab, a, ef, tf, mf)
     lib = _lib()
     k2 = torch.empty((k2_rows(a.light_samples), n), dtype=torch.float32,
                      device=state.device)
     cargs = _c_args(a)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.shade_launch(
-        _ptr(u), _ptr(state), _ptr(tp), _ptr(ef), _ptr(tf), _ptr(k2), n,
+        _ptr(u), _ptr(state), _ptr(tp), _ptr(ef), _ptr(tf), _ptr(mf),
+        _ptr(k2), n,
         _ptr(scene.prim_tab), scene.prim_tab.shape[1],
         _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
         ctypes.byref(cargs), ctypes.c_void_p(stream))
@@ -1724,6 +2062,45 @@ def finalize_sweep(u, state, k2, scene: MegaScene, a: RoundArgs):
         ctypes.byref(cargs), ctypes.c_void_p(stream))
     _raise_on(rc, "finalize_sweep")
     FINALIZE_LAUNCHES += 1
+    return out
+
+
+def finalize(u, state, k2, blks, scene: MegaScene, a: RoundArgs):
+    """K4 -> out [NK4, N]: the finalize fed the blocked masks of the NEE
+    samples' shadow rays, `blks[si]` as K3 (`dense.sweep_any_rows`) writes
+    sample si's ([>= 1, N], row 0 read): the CUDA kernel on CUDA tensors,
+    the plain twin on CPU tensors."""
+    global K4_LAUNCHES
+    _check_round(u, state, scene, a, 1 + 5, MEGA_MAX_PRIMS,  # RR, respawn
+                 _NOT_IN_GATE)
+    _check_tensors(state=state, k2=k2)
+    n = state.shape[1]
+    if k2.shape != (k2_rows(a.light_samples), n):
+        raise ValueError(f"k2 must be [{k2_rows(a.light_samples)}, N], got "
+                         f"{tuple(k2.shape)}")
+    blks = list(blks)
+    if len(blks) != a.light_samples:
+        raise ValueError(f"{a.light_samples} blocked masks expected, one "
+                         f"per NEE sample, got {len(blks)}")
+    for si, b in enumerate(blks):
+        _check_tensors(state=state, **{f"blks[{si}]": b})
+        if b.shape[0] < 1 or b.shape[1] != n:
+            raise ValueError(f"blks[{si}] must be [>= 1, N], got "
+                             f"{tuple(b.shape)}")
+    if state.device.type == "cpu":
+        return finalize_plain(u, state, k2, blks, a)
+    lib = _lib()
+    # the kernel reads row si of one [ls, N] block
+    blk = (blks[0] if len(blks) == 1 else
+           torch.cat([b[:1] for b in blks]) if blks else None)
+    out = torch.empty((NK4, n), dtype=torch.float32, device=state.device)
+    cargs = _c_args(a)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.finalize_launch(_ptr(u), _ptr(state), _ptr(k2), _ptr(blk),
+                             _ptr(out), n, ctypes.byref(cargs),
+                             ctypes.c_void_p(stream))
+    _raise_on(rc, "finalize")
+    K4_LAUNCHES += 1
     return out
 
 
@@ -1808,16 +2185,26 @@ _TWO_PROG_SLOTS = (prof.BOUNCE_RAYS, prof.CAMERA_RAYS, prof.ENV_HITS,
                    prof.SHADOW_RAYS)
 
 
+def _k12_uniforms(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
+    """K12's (or K2's) uniform block (stream 0) and the feeds computed from
+    it: (u12, ef | None, mf | None)."""
+    u12 = uniforms.round(it, n_u_rows(a.light_samples, a.medium),
+                         state.shape[1], state.device, stream=0)
+    ef = (env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
+          if scene.env is not None else None)
+    mf = (med_feed(scene.med, state, u12, a.light_samples, a.c_lanes)
+          if scene.med is not None else None)
+    return u12, ef, mf
+
+
 def two_prog_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     """One bounce round of the two-program route -> (out [NK4, N], k2):
     K12 on its uniform block (stream 0), after the environment feed of a Sun
-    or HDR environment, then K34 on its own (stream 1)."""
-    n_pad, dev = state.shape[1], state.device
-    u12 = uniforms.round(it, n_u_rows(a.light_samples), n_pad, dev, stream=0)
-    ef = (env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
-          if scene.env is not None else None)
-    k2 = shade_sweep(u12, state, scene, a, ef)
-    u34 = uniforms.round(it, NU4, n_pad, dev, stream=1)
+    or HDR environment and the medium feed of medium-aware settings, then
+    K34 on its own (stream 1)."""
+    u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
+    k2 = shade_sweep(u12, state, scene, a, ef, mf)
+    u34 = uniforms.round(it, NU4, state.shape[1], state.device, stream=1)
     return finalize_sweep(u34, state, k2, scene, a), k2
 
 
@@ -1826,33 +2213,62 @@ def texfeed_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     the JAX package's `_mega_step_texfeed`: K1 (the closest-hit rows), the
     environment feed of a Sun or HDR environment, the texture feed, K2 on
     the K12 uniform block (stream 0), then K34 on its own (stream 1)."""
-    n_pad, dev = state.shape[1], state.device
     tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE)
-    u12 = uniforms.round(it, n_u_rows(a.light_samples), n_pad, dev, stream=0)
-    ef = (env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
-          if scene.env is not None else None)
+    u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
     tf = tex_feed(scene.tex, state, tp, a.c_lanes)
-    k2 = shade(u12, state, tp, scene, a, ef, tf)
-    u34 = uniforms.round(it, NU4, n_pad, dev, stream=1)
+    k2 = shade(u12, state, tp, scene, a, ef, tf, mf)
+    u34 = uniforms.round(it, NU4, state.shape[1], state.device, stream=1)
     return finalize_sweep(u34, state, k2, scene, a), k2
 
 
+def split_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
+    """One bounce round of the split route -> (out [NK4, N], k2), the JAX
+    package's five-program pipeline K1 | K2 | K3 x light_samples | K4: K1
+    (the closest-hit rows), the environment, texture and medium feeds the
+    scene needs, K2 on the K12 uniform block (stream 0), K3 (the any-hit
+    rows sweep of each NEE sample's shadow ray, read in place from the K2
+    rows) and K4 on the K34 block (stream 1). It takes every scene of the
+    gate and writes what the scene's default round writes, bit for bit."""
+    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE)
+    u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
+    tf = (tex_feed(scene.tex, state, tp, a.c_lanes)
+          if scene.tex is not None else None)
+    k2 = shade(u12, state, tp, scene, a, ef, tf, mf)
+    blks = []
+    for si in range(a.light_samples):
+        row0 = O_NEE + NEE_ROWS * si
+        blks.append(sweep_any_rows(k2, scene.dense_tab, row0, row0 + 6,
+                                   live_row=row0 + 7))
+    u34 = uniforms.round(it, NU4, state.shape[1], state.device, stream=1)
+    return finalize(u34, state, k2, blks, scene, a), k2
+
+
 def pt_trace_regen_mega(world, camera, settings, width, height, spp,
-                        uniforms, device=None, stats=None):
+                        uniforms, device=None, stats=None, stepper=None):
     """Render `spp` samples of every pixel with one lane per pixel ->
     (xyz sums [width * height, 3], counters f64[5]), on `device`
     (default: the world's). Each round is the fused round for scenes in its
     gate, the texture-feed round for scenes with uv-textured lambertians and
-    the two-program round otherwise; the kernels launch on a card, the plain
-    twins run on the CPU. A `stats` dict, if given, gets the number of
-    rounds added to "rounds"."""
+    the two-program round otherwise (medium-aware settings among them);
+    `stepper="split"` takes every scene through `split_round` instead (the
+    JAX render loop's PT_MEGA_3PROG lever, one step further: K3 and K4
+    apart).
+    The kernels launch on a card, the plain twins run on the CPU. A `stats`
+    dict, if given, gets the number of rounds added to "rounds"."""
+    if stepper not in (None, "split"):
+        raise ValueError(f"stepper must be None or 'split', got {stepper!r}")
+    why = gate_refusal(world, camera, settings)
+    if why is not None:
+        raise NotImplementedError(why)
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
-    scene = build_mega_scene(world, camera, device)
+    scene = build_mega_scene(world, camera, device, settings)
     a = RoundArgs.make(scene.consts, settings, width, height)
     n = width * height
     n_pad = -(-n // TILE) * TILE
-    fused = fused_ok(scene)
+    fused = fused_ok(scene) and stepper is None
+    step = (split_round if stepper == "split" else
+            texfeed_round if scene.tex is not None else two_prog_round)
     cam = camera.to(device)
     state, counters = mega_init(cam, uniforms.init(n_pad, device), a, n,
                                 n_pad, spp)
@@ -1868,8 +2284,7 @@ def pt_trace_regen_mega(world, camera, settings, width, height, spp,
                 out = fused_round(u, state, scene, a)
                 counts = out[O4_BOUNCE_CT:O4_ENV_CT + 1]
             else:
-                out, k2 = (texfeed_round if scene.tex is not None
-                           else two_prog_round)(state, scene, a, uniforms, it)
+                out, k2 = step(state, scene, a, uniforms, it)
                 counts = torch.cat([out[O4_BOUNCE_CT:O4_CAMERA_CT + 1],
                                     k2[O_ENV_CT:O_SHADOW_CT + 1]])
             state = out[:NS]

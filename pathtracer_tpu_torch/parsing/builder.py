@@ -7,8 +7,9 @@ and a Constant, Sun or HDR environment, then bakes them with numpy into the
 fields `world_from_numpy` takes. The arrays equal the JAX builder's array
 for array (for Sun and HDR, equal to what the JAX parser's
 `_build_environment` sets). Transforms and mesh instancing raise
-`NotImplementedError` naming ROADMAP §1 item 13 (the parser), media naming
-ROADMAP §2's next slice (the two-program round's medium branch).
+`NotImplementedError` naming ROADMAP §1 item 13 (the parser). HG and
+Rayleigh media are table rows (id 0 is vacuum) that GGX boundaries name as
+their inner and outer medium.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ from pathtracer_tpu_torch.materials.tables import (
     MAT_PASSTHROUGH,
     MAT_SHARP_LIGHT,
 )
+from pathtracer_tpu_torch.mediums.tables import (
+    MED_HG,
+    MED_RAYLEIGH,
+    MED_VACUUM,
+)
 from pathtracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pathtracer_tpu_torch.world.environment import (
     constant_env_numpy,
@@ -44,8 +50,6 @@ from pathtracer_tpu_torch.world.world import World, world_from_numpy
 
 _PAD = 16
 _NOT_PORTED = "not ported yet (ROADMAP §1 item 13, parsing)"
-_NO_MEDIA = ("media are not ported yet (ROADMAP §2: the medium branch of "
-             "the two-program round, with mediums/ and the medium feed)")
 
 
 @dataclasses.dataclass
@@ -74,6 +78,9 @@ class SceneBuilder:
         self._tex_names = {}
         self.mat_rows: List[dict] = []
         self._mat_names = {}
+        self.med_rows: List[dict] = [dict(mtype=MED_VACUUM, g=0, ss=0, sa=0,
+                                          ior=0, corr=0.0)]
+        self._med_names = {}
         self.prims: List[_Prim] = []
         self.env: Optional[dict] = None
         self.env_sampling_probability = 0.5
@@ -131,14 +138,13 @@ class SceneBuilder:
                 kappa_idx: int, permeability: float = 0.0,
                 inner_medium: int = 0, outer_medium: int = 0,
                 name=None) -> int:
-        if inner_medium or outer_medium:
-            raise NotImplementedError(_NO_MEDIA)
         # metallic := kappa integral > 0
         kappa_integral = self.curves[kappa_idx].integral(EXTENDED_VISIBLE_RANGE, 128)
         return self._add_mat(
             dict(mtype=MAT_GGX, alpha=alpha, eta_idx=eta_idx,
                  eta_o_idx=eta_o_idx, kappa_idx=kappa_idx,
-                 permeability=permeability, metallic=kappa_integral > 0.0),
+                 permeability=permeability, metallic=kappa_integral > 0.0,
+                 inner_medium=inner_medium, outer_medium=outer_medium),
             name)
 
     def add_diffuse_light(self, emit_idx: int, bounce_idx: int,
@@ -154,10 +160,27 @@ class SceneBuilder:
                  bounce_idx=bounce_idx, sidedness=sidedness,
                  sharpness=sharpness), name)
 
-    def add_medium_hg(self, *args, **kwargs):
-        raise NotImplementedError(_NO_MEDIA)
+    # ------------------------------------------------------------- mediums
 
-    add_medium_rayleigh = add_medium_hg
+    def _add_med(self, row: dict, name: Optional[str]) -> int:
+        self.med_rows.append(row)
+        idx = len(self.med_rows) - 1
+        if name is not None:
+            self._med_names[name] = idx
+        return idx
+
+    def add_medium_hg(self, g_idx: int, sigma_s_idx: int, sigma_a_idx: int,
+                      name=None) -> int:
+        return self._add_med(dict(mtype=MED_HG, g=g_idx, ss=sigma_s_idx,
+                                  sa=sigma_a_idx, ior=0, corr=0.0), name)
+
+    def add_medium_rayleigh(self, ior_idx: int, corrective: float,
+                            name=None) -> int:
+        return self._add_med(dict(mtype=MED_RAYLEIGH, g=0, ss=0, sa=0,
+                                  ior=ior_idx, corr=corrective), name)
+
+    def medium_index(self, name: str) -> int:
+        return self._med_names[name]
 
     def add_transform(self, m):
         raise NotImplementedError(f"transforms are {_NOT_PORTED}")
@@ -374,6 +397,14 @@ class SceneBuilder:
                 ("emit_idx", -1, np.int32), ("bounce_idx", 0, np.int32),
                 ("sharpness", 0.0, np.float32), ("sidedness", 2, np.int32)):
             f[f"mats.{key}"] = col(key, default, dtype)
+
+        for field, key, dtype in (
+                ("mtype", "mtype", np.int32), ("g_idx", "g", np.int32),
+                ("sigma_s_idx", "ss", np.int32),
+                ("sigma_a_idx", "sa", np.int32), ("ior_idx", "ior", np.int32),
+                ("corrective", "corr", np.float32)):
+            f[f"mediums.{field}"] = np.asarray(
+                [r[key] for r in self.med_rows], dtype)
 
         pad = (-p) % _PAD
 

@@ -14,7 +14,8 @@ from pathtracer_tpu_torch.renderer.common import timed_render
 
 def render_regen(world, camera, settings, width: int, height: int,
                  min_samples: int, generator: torch.Generator | None = None,
-                 uniforms=None, device=None, stats: dict | None = None):
+                 uniforms=None, device=None, stats: dict | None = None,
+                 stepper: str | None = None):
     """Render `min_samples` samples per pixel with one lane per pixel.
     Returns (film [H, W, 3] XYZ, Profile, elapsed seconds); the elapsed time
     ends with the counters' host fetch, which waits for the device.
@@ -26,10 +27,12 @@ def render_regen(world, camera, settings, width: int, height: int,
 
     Scenes in the megakernel's gate render through the fused round, the
     texture-feed round (uv-textured lambertians) or the two-program round
-    (`kernels/megakernel.py`), on the world's device unless `device` says
+    (`kernels/megakernel.py`; medium-aware settings ride its medium
+    branch), or all of them through the split round with
+    `stepper="split"`, on the world's device unless `device` says
     otherwise; the rest raise `NotImplementedError` naming the ROADMAP item
-    that ports their route (medium-aware settings, and scenes for the regen
-    integrator without kernels)."""
+    that ports their route (scenes for the regen integrator without
+    kernels)."""
     why = gate_refusal(world, camera, settings)
     if why is not None:
         raise NotImplementedError(why)
@@ -37,7 +40,8 @@ def render_regen(world, camera, settings, width: int, height: int,
     def trace(device, uniforms):
         acc, counters = pt_trace_regen_mega(world, camera, settings, width,
                                             height, min_samples, uniforms,
-                                            device=device, stats=stats)
+                                            device=device, stats=stats,
+                                            stepper=stepper)
         return (acc / float(min_samples)).reshape(height, width, 3), counters
 
     return timed_render(world, generator, uniforms, device, trace)

@@ -50,6 +50,10 @@ LENS_BOX_CAMERA = dict(CORNELL_CAMERA, vfov_degrees=45.0,
                        aperture_diameter=0.12)
 SPIKE_CAMERA = dict(CORNELL_CAMERA, vfov_degrees=45.0,
                     aperture_diameter=0.01)
+# a unit medium sphere at the origin filling most of a 60 degree view
+MEDIUM_CAMERA = dict(look_from=[-4.0, 0.0, 0.0], look_at=[0.0, 0.0, 0.0],
+                     vfov_degrees=60.0, focal_distance=4.0,
+                     aperture_diameter=0.0001, aspect_ratio=1.0)
 FURNACE_CAMERA = dict(look_from=[0.0, -3.0, 0.0], look_at=[0.0, 0.0, 0.0],
                       vfov_degrees=35.0, focal_distance=3.0,
                       aperture_diameter=0.0, aspect_ratio=1.0)
@@ -465,3 +469,88 @@ def spike_box(b, spectral):
     wrong emission-λ inversion moves the film's chromaticity."""
     return _white_box(b, spectral, spectral.SpikeCurve(460.0, 8.0, 8.0, 30.0),
                       3)
+
+
+def _boundary(b, spectral, inner_medium, name):
+    """A near-index-matched smooth dielectric boundary (η 1.03 inside, 1
+    outside, fully permeable) around `inner_medium`, vacuum outside. η of
+    exactly 1 would make the transmission half-vector degenerate."""
+    eta = b.add_curve(spectral.FlatCurve(1.03), name="eta_boundary")
+    air = b.add_curve(spectral.FlatCurve(1.0), name="air")
+    kz = b.add_curve(spectral.FlatCurve(0.0), name="kz")
+    return b.add_ggx(0.001, eta, air, kz, permeability=1.0,
+                     inner_medium=inner_medium, outer_medium=0, name=name)
+
+
+def _unit_env(b, spectral):
+    one = b.add_curve(spectral.FlatCurve(1.0), name="one")
+    b.set_environment_constant(one, 1.0)
+    b.env_sampling_probability = 1.0
+
+
+def medium_sphere(b, spectral, sigma_s, sigma_a, g):
+    """A unit sphere of a homogeneous HG medium behind a near-index-matched
+    boundary, under a unit constant environment."""
+    med = b.add_medium_hg(
+        b.add_curve(spectral.FlatCurve(g), name="g"),
+        b.add_curve(spectral.FlatCurve(sigma_s), name="ss"),
+        b.add_curve(spectral.FlatCurve(sigma_a), name="sa"), name="fog")
+    b.add_sphere([0.0, 0.0, 0.0], 1.0, _boundary(b, spectral, med, "shell"))
+    _unit_env(b, spectral)
+    return b
+
+
+def absorbing_sphere(b, spectral):
+    """σ_s = 0, σ_a = 0.5: a ray through the centre keeps exp(-1) of the
+    environment's radiance (Beer-Lambert over the 2-unit chord)."""
+    return medium_sphere(b, spectral, 0.0, 0.5, 1.0)
+
+
+def scattering_furnace(b, spectral):
+    """σ_s = 1, σ_a = 0, isotropic: a pure scatterer in a unit furnace
+    conserves energy, so the sphere is invisible."""
+    return medium_sphere(b, spectral, 1.0, 0.0, 0.0)
+
+
+NESTED_SIGMA_A = (0.4, 0.7)
+
+
+def nested_media(b, spectral):
+    """Two absorbing media in overlapping unit spheres (centres at x = -0.4
+    and 0.4, vacuum outside both): a ray along x sees each 2-unit chord in
+    full, exp(-2 σ_A - 2 σ_B), with both media active in the lens-shaped
+    overlap. Only a tracked stack of media gets that right; tracking the
+    innermost medium alone gives exp(-0.8 σ_A - 1.2 σ_B)."""
+    g = b.add_curve(spectral.FlatCurve(0.0), name="g")
+    ssz = b.add_curve(spectral.FlatCurve(0.0), name="ssz")
+    for tag, sa, x in zip("AB", NESTED_SIGMA_A, (-0.4, 0.4)):
+        med = b.add_medium_hg(
+            g, ssz, b.add_curve(spectral.FlatCurve(sa), name=f"sa{tag}"),
+            name=tag)
+        b.add_sphere([x, 0.0, 0.0], 1.0,
+                     _boundary(b, spectral, med, f"shell{tag}"))
+    _unit_env(b, spectral)
+    return b
+
+
+def fog_cornell(b, spectral):
+    """The Cornell box holding two overlapping balls of participating media
+    behind near-index-matched boundaries: a forward-scattering HG fog
+    (g 0.6, σ_a 0.3, σ_s = 1.5 + 6e5 / λ², so the four hero-wavelength
+    lanes differ) in the middle of the box, and a Rayleigh medium (σ_s ∝
+    λ⁻⁴) in a ball around the ceiling light, so that a scatter inside it
+    sees the light unoccluded through the medium. The balls overlap between
+    z = 0.7 and 0.85, where the tracked stack is two deep. It stands in for
+    a Cornell box with media whose scene file is not in the repository."""
+    cornell_box(b, spectral)
+    fog = b.add_medium_hg(
+        b.add_curve(spectral.FlatCurve(0.6), name="fog_g"),
+        b.add_curve(spectral.CauchyCurve(1.5, 600000.0), name="fog_ss"),
+        b.add_curve(spectral.FlatCurve(0.3), name="fog_sa"), name="fog")
+    haze = b.add_medium_rayleigh(
+        b.add_curve(spectral.FlatCurve(1.5), name="haze_ior"), 1.2e7,
+        name="haze")
+    b.add_sphere([0.5, 0.5, 0.55], 0.3, _boundary(b, spectral, fog, "fog_shell"))
+    b.add_sphere([0.5, 0.5, 1.0], 0.3,
+                 _boundary(b, spectral, haze, "haze_shell"))
+    return b

@@ -5,9 +5,9 @@
 leaves as numpy arrays under their JAX field names (`prims.pa`,
 `mats.mtype`, `bank.values`, `env.kind`, `lights`, `n_lights`, ...) and
 places them on a device; it takes Constant, Sun and HDR environments. The
-port's own `SceneBuilder.build()` goes through it too. The BVH, the
-two-level accelerator and the medium table are not part of the port yet
-(ROADMAP §1 items 9 and 8).
+port's own `SceneBuilder.build()` goes through it too. The medium table
+(`mediums.*`) comes across whole. The BVH and the two-level accelerator are
+not part of the port yet (ROADMAP §1 item 9).
 """
 
 from __future__ import annotations
@@ -20,12 +20,13 @@ import torch
 from pathtracer_tpu_torch.core.spectral import CurveBank
 from pathtracer_tpu_torch.geometry.soa import Primitives
 from pathtracer_tpu_torch.materials.tables import Materials
+from pathtracer_tpu_torch.mediums.tables import Mediums
 from pathtracer_tpu_torch.textures.texture import Textures
 from pathtracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pathtracer_tpu_torch.world.environment import Environment
 
 _GROUPS = (("prims", Primitives), ("mats", Materials), ("tex", Textures),
-           ("bank", CurveBank), ("env", Environment))
+           ("bank", CurveBank), ("env", Environment), ("mediums", Mediums))
 _TOP = ("lights", "n_lights", "env_sampling_probability", "center", "radius")
 _HOST_FLOATS = ("bank.lam_lo", "bank.lam_hi")
 
@@ -44,6 +45,7 @@ class World:
     tex: Textures
     bank: CurveBank
     env: Environment
+    mediums: Mediums
     lights: torch.Tensor  # i32[L_pad] prim indices tagged Light
     n_lights: torch.Tensor  # i32 actual count
     env_sampling_probability: torch.Tensor  # f32

@@ -90,7 +90,21 @@ def test_builder_refuses_outside_slice(what):
         if what == "transform":
             b.add_transform(np.eye(4))
         elif what == "medium":
-            b.add_medium_hg(c, c, c)
+            # media build; medium-aware settings take at most 16 of them
+            # (17 table rows with vacuum), as the JAX gate does
+            for _ in range(17):
+                med = b.add_medium_hg(c, c, c)
+            eta = b.add_curve(torch_spectral.FlatCurve(1.03))
+            b.add_sphere([0.0, 0.0, 0.0], 1.0, b.add_ggx(
+                0.001, eta, c, c, permeability=1.0, inner_medium=med))
+            world = b.build("cpu")
+            assert world.mediums.count == 18
+            assert int(world.mats.inner_medium[0]) == 17
+            cam = make_projective_camera(**scenes.CORNELL_CAMERA,
+                                         device="cpu")
+            torch_mk.build_mega_scene(world, cam)  # surface transport
+            torch_mk.build_mega_scene(world, cam, settings=both_settings(
+                **NEE_SETTINGS, medium_aware=True)[1])
         elif what == "texels":
             # multi-texel textures build, and the texture-feed round takes
             # them as a lambertian's reflectance; the megakernel refuses

@@ -16,7 +16,10 @@ lanes. That holds for the fused round, for K12 (shade_sweep, its K2
 rows) and K34 (finalize_sweep) of the two-program round on the multi-chunk
 gem, the HDR blob and the Sun scene, and for K1 (sweep_closest_rows: hit and
 prim id exact, t within rtol 1e-5), K2 (shade) and K34 of the texture-feed
-round on the textured Cornell box, each chained over three rounds."""
+round on the textured Cornell box, each chained over three rounds; and
+for the medium instantiations of K12, K2, K34 and K4 and the split round's
+K3 (sweep_any_rows: mask equal) and K4 (finalize) on the fog and nested
+media scenes."""
 
 import numpy as np
 import pytest
@@ -235,6 +238,83 @@ def test_texfeed_kernels_match_plain(dev, c_lanes):
         assert frac >= 0.9999 and close
         sk, sp = ok[:mk.NS], op[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("recipe,cam,c_lanes,medium", [
+    ("fog_cornell", "CORNELL_CAMERA", 1, True),
+    ("fog_cornell", "CORNELL_CAMERA", 4, True),
+    ("nested_media", "MEDIUM_CAMERA", 1, True),
+    ("gem_cornell", "CORNELL_CAMERA", 4, False)])
+def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
+                                              medium):
+    """Three chained rounds, medium-aware or not: K12 and K34 (their medium
+    instantiations where `medium`) and the split round's K1, K2, K3 and K4
+    against their twins; K3's mask equal to its twin's on every lane; and
+    the split round's K2 rows and out rows equal to K12's and K34's bit for
+    bit."""
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**getattr(scenes, cam), device=dev)
+    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4,
+                   medium_aware=medium)
+    scene = mk.build_mega_scene(world, cam, dev, s)
+    assert (scene.med is not None) == medium
+    a = mk.RoundArgs.make(scene.consts, s, 128, 128)
+    n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 128 * 128,
+                            n_pad, 4)
+    sk = state
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.S_MSTK0, mk.S_MSTK1,
+            mk.O4_BOUNCE_CT, mk.O4_CAMERA_CT]
+    k2_disc = k2_discrete(2) + [mk.O_SCAT, mk.O_MSTK, mk.O_MSTK + 1]
+    scattered = 0
+    for _ in range(3):
+        u12 = torch.rand((mk.n_u_rows(2, medium), n_pad), generator=gen,
+                         device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        mf = mk.med_feed(scene.med, sk, u12, 2, c_lanes) if medium else None
+        before = (mk.SHADE_LAUNCHES, mk.FINALIZE_LAUNCHES, mk.K2_LAUNCHES,
+                  mk.K4_LAUNCHES, dense.ROWS_LAUNCHES,
+                  dense.ANY_ROWS_LAUNCHES)
+        k2k = mk.shade_sweep(u12, sk, scene, a, None, mf)
+        k2p = mk.shade_sweep_plain(u12, sk, a=a, mf=mf, **mk._tables(scene))
+        frac, close = match_rows(k2k, k2p, k2_disc)
+        assert frac >= 0.9999 and close
+        ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+        op = mk.finalize_sweep_plain(u34, sk, k2k, scene.dense_tab, a)
+        frac, close = match_rows(ok, op, disc)
+        assert frac >= 0.9999 and close
+        # the split round on the same inputs
+        tp = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O, mk.S_ALIVE)
+        k2s = mk.shade(u12, sk, tp, scene, a, None, None, mf)
+        assert torch.equal(k2s, k2k)
+        blks = []
+        for si in range(2):
+            row0 = mk.O_NEE + mk.NEE_ROWS * si
+            blk = dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6,
+                                       live_row=row0 + 7)
+            assert torch.equal(blk, dense.sweep_any_rows_plain(
+                k2s, scene.dense_tab, row0, row0 + 6, row0 + 7))
+            assert not blk[0][k2s[row0 + 7] <= 0.5].any()
+            blks.append(blk)
+        os_ = mk.finalize(u34, sk, k2s, blks, scene, a)
+        frac, close = match_rows(os_, mk.finalize_plain(u34, sk, k2s, blks,
+                                                        a), disc)
+        assert frac >= 0.9999 and close
+        assert torch.equal(os_, ok)
+        after = (mk.SHADE_LAUNCHES, mk.FINALIZE_LAUNCHES, mk.K2_LAUNCHES,
+                 mk.K4_LAUNCHES, dense.ROWS_LAUNCHES, dense.ANY_ROWS_LAUNCHES)
+        assert [y - x for x, y in zip(before, after)] == [1, 1, 1, 1, 1, 2]
+        scattered += int(k2k[mk.O_SCAT].sum())
+        sk = ok[:mk.NS]
+    assert np.isfinite(sk.cpu().numpy()).all()
+    assert (scattered > 0) == (recipe == "fog_cornell")
+    # every lane swept when no worth row is named
+    row0 = mk.O_NEE
+    assert torch.equal(
+        dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6),
+        dense.sweep_any_rows_plain(k2s, scene.dense_tab, row0, row0 + 6))
 
 
 def _lt_setup(dev, recipe, cam, cs, spawn_inkernel, lanes=1 << 15):

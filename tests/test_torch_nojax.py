@@ -1,7 +1,9 @@
 """The port stands without JAX: in a fresh interpreter where `jax` and
 `pathtracer_tpu` cannot be imported, every module of pathtracer_tpu_torch
-imports, and a 16x16 @ 1 spp path-traced render and a 16x16 @ 2 paths per
-pixel light-traced render run on the CPU. And chip_smoke.py,
+imports, and a 16x16 @ 1 spp path-traced render, a 16x16 @ 2 paths per
+pixel light-traced render and a 12x12 @ 2 spp medium-aware render of the fog
+box (through the two-program and the split round, which must agree) run on
+the CPU. And chip_smoke.py,
 which drives the port on a GPU, exits non-zero and prints no result where
 there is no CUDA device."""
 
@@ -44,6 +46,14 @@ film, profile, _ = render_splatted(world, cam, LTSettings(max_bounces=4), 16,
                                    16, 2, generator=torch.Generator().manual_seed(0))
 assert film.shape == (16, 16, 3) and bool(torch.isfinite(film).all())
 assert float(film[..., 1].mean()) > 0 and profile.light_rays == 512
+world = scenes.fog_cornell(SceneBuilder(), spectral).build("cpu")
+cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
+medium = PTSettings(light_samples=2, medium_aware=True, hwss=True)
+films = [render_regen(world, cam, medium, 12, 12, 2, stepper=stepper,
+                      generator=torch.Generator().manual_seed(0))[0]
+         for stepper in (None, "split")]
+assert films[0].shape == (12, 12, 3) and bool(torch.isfinite(films[0]).all())
+assert float(films[0][..., 1].mean()) > 0 and torch.equal(*films)
 print("MODULES", len(names))
 """
 
@@ -53,7 +63,7 @@ def test_port_imports_and_renders_without_jax():
         [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _SCRIPT],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert int(res.stdout.split("MODULES")[1]) >= 20
+    assert int(res.stdout.split("MODULES")[1]) >= 24
 
 
 def test_port_sources_name_no_jax():

@@ -165,17 +165,24 @@ def test_render_routes_by_gate(monkeypatch, recipe, route):
 
 @pytest.mark.parametrize("what", ["medium", "uv_texture", "too_many_prims"])
 def test_render_refuses_with_roadmap_item(what):
-    """Medium-aware settings (the two-program round's medium branch, next),
-    a multi-texel texture used other than as a lambertian's reflectance or
-    the HDR map, and scenes over 8192 prims (both for the regen integrator
-    without kernels) raise, naming their ROADMAP item."""
+    """Medium-aware settings over more than 16 media, a multi-texel texture
+    used other than as a lambertian's reflectance or the HDR map, and scenes
+    over 8192 prims (all for the regen integrator without kernels) raise,
+    naming their ROADMAP item; medium-aware settings on a scene the gate
+    takes do not."""
     _, ts = both_settings(**NEE_SETTINGS)
     cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
     world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
-    match = {"medium": "ROADMAP §2, queue 2", "uv_texture":
+    match = {"medium": "ROADMAP §1 item 5", "uv_texture":
              "ROADMAP §1 item 5", "too_many_prims": "ROADMAP §1 item 5"}
     if what == "medium":
         ts = type(ts)(**{**ts.__dict__, "medium_aware": True})
+        assert tm.mega_available(world, cam, ts)
+        b = scenes.cornell_box(SceneBuilder(), spectral)
+        c = b.curve_index("white")
+        for _ in range(16):
+            b.add_medium_hg(c, c, c)
+        world = b.build("cpu")
     elif what == "uv_texture":
         b = scenes.cornell_box(SceneBuilder(), spectral)
         c = b.curve_index("white")

@@ -106,15 +106,20 @@ def test_wrappers_take_plain_twins_on_cpu():
 
 
 def test_k2_layout_matches_jax():
-    """The K2 row map is the JAX package's, medium rows included."""
+    """The K2 row map is the JAX package's, the medium rows and the medium
+    feed's included."""
     for name in ("O_RAD", "O_AT_SURF", "O_ENV_CT", "O_SHADOW_CT", "O_FPDF",
                  "O_SAMPLE_OK", "O_RATIO", "O_ONEW", "O_DNEW", "O_PSCALE",
                  "O_NEE", "NU4"):
         assert getattr(tm, name) == getattr(jm, name), name
-    assert tm.O_MEDIUM == jm.O_SCAT
+    for name in ("O_SCAT", "O_MEDW", "O_MSTK", "S_MSTK0", "S_MSTK1"):
+        assert getattr(tm, name) == getattr(jm, name), name
     for ls in range(5):
         assert tm.k2_rows(ls) == jm._k2_rows(ls)
-        assert tm.n_u_rows(ls) == jm._n_u_rows(ls)
+        for medium in (False, True):
+            assert tm.n_u_rows(ls, medium) == jm._n_u_rows(ls, medium)
         for c in (1, 4):
             assert tm.ef_rows(ls, c) == jm._ef_rows(ls, c)
+            assert tm.mf_rows(c) == jm._mf_rows(c)
+            assert tm.mf_idx(c) == jm._mf_idx(c)
     assert np.isclose(tm.MEGA_MAX_PRIMS, jm.MEGA_MAX_PRIMS)

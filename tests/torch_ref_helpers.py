@@ -79,6 +79,10 @@ RECIPES = {
     "textured_sun": (scenes.textured_sun, scenes.SPHERE_CAMERA),
     "chip_lens": (scenes.chip_lens, scenes.CHIP_LENS_CAMERA),
     "spike_box": (scenes.spike_box, scenes.SPIKE_CAMERA),
+    "absorbing_sphere": (scenes.absorbing_sphere, scenes.MEDIUM_CAMERA),
+    "scattering_furnace": (scenes.scattering_furnace, scenes.MEDIUM_CAMERA),
+    "nested_media": (scenes.nested_media, scenes.MEDIUM_CAMERA),
+    "fog_cornell": (scenes.fog_cornell, scenes.CORNELL_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -183,36 +187,58 @@ def chained_rounds(recipe, c_lanes, rounds=3, width=64, spp=4):
     return out_rounds
 
 
-def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4):
-    """`rounds` rounds of the JAX two-program round (_k12_call + _k34_call,
-    interpret mode) and of the port's plain shade_sweep + finalize_sweep
-    (after env_feed for Sun and HDR environments), each chained on its own
-    state from the JAX initial state, with the uniform blocks the JAX calls
-    draw. Returns per round a dict: jax/port k2 rows, the alive mask going
-    in, jax state, port out (with the K2 counter rows at O4_SHADOW_CT and
-    O4_ENV_CT, as check_round reads them) and the jax counter delta."""
+def two_prog_setup(recipe, c_lanes, width, spp, medium=False,
+                   settings=NEE_SETTINGS):
+    """Both packages' baked scenes and round arguments of one recipe, and
+    the JAX initial state: a namespace with the JAX scene, tables tuple,
+    frozen settings and consts, key, k_iter, state and counters, and the
+    port's scene, RoundArgs and settings."""
+    from types import SimpleNamespace
+
     jw, tw, jc, tc = both_worlds(recipe)
-    js, ts = both_settings(**NEE_SETTINGS, hwss=c_lanes == 4)
+    js, ts = both_settings(**settings, hwss=c_lanes == 4,
+                           medium_aware=medium)
     n = width * width
     n_pad = -(-n // tm.TILE) * tm.TILE
     jscene = jm.build_mega_scene(jw, jc, js)
     st_t = jax_settings_t(js, c_lanes, width, width, n)
-    ct_t = jm._freeze(jscene.consts)
-    tabs = (jscene.prim_tab, jscene.dense_tab, jscene.mat_tab,
-            jscene.light_tab, jscene.spec_tab, jscene.env_args, None, None)
     key = jax.random.PRNGKey(3)
-    k_iter = sampling.fold(key, 2)
     state, counters = jm._mega_init(jc, key, st_t, n, n_pad,
                                     jnp.float32(spp))
-    tscene = tm.build_mega_scene(tw, tc)
-    a = tm.RoundArgs.make(tscene.consts, ts, width, width)
+    tscene = tm.build_mega_scene(tw, tc, settings=ts)
+    return SimpleNamespace(
+        jscene=jscene, st_t=st_t, ct_t=jm._freeze(jscene.consts),
+        tabs=(jscene.prim_tab, jscene.dense_tab, jscene.mat_tab,
+              jscene.light_tab, jscene.spec_tab, jscene.env_args,
+              jscene.med_args, None),
+        key=key, k_iter=sampling.fold(key, 2), state=state,
+        counters=counters, n_pad=n_pad, tscene=tscene, ts=ts,
+        a=tm.RoundArgs.make(tscene.consts, ts, width, width))
+
+
+def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4,
+                     medium=False):
+    """`rounds` rounds of the JAX two-program round (_k12_call + _k34_call,
+    interpret mode) and of the port's plain shade_sweep + finalize_sweep
+    (after env_feed for Sun and HDR environments and med_feed for
+    medium-aware settings), each chained on its own state from the JAX
+    initial state, with the uniform blocks the JAX calls draw. Returns per
+    round a dict: jax/port k2 rows, the alive mask going in, jax state, port
+    out (with the K2 counter rows at O4_SHADOW_CT and O4_ENV_CT, as
+    check_round reads them) and the jax counter delta."""
+    s = two_prog_setup(recipe, c_lanes, width, spp, medium)
+    jscene, st_t, ct_t, tabs, k_iter = (s.jscene, s.st_t, s.ct_t, s.tabs,
+                                        s.k_iter)
+    state, counters, n_pad, tscene, a = (s.state, s.counters, s.n_pad,
+                                         s.tscene, s.a)
     tstate = torch.as_tensor(np.array(state))
     it = jnp.int32(0)
     out_rounds = []
     for _ in range(rounds):
         ku = jax.random.fold_in(k_iter, it)
         u12 = torch.as_tensor(np.array(jax.random.uniform(
-            jax.random.fold_in(ku, 0), (tm.n_u_rows(a.light_samples), n_pad))))
+            jax.random.fold_in(ku, 0),
+            (tm.n_u_rows(a.light_samples, a.medium), n_pad))))
         u34 = torch.as_tensor(np.array(jax.random.uniform(
             jax.random.fold_in(ku, 1), (tm.NU4, n_pad))))
         c0 = np.asarray(counters)
@@ -223,7 +249,9 @@ def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4):
                                            True)
         ef = (tm.env_feed(tscene.env, tstate, u12, a.light_samples, c_lanes)
               if tscene.env is not None else None)
-        k2 = tm.shade_sweep(u12, tstate, tscene, a, ef)
+        mf = (tm.med_feed(tscene.med, tstate, u12, a.light_samples, c_lanes)
+              if tscene.med is not None else None)
+        k2 = tm.shade_sweep(u12, tstate, tscene, a, ef, mf)
         out = tm.finalize_sweep(u34, tstate, k2, tscene, a)
         tstate = out[:tm.NS]
         out = out.numpy().copy()
@@ -231,7 +259,57 @@ def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4):
         out[tm.O4_ENV_CT] = k2[tm.O_ENV_CT].numpy()
         out_rounds.append(dict(jk2=np.asarray(jk2), k2=k2.numpy(),
                                alive=alive, state=np.asarray(state),
-                               out=out, counts=np.asarray(counters) - c0))
+                               out=out, counts=np.asarray(counters) - c0,
+                               setup=s))
+    return out_rounds
+
+
+def chained_split(recipe, c_lanes, rounds=2, width=32, spp=4, medium=False):
+    """`rounds` split rounds of the JAX package (K1 `sweep_closest_rows`,
+    `_k2_call`, K3 `sweep_any_rows` per NEE sample, `_k4_call`; interpret
+    mode), chained on the JAX state, and on each round's JAX inputs the
+    port's K3 twin (on the JAX K2 rows) and K4 twin (on the JAX state, K2
+    rows and blocked blocks, with the uniform block `_k4_call` draws).
+    Returns per round a dict: the JAX K2 rows, the jax/port blocked masks
+    per NEE sample, the JAX state after the round, the port's K4 out (with
+    the K2 counter rows, as check_round reads them) and the jax counter
+    delta."""
+    s = two_prog_setup(recipe, c_lanes, width, spp, medium)
+    state, counters, a = s.state, s.counters, s.a
+    nk2 = tm.k2_rows(a.light_samples)
+    it = jnp.int32(0)
+    out_rounds = []
+    for _ in range(rounds):
+        u34 = torch.as_tensor(np.array(jax.random.uniform(
+            jax.random.fold_in(jax.random.fold_in(s.k_iter, it), 1),
+            (tm.NU4, s.n_pad))))
+        jtp = jax_rows_sweep(state, s.jscene.dense_tab, s.jscene.consts)
+        jk2 = jm._k2_call(state, jtp, s.tabs, s.k_iter, it, s.st_t, s.ct_t,
+                          True)
+        jblks = [jdense.sweep_any_rows(
+            jk2, s.jscene.dense_tab, row0=jm.O_NEE + 12 * si,
+            tmin_c=jm.INTERSECTION_TIME_OFFSET,
+            tmax_row=jm.O_NEE + 12 * si + 6, src_rows=nk2, interpret=True)
+            for si in range(a.light_samples)]
+        tin = torch.as_tensor(np.array(state))
+        tk2 = torch.as_tensor(np.array(jk2))
+        c0 = np.asarray(counters)
+        state, counters, it = jm._k4_call(state, jk2, jblks, counters,
+                                          s.k_iter, it, s.st_t, s.ct_t, True)
+        blks = [tdense.sweep_any_rows(
+            tk2, s.tscene.dense_tab, tm.O_NEE + tm.NEE_ROWS * si,
+            tm.O_NEE + tm.NEE_ROWS * si + 6,
+            live_row=tm.O_NEE + tm.NEE_ROWS * si + 7)
+            for si in range(a.light_samples)]
+        out = tm.finalize(u34, tin, tk2, [torch.as_tensor(np.array(b))
+                                          for b in jblks], s.tscene, a)
+        out = out.numpy().copy()
+        out[tm.O4_SHADOW_CT] = tk2[tm.O_SHADOW_CT].numpy()
+        out[tm.O4_ENV_CT] = tk2[tm.O_ENV_CT].numpy()
+        out_rounds.append(dict(
+            jk2=np.asarray(jk2), jblks=[np.asarray(b) for b in jblks],
+            blks=[b.numpy() for b in blks], state=np.asarray(state),
+            out=out, counts=np.asarray(counters) - c0))
     return out_rounds
 
 
@@ -309,7 +387,7 @@ def chained_texfeed(recipe, c_lanes, rounds=2, width=32, spp=4):
 
 # the fused round's discrete state rows and counter rows (see
 # test_torch_fused_round.py for the tolerances check_round applies)
-DISCRETE = (tm.S_ALIVE, tm.S_BOUNCE, tm.S_DONE)
+DISCRETE = (tm.S_ALIVE, tm.S_BOUNCE, tm.S_DONE, tm.S_MSTK0, tm.S_MSTK1)
 CT_ROWS = {tm.O4_BOUNCE_CT: 1, tm.O4_CAMERA_CT: 0, tm.O4_SHADOW_CT: 2,
            tm.O4_ENV_CT: 4}  # out row -> counter slot
 
@@ -334,28 +412,35 @@ def check_round(ref_state, out, ref_counts):
                                    err_msg=f"row {row}")
 
 
-def check_k2(jk2, k2, alive, light_samples):
+def check_k2(jk2, k2, alive, light_samples, fpdf_rtol=1e-4):
     """K2 rows of the port's K12 against the JAX K12 on the lanes where K34
     reads them (see test_torch_two_prog.py for the tolerances). The lane
     fractions allow one lane where few lanes are at a surface: a bounce
-    ray that grazes the surface it left re-hits it at an ill-conditioned t."""
+    ray that grazes the surface it left re-hits it at an ill-conditioned t.
+    `fpdf_rtol` is the tolerance most lanes' sampled pdf (O_FPDF) must meet;
+    the medium scenes' near-index-matched boundaries widen it (see
+    test_torch_medium_round.py)."""
     def few(bad, frac):
         return bad.sum() <= max(1, frac * bad.size)
 
-    surf = jk2[tm.O_AT_SURF] > 0.5
+    # the lanes K34 reads the sample rows on: at a surface or scattered in a
+    # medium; the medium rows (the scatter flag, the lane weights and the
+    # stack) it reads on every live lane. Outside medium-aware settings
+    # both packages write the medium rows as zeros.
+    surf = (jk2[tm.O_AT_SURF] > 0.5) | (jk2[tm.O_SCAT] > 0.5)
     disc = [tm.O_AT_SURF, tm.O_ENV_CT, tm.O_SHADOW_CT, tm.O_SAMPLE_OK] + [
         tm.O_NEE + tm.NEE_ROWS * si + 7 for si in range(light_samples)]
-    live_rows = [tm.O_RAD + ci for ci in range(4)] + disc[:3]
+    disc += [tm.O_SCAT, tm.O_MSTK, tm.O_MSTK + 1]
+    live_rows = [tm.O_RAD + ci for ci in range(4)] + disc[:3] + list(
+        range(tm.O_SCAT, tm.O_NEE))
     for row in range(tm.O_NEE + tm.NEE_ROWS * light_samples):
-        if tm.O_MEDIUM <= row < tm.O_NEE:
-            assert not k2[row].any(), row
-            continue
         m = alive if row in live_rows else surf
         x, y = jk2[row][m], k2[row][m]
         if row in disc:
             assert few(x != y, 1e-3), f"k2 row {row}"
             continue
-        ok = np.isclose(y, x, rtol=1e-4, atol=1e-5)
+        ok = np.isclose(y, x, rtol=fpdf_rtol if row == tm.O_FPDF else 1e-4,
+                        atol=1e-5)
         assert few(~ok, 5e-3), f"k2 row {row}: {ok.mean()} within 1e-4"
         np.testing.assert_allclose(
             y, x, rtol=2e-2 if row == tm.O_FPDF else 5e-3, atol=1e-4,
