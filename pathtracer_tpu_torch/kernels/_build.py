@@ -107,12 +107,12 @@ _SIGNATURES = {
     #  spec_rows, args*, stream)
     "fused_round_launch": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
                            _I, _P, _P],
-    # (u, state, ef, mf, k2, n, dense, p_dense, prim, p_pad, mat, light,
-    #  spec, args*, stream)
-    "shade_sweep_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P,
-                           _P, _P, _P],
-    # (u, state, k2, out, n, dense, p_dense, args*, stream)
-    "finalize_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _P],
+    # (u, state, ef, mf, k2, n, sweep, p_rows, resident_rows, prim, p_pad,
+    #  mat, light, spec, args*, stream)
+    "shade_sweep_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P,
+                           _P, _P, _P, _P],
+    # (u, state, k2, out, n, sweep, p_rows, resident_rows, args*, stream)
+    "finalize_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
     # (src, row0, alive_row, dense, p_dense, out, n, stream)
     "sweep_closest_rows_launch": [_P, _I, _I, _P, _I, _P, _I, _P],
     # (u, state, tp, ef, tf, mf, k2, n, prim, p_pad, mat, light, spec,
@@ -137,6 +137,9 @@ _SIGNATURES = {
     # c_lanes, ...); (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1, ...)
     "fused_round_attrs": [_I, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],
+    # (which: 0 K12, 1 K34; + 8 medium; c_lanes; p_rows; resident_rows;
+    #  static_bytes*, dynamic_bytes*, blocks_per_sm*)
+    "walk_shared_bytes": [_I, _I, _I, _I, _P, _P, _P],
     "lt_round_attrs": [_I, _P, _P],
     "round_args_size": [],
     "lt_args_size": [],

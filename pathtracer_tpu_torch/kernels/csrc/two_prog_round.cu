@@ -34,26 +34,44 @@
 //
 // One thread runs one lane. The medium branch is the template parameter
 // MEDIUM of K12, K2, K34 and K4 (round_common.cuh): the surface
-// instantiations compile without it. The table walks are tiles.cuh's. What
-// bounds K12, K34, K1 and K3 on the H100: the sweeps. A live lane tests every
-// prim of the table for its closest hit and for each shadow ray
-// (8192 prims x ~60 flops), against ~1 KB of memory traffic per lane and
-// round, so the kernels are compute-bound. The table is up to 8192 x 48 B
-// = 384 KB, more than a block's shared memory, so it is staged in tiles of
-// TILE_P prims (12 KB) that every thread of the block walks together, as
-// dense_sweep.cu does; K34 walks the table once per light sample and stops
-// as soon as no shadow ray of the block is still unresolved. The hit prim's
-// record is an indexed load of its prim_tab column through the read-only
-// cache (the JAX package's one-hot MXU fetch, _prim_attr_fetch). The
-// JAX package skips whole dead tiles; here each dead lane skips: K12 writes
-// 0 to every K2 row of a dead lane, K34 passes its state through, exactly
-// as the plain twins do. K1 skips dead lanes too (t = inf, id = -1 there),
-// where the Pallas rows sweep sweeps every lane. K2 sweeps nothing: it is
-// bound by its state, K2-row and table reads, about 0.6 KB per lane.
+// instantiations compile without it. The hit prim's record is an indexed
+// load of its prim_tab column through the read-only cache (the JAX
+// package's one-hot MXU fetch, _prim_attr_fetch). The JAX package skips
+// whole dead tiles; here each dead lane skips: K12 writes 0 to every K2 row
+// of a dead lane, K34 passes its state through, exactly as the plain twins
+// do. K1 skips dead lanes too (t = inf, id = -1 there), where the Pallas
+// rows sweep sweeps every lane. K2 sweeps nothing: it is bound by its state,
+// K2-row and table reads, about 0.6 KB per lane.
+//
+// What bounds K12, K34, K1 and K3 on the H100: the sweeps' f32 operations.
+// A live lane tests every prim of the table for its closest hit and for
+// each unblocked shadow ray (up to 8192 prims x 23 to 41 operations),
+// against ~1 KB of memory traffic per lane and round. The edge functions must round
+// as the twin's separate multiplies and subtracts do, so the library is
+// built with --fmad=false and nothing contracts to an FMA: the card's
+// data-sheet f32 rate counts an FMA as two operations, and a sweep of
+// separate multiplies and adds cannot go under twice its bound by
+// operations.
+//
+// K12 (shade_sweep_kernel, replaces megakernel.py:_k12_call) and K34
+// (finalize_sweep_kernel, replaces megakernel.py:_k34_call) walk the table
+// through walk.cuh, the walk designed for this card: the compact baked
+// sweep table (64-byte rows, a rect's normal and edge norms precomputed)
+// is brought into shared memory by asynchronous bulk copies, whole and once
+// per block where it fits the residency budget, through a ring of tiles
+// otherwise; the ray's permutation, shear and reciprocals are computed once
+// per ray, not once per prim; and K34 tests each row against two NEE
+// samples' shadow rays of the lane at once (pairs of samples, in order; the
+// radiance is still summed in sample order), leaving the rows per warp when
+// no lane has a ray unresolved. K1 and K3 keep tiles.cuh's walk of the
+// [P_pad, 128] table (256-prim tiles staged between two block barriers, K3
+// stopping when no shadow ray of the block is unresolved); K3's mask equals
+// K34's verdicts lane for lane, which holds the two walks to each other.
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
 #include "tiles.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -213,11 +231,14 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ ef, const float* __restrict__ mf,
     float* __restrict__ k2, int n,
-    const float* __restrict__ dense, int p_dense,
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
     const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
     const float* __restrict__ light, const float* __restrict__ spec,
     const RoundArgs a) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
+                                   walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   const bool live = i < n && state[S_ALIVE * N + i] > 0.5f;
@@ -225,7 +246,7 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
   if (live) load_ray(state, N, i, S_O, &o, &d);
   float t_hit = INFINITY;
   int pid = -1;
-  closest_tiles(dense, p_dense, prims, live, o, d, &t_hit, &pid);
+  walk::closest(T, live, o, d, &t_hit, &pid);
   if (i >= n) return;
   shade_lane<C, MEDIUM>(live, t_hit, pid, u, state, ef, nullptr, mf, k2, N, i,
                         prim, p_pad, mat, light, spec, a);
@@ -289,37 +310,69 @@ __device__ __forceinline__ void finalize_lane(
                             0.0f, 0.0f, mstk);
 }
 
+// the shadow walks of NEE samples si0 .. si0 + NR - 1 of one lane, together,
+// then each resolved into the radiance in sample order
+template <int C, int NR>
+__device__ __forceinline__ void nee_walk(walk::Table& T, bool live,
+                                         const float* __restrict__ k2,
+                                         size_t N, int i, int si0,
+                                         float* rad) {
+  auto K = [&](int r) { return k2[r * N + i]; };
+  bool worth[NR], blocked[NR];
+  V3 so[NR], sd[NR];
+  float tmax[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int b = O_NEE + NEE_ROWS * (si0 + j);
+    worth[j] = live && K(b + 7) > 0.5f;
+    so[j] = sd[j] = V3{0.f, 0.f, 0.f};
+    tmax[j] = 0.0f;
+    if (worth[j]) {
+      so[j] = V3{K(b), K(b + 1), K(b + 2)};
+      sd[j] = V3{K(b + 3), K(b + 4), K(b + 5)};
+      tmax[j] = K(b + 6);
+    }
+  }
+  walk::any_hit<NR>(T, worth, so, sd, tmax, blocked);
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    if (worth[j] && !blocked[j]) {
+      const int b = O_NEE + NEE_ROWS * (si0 + j);
+#pragma unroll
+      for (int ci = 0; ci < C; ++ci) rad[ci] = rad[ci] + K(b + 8 + ci);
+    }
+  }
+}
+
+// K34: the NEE shadow walks, then the finalize
 template <int C, bool MEDIUM>
 __global__ void __launch_bounds__(BLOCK) finalize_sweep_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ k2, float* __restrict__ out, int n,
-    const float* __restrict__ dense, int p_dense, const RoundArgs a) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
+    const RoundArgs a) {
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  // with no light samples no walk follows
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows,
+                                   a.light_samples > 0, walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   const bool live = i < n && state[S_ALIVE * N + i] > 0.5f;
-  auto K = [&](int r) { return k2[r * N + i]; };
   float rad[C];
 #pragma unroll
-  for (int ci = 0; ci < C; ++ci) rad[ci] = live ? K(O_RAD + ci) : 0.0f;
+  for (int ci = 0; ci < C; ++ci)
+    rad[ci] = live ? k2[(O_RAD + ci) * N + i] : 0.0f;
 
-  // ---- NEE shadow sweeps, one walk of the table per light sample, each
-  // resolved into the radiance in sample order
-  for (int si = 0; si < a.light_samples; ++si) {
-    const int b = O_NEE + NEE_ROWS * si;
-    const bool worth = live && K(b + 7) > 0.5f;
-    V3 so{0.f, 0.f, 0.f}, sd{0.f, 0.f, 0.f};
-    float tmax = 0.0f;
-    if (worth) {
-      so = V3{K(b), K(b + 1), K(b + 2)};
-      sd = V3{K(b + 3), K(b + 4), K(b + 5)};
-      tmax = K(b + 6);
-    }
-    const bool blocked =
-        tiles::any_hit_tiles(dense, p_dense, prims, worth, so, sd, tmax);
-    if (worth && !blocked) {
-#pragma unroll
-      for (int ci = 0; ci < C; ++ci) rad[ci] = rad[ci] + K(b + 8 + ci);
+  // ---- NEE shadow walks: the samples two at a time through one walk of
+  // the table (a last odd one alone)
+  for (int si = 0; si < a.light_samples;) {
+    if (si + 1 < a.light_samples) {
+      nee_walk<C, 2>(T, live, k2, N, i, si, rad);
+      si += 2;
+    } else {
+      nee_walk<C, 1>(T, live, k2, N, i, si, rad);
+      si += 1;
     }
   }
   if (i >= n) return;
@@ -396,12 +449,20 @@ int dispatch(const RoundArgs& a, F fn) {
   return (int)cudaErrorInvalidValue;
 }
 
+// a kernel that asks for more than 48 KB of dynamic shared memory must be
+// allowed it first; the attribute stays set on the function
+int allow_shared(const void* fn, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 struct LaunchShadeSweep {
   const float *u, *state, *ef, *mf;
   float* k2;
   int n;
-  const float* dense;
-  int p_dense;
+  const float* sweep;
+  int p_rows, resident_rows;
   const float* prim;
   int p_pad;
   const float *mat, *light, *spec;
@@ -409,10 +470,13 @@ struct LaunchShadeSweep {
   cudaStream_t stream;
   template <int C, bool MEDIUM>
   int operator()() const {
-    shade_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
+    const int smem = walk::shared_bytes(p_rows, resident_rows);
+    int rc = allow_shared((const void*)shade_sweep_kernel<C, MEDIUM>, smem);
+    if (rc != 0) return rc;
+    shade_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                                     stream>>>(
-        u, state, ef, mf, k2, n, dense, p_dense, prim, p_pad, mat, light,
-        spec, a);
+        u, state, ef, mf, k2, n, sweep, p_rows, resident_rows, prim, p_pad,
+        mat, light, spec, a);
     return (int)cudaGetLastError();
   }
 };
@@ -438,15 +502,18 @@ struct LaunchFinalizeSweep {
   const float *u, *state, *k2;
   float* out;
   int n;
-  const float* dense;
-  int p_dense;
+  const float* sweep;
+  int p_rows, resident_rows;
   const RoundArgs& a;
   cudaStream_t stream;
   template <int C, bool MEDIUM>
   int operator()() const {
-    finalize_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
-                                       stream>>>(u, state, k2, out, n, dense,
-                                                 p_dense, a);
+    const int smem = walk::shared_bytes(p_rows, resident_rows);
+    int rc = allow_shared((const void*)finalize_sweep_kernel<C, MEDIUM>, smem);
+    if (rc != 0) return rc;
+    finalize_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
+                                       stream>>>(
+        u, state, k2, out, n, sweep, p_rows, resident_rows, a);
     return (int)cudaGetLastError();
   }
 };
@@ -479,6 +546,13 @@ struct KernelOf {
   }
 };
 
+// the walks take a table of up to MAX_PRIMS rows, 32 to a chunk, resident
+// up to what one block's shared memory holds
+bool walk_ok(int p_rows, int resident_rows) {
+  return p_rows > 0 && p_rows <= MAX_PRIMS && p_rows % 32 == 0 &&
+         resident_rows >= 0 && resident_rows <= walk::MAX_RESIDENT_ROWS;
+}
+
 int attrs(const void* fn, int* regs, int* local_bytes) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, fn);
@@ -495,21 +569,23 @@ extern "C" {
 // K12: u [n_u_rows(ls, medium), n], state [32, n], ef [ef_rows(ls, C), n]
 // (null for a constant environment), mf [mf_rows(C), n] (null unless
 // medium-aware) -> k2 [k2_rows(ls), n]; tables as baked by
-// kernels/megakernel.py:build_mega_scene. Returns a cudaError_t.
+// kernels/megakernel.py:build_mega_scene, sweep [p_rows, 16] its compact
+// sweep table, resident in shared memory where p_rows <= resident_rows.
+// Returns a cudaError_t.
 int shade_sweep_launch(const float* u, const float* state, const float* ef,
-                       const float* mf, float* k2, int n, const float* dense,
-                       int p_dense, const float* prim, int p_pad,
-                       const float* mat, const float* light,
+                       const float* mf, float* k2, int n, const float* sweep,
+                       int p_rows, int resident_rows, const float* prim,
+                       int p_pad, const float* mat, const float* light,
                        const float* spec, const RoundArgs* args,
                        cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (p_dense > MAX_PRIMS || p_pad < p_dense ||
+  if (!walk_ok(p_rows, resident_rows) || p_pad < p_rows ||
       (args->env_kind != ENV_CONSTANT) != (ef != nullptr) ||
       (args->medium != 0) != (mf != nullptr))
     return (int)cudaErrorInvalidValue;
-  return dispatch(*args, LaunchShadeSweep{u, state, ef, mf, k2, n, dense,
-                                          p_dense, prim, p_pad, mat, light,
-                                          spec, *args, stream});
+  return dispatch(*args, LaunchShadeSweep{u, state, ef, mf, k2, n, sweep,
+                                          p_rows, resident_rows, prim, p_pad,
+                                          mat, light, spec, *args, stream});
 }
 
 // K1: src [>= row0 + 6, n] (rays in rows row0 .. row0 + 5, alive flag in
@@ -554,14 +630,17 @@ int shade_launch(const float* u, const float* state, const float* tp,
                                      p_pad, mat, light, spec, *args, stream});
 }
 
-// K34: u [8, n], state [32, n], k2 [k2_rows(ls), n] -> out [40, n]
+// K34: u [8, n], state [32, n], k2 [k2_rows(ls), n], sweep [p_rows, 16]
+// (as K12's) -> out [40, n]
 int finalize_sweep_launch(const float* u, const float* state, const float* k2,
-                          float* out, int n, const float* dense, int p_dense,
-                          const RoundArgs* args, cudaStream_t stream) {
+                          float* out, int n, const float* sweep, int p_rows,
+                          int resident_rows, const RoundArgs* args,
+                          cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
-  return dispatch(*args, LaunchFinalizeSweep{u, state, k2, out, n, dense,
-                                             p_dense, *args, stream});
+  if (!walk_ok(p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
+  return dispatch(*args,
+                  LaunchFinalizeSweep{u, state, k2, out, n, sweep, p_rows,
+                                      resident_rows, *args, stream});
 }
 
 // K4: u [8, n], state [32, n], k2 [k2_rows(ls), n], blk [ls, n] (null only
@@ -594,6 +673,32 @@ int two_prog_attrs(int which, int c, int* regs, int* local_bytes) {
     if (rc != 0) return rc;
   }
   return attrs(fn, regs, local_bytes);
+}
+
+// the shared memory of one block of K12 (which 0) or K34 (1; + 8: the medium
+// instantiation) at C lanes walking a table of p_rows rows: its static
+// bytes, the dynamic bytes the launcher asks for, and the blocks of it one
+// SM holds at once
+int walk_shared_bytes(int which, int c, int p_rows, int resident_rows,
+                      int* static_bytes, int* dynamic_bytes,
+                      int* blocks_per_sm) {
+  if ((which & 7) > 1 || !walk_ok(p_rows, resident_rows))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  RoundArgs a{};
+  a.c_lanes = c;
+  a.medium = (which & 8) ? 1 : 0;
+  int rc = dispatch(a, KernelOf{which & 7, &fn});
+  if (rc != 0) return rc;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  *dynamic_bytes = walk::shared_bytes(p_rows, resident_rows);
+  rc = allow_shared(fn, *dynamic_bytes);
+  if (rc != 0) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, BLOCK, (size_t)*dynamic_bytes);
 }
 
 // sizeof(RoundArgs), for the caller's check of its mirror of the struct

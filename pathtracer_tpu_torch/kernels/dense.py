@@ -4,6 +4,9 @@
 The packed primitive table is the JAX package's `[P_pad, 128]` f32 layout
 (`pack_prims_np`): columns 0..10 hold ptype, valid, pa, pb, pc; the rest is
 zero. Rays are `[8, N]` rows: origin (3), direction (3), tmin, tmax.
+`pack_sweep_np` packs the same prims as `[P_pad, 16]` rows with a rect's
+normal and edge norms baked in: the table that K12 and K34 of the bounce
+round walk in shared memory (`csrc/walk.cuh`).
 
 `sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
 on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
@@ -33,6 +36,10 @@ _C_PTYPE, _C_VALID = 0, 1
 _C_PA, _C_PB, _C_PC = 2, 5, 8
 _N_COLS = 128
 PBF = 32  # prim rows are padded to a multiple of this block
+# the compact sweep table's columns ([P_pad, 16]: 64-byte rows): 0..10 as
+# the packed table's, then what a rect's test needs of the prim alone
+_C_N, _C_BB, _C_CC = 11, 14, 15
+SWEEP_COLS = 16
 
 # kernel launches of the CUDA sweep (both entry points); the plain twin
 # never counts
@@ -55,6 +62,41 @@ def pack_prims_np(ptype, valid, pa, pb, pc):
     tab[:p, _C_PA:_C_PA + 3] = pa
     tab[:p, _C_PB:_C_PB + 3] = pb
     tab[:p, _C_PC:_C_PC + 3] = pc
+    return tab
+
+
+def pack_sweep_np(ptype, valid, pa, pb, pc):
+    """[P_pad, 16] f32 compact sweep table (P_pad as `pack_prims_np`'s), the
+    table K12 and K34 walk in shared memory: columns 0..10 are the packed
+    table's; columns 11..15 hold, for a rect, its unit normal n (3),
+    bb = max(pb . pb, 1e-20) and cc = max(pc . pc, 1e-20), and zeros for
+    every other prim.
+
+    n, bb and cc are computed in f32 by the expressions of `chunk_t`'s rect
+    branch, in its order of operations, so they carry the bits the plain
+    twin computes for every ray. bb and cc are stored, not their
+    reciprocals: `x / bb` and `x * (1 / bb)` round differently, and the
+    |ra| <= 1 edge decides a prim id."""
+    p = len(ptype)
+    tab = np.zeros((-(-p // PBF) * PBF, SWEEP_COLS), np.float32)
+    tab[:p, :_C_PC + 3] = pack_prims_np(ptype, valid, pa, pb, pc)[
+        :p, :_C_PC + 3]
+    pb = np.asarray(pb, np.float32)
+    pc = np.asarray(pc, np.float32)
+    tiny = np.float32(1e-20)
+    pbx, pby, pbz = pb[:, 0], pb[:, 1], pb[:, 2]
+    pcx, pcy, pcz = pc[:, 0], pc[:, 1], pc[:, 2]
+    with np.errstate(all="ignore"):
+        nx = pby * pcz - pbz * pcy
+        ny = pbz * pcx - pbx * pcz
+        nz = pbx * pcy - pby * pcx
+        nlen = np.sqrt(np.maximum(nx * nx + ny * ny + nz * nz, tiny))
+        rect = np.stack([nx / nlen, ny / nlen, nz / nlen,
+                         np.maximum(pbx * pbx + pby * pby + pbz * pbz, tiny),
+                         np.maximum(pcx * pcx + pcy * pcy + pcz * pcz, tiny)],
+                        axis=1)
+    is_rect = np.asarray(ptype) == PRIM_RECT
+    tab[:p, _C_N:] = np.where(is_rect[:, None], rect, np.float32(0.0))
     return tab
 
 

@@ -24,6 +24,10 @@ counter rows. A round takes one of three routes, as the JAX package's
   settings only) -> `shade_sweep` (K12: closest hit + shading, writing the
   `[k2_rows(ls), n_pad]` K2 rows `O_*`) -> `finalize_sweep` (K34: NEE shadow
   sweeps + finalize). K2, K12 and K34 are in `csrc/two_prog_round.cu`.
+  K12 and K34 walk the compact `sweep_tab` (64-byte rows with a rect's
+  normal and edge norms baked in) from shared memory (`csrc/walk.cuh`):
+  whole where it has at most `SWEEP_RESIDENT_ROWS` rows, else through a
+  ring of tiles; the other kernels and every twin read `dense_tab`.
 
 `stepper="split"` runs every scene of the gate through the split round
 instead (`split_round`, the JAX package's five-program pipeline): K1 ->
@@ -73,7 +77,9 @@ from pathtracer_tpu_torch.kernels import cmath
 from pathtracer_tpu_torch.kernels.cmath import V3, fdiv
 from pathtracer_tpu_torch.kernels.dense import (
     PBF,
+    SWEEP_COLS,
     pack_prims_np,
+    pack_sweep_np,
     sweep_any_cols,
     sweep_any_rows,
     sweep_closest_cols,
@@ -153,6 +159,14 @@ NEE_ROWS = 12
 NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
 
 MEGA_MAX_PRIMS = 8192  # the megakernel gate
+# K12 and K34 keep a sweep table of at most this many rows whole in a
+# block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
+# costs none of the six 128-thread blocks an SM holds of either kernel (the
+# ring takes 24 KB). A larger table goes through the ring of csrc/walk.cuh:
+# on the card a resident table that cut the blocks to two ran 1.6-1.8x
+# slower than the ring, while the ring costs 3-5% where the table would
+# fit. At most 3584 (224 KB).
+SWEEP_RESIDENT_ROWS = 576
 FUSED_MAX_CHUNKS = 4  # the fused round's gate: at most 4 chunks of 32 prims
 
 # prim_tab rows (0..10 are the dense table's columns)
@@ -333,6 +347,9 @@ class MegaScene:
     env: object = None       # None (constant env) or the Sun/HDR EnvFeed
     tex: object = None       # None or the TexFeed of uv-textured lambertians
     med: object = None       # None or the MedFeed of medium-aware settings
+    # f32[P_pad32, 16] compact sweep table (`dense.pack_sweep_np`): what K12
+    # and K34 walk in shared memory; the twins keep reading dense_tab
+    sweep_tab: torch.Tensor = None
 
 
 @dataclasses.dataclass
@@ -554,6 +571,8 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
     )
     dense_tab = pack_prims_np(h["ptype"], h["valid"], h["pa"], h["pb"],
                               h["pc"])
+    sweep_tab = pack_sweep_np(h["ptype"], h["valid"], h["pa"], h["pb"],
+                              h["pc"])
 
     def dev(a):
         return torch.as_tensor(a, device=device)
@@ -590,7 +609,8 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
            if medium else None)
     return MegaScene(prim_tab=dev(tab), dense_tab=dev(dense_tab),
                      mat_tab=dev(mt), light_tab=dev(lt), spec_tab=dev(st),
-                     consts=consts, env=env, tex=tex_feed_, med=med)
+                     consts=consts, env=env, tex=tex_feed_, med=med,
+                     sweep_tab=dev(sweep_tab))
 
 
 def _to(obj, device):
@@ -1896,6 +1916,21 @@ def _check_round(u, state, scene: MegaScene, a: RoundArgs, u_rows: int,
         raise ValueError("table shapes do not match the bake")
 
 
+def _sweep_tab(scene: MegaScene):
+    """The scene's compact sweep table, checked against its dense table."""
+    tab = scene.sweep_tab
+    if tab is None:
+        raise ValueError("the scene carries no sweep_tab: bake it with "
+                         "bake_mega_scene")
+    _check_tensors(dense_tab=scene.dense_tab, sweep_tab=tab)
+    if tab.shape != (scene.dense_tab.shape[0], SWEEP_COLS):
+        raise ValueError(f"sweep_tab must be [{scene.dense_tab.shape[0]}, "
+                         f"{SWEEP_COLS}], got {tuple(tab.shape)}")
+    if not 0 <= SWEEP_RESIDENT_ROWS <= 3584:
+        raise ValueError("SWEEP_RESIDENT_ROWS must be in [0, 3584]")
+    return tab
+
+
 def _lib():
     from pathtracer_tpu_torch.kernels import _build
 
@@ -1990,6 +2025,7 @@ def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None, mf=None):
     if state.device.type == "cpu":
         return shade_sweep_plain(u, state, a=a, ef=ef, mf=mf,
                                  **_tables(scene))
+    sweep = _sweep_tab(scene)
     lib = _lib()
     n = state.shape[1]
     k2 = torch.empty((k2_rows(a.light_samples), n), dtype=torch.float32,
@@ -1998,7 +2034,7 @@ def shade_sweep(u, state, scene: MegaScene, a: RoundArgs, ef=None, mf=None):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.shade_sweep_launch(
         _ptr(u), _ptr(state), _ptr(ef), _ptr(mf), _ptr(k2), n,
-        _ptr(scene.dense_tab), scene.dense_tab.shape[0],
+        _ptr(sweep), sweep.shape[0], SWEEP_RESIDENT_ROWS,
         _ptr(scene.prim_tab), scene.prim_tab.shape[1],
         _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
         ctypes.byref(cargs), ctypes.c_void_p(stream))
@@ -2051,6 +2087,7 @@ def finalize_sweep(u, state, k2, scene: MegaScene, a: RoundArgs):
                          f"{tuple(k2.shape)}")
     if state.device.type == "cpu":
         return finalize_sweep_plain(u, state, k2, scene.dense_tab, a)
+    sweep = _sweep_tab(scene)
     lib = _lib()
     n = state.shape[1]
     out = torch.empty((NK4, n), dtype=torch.float32, device=state.device)
@@ -2058,7 +2095,7 @@ def finalize_sweep(u, state, k2, scene: MegaScene, a: RoundArgs):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.finalize_sweep_launch(
         _ptr(u), _ptr(state), _ptr(k2), _ptr(out), n,
-        _ptr(scene.dense_tab), scene.dense_tab.shape[0],
+        _ptr(sweep), sweep.shape[0], SWEEP_RESIDENT_ROWS,
         ctypes.byref(cargs), ctypes.c_void_p(stream))
     _raise_on(rc, "finalize_sweep")
     FINALIZE_LAUNCHES += 1

@@ -1,5 +1,5 @@
-"""SceneBuilder (counterpart of `parsing/builder.py`), restricted to what the
-fused megakernel path renders.
+"""SceneBuilder (counterpart of `parsing/builder.py`) for every scene of the
+path-tracing and light-tracing megakernels' gates.
 
 It accumulates curves, layered textures, lambertian / GGX / diffuse-light /
 sharp-light materials, spheres, rects, disks, world-space triangle meshes

@@ -50,6 +50,10 @@ LENS_BOX_CAMERA = dict(CORNELL_CAMERA, vfov_degrees=45.0,
                        aperture_diameter=0.12)
 SPIKE_CAMERA = dict(CORNELL_CAMERA, vfov_degrees=45.0,
                     aperture_diameter=0.01)
+# the Cornell camera behind a wide hexagonal aperture with rounded blades:
+# the respawn's polygon lens sample
+HEX_CAMERA = dict(CORNELL_CAMERA, aperture_diameter=0.3, blades=6,
+                  blade_sharpness=0.7)
 # a unit medium sphere at the origin filling most of a 60 degree view
 MEDIUM_CAMERA = dict(look_from=[-4.0, 0.0, 0.0], look_at=[0.0, 0.0, 0.0],
                      vfov_degrees=60.0, focal_distance=4.0,

@@ -19,7 +19,14 @@ prim id exact, t within rtol 1e-5), K2 (shade) and K34 of the texture-feed
 round on the textured Cornell box, each chained over three rounds; and
 for the medium instantiations of K12, K2, K34 and K4 and the split round's
 K3 (sweep_any_rows: mask equal) and K4 (finalize) on the fog and nested
-media scenes."""
+media scenes. K12 and K34 walk the compact sweep table from shared memory
+(csrc/walk.cuh): they are held to their twins with the table resident and
+through the ring of tiles (a table one row over the residency budget, and
+the 41 tiles of the mesh), the two bit for bit equal to each other, at 1, 2
+and 3 NEE samples; and the split round, whose K1 and K3 keep the older walk
+of the [P_pad, 128] table, renders the film of the two-program round. The
+polygon-aperture respawn and the direct-only cut, which no recipe reaches,
+have a case each (fused round, K12, K34)."""
 
 import numpy as np
 import pytest
@@ -162,6 +169,173 @@ def test_two_prog_kernels_match_plain(dev, recipe, cam, c_lanes):
         assert frac >= 0.9999 and close
         sk = ok[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()
+
+
+def test_sweep_tab_rect_terms_match_twin_expressions(dev):
+    """The baked n, bb and cc of every rect equal, bit for bit, what the
+    twin's rect branch computes from pb and pc with torch on the card."""
+    w = scenes.random_prims(SceneBuilder(), spectral, seed=4, grid=20,
+                            n_each=400).build("cpu")
+    p = w.prims
+    sweep = torch.as_tensor(dense.pack_sweep_np(
+        p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+        p.pc.numpy()), device=dev)
+    rect = sweep[:, 0] == 2.0
+    assert int(rect.sum()) >= 400
+    pbx, pby, pbz = sweep[rect, 5], sweep[rect, 6], sweep[rect, 7]
+    pcx, pcy, pcz = sweep[rect, 8], sweep[rect, 9], sweep[rect, 10]
+    nx = pby * pcz - pbz * pcy
+    ny = pbz * pcx - pbx * pcz
+    nz = pbx * pcy - pby * pcx
+    nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    want = torch.stack([
+        nx / nlen, ny / nlen, nz / nlen,
+        torch.clamp(pbx * pbx + pby * pby + pbz * pbz, min=1e-20),
+        torch.clamp(pcx * pcx + pcy * pcy + pcz * pcz, min=1e-20)], dim=1)
+    assert torch.equal(sweep[rect, 11:].view(torch.int32),
+                       want.view(torch.int32))
+    assert not sweep[~rect, 11:].any()
+
+
+@pytest.mark.parametrize("recipe,cam,c_lanes,medium,ls,width", [
+    ("gem_cornell", "CORNELL_CAMERA", 1, False, 0, 128),
+    ("gem_cornell", "CORNELL_CAMERA", 1, False, 1, 128),
+    ("gem_cornell", "CORNELL_CAMERA", 1, False, 2, 128),
+    ("gem_cornell", "CORNELL_CAMERA", 1, False, 3, 128),
+    ("gem_cornell", "CORNELL_CAMERA", 4, False, 2, 128),
+    ("fog_cornell", "CORNELL_CAMERA", 1, True, 2, 128),
+    ("fog_cornell", "CORNELL_CAMERA", 4, True, 3, 128),
+    ("mesh_cornell", "CORNELL_CAMERA", 1, False, 2, 64)])
+def test_walk_resident_and_ring_match_plain(dev, monkeypatch, recipe, cam,
+                                            c_lanes, medium, ls, width):
+    """K12 and K34 against their twins over two chained rounds, with the
+    sweep table resident in shared memory (where it fits) and through the
+    ring (the budget set one row under the table, so the gem's 352 rows
+    cycle three tiles through the three stages; the mesh's 5,152 rows 41
+    tiles); the ring's rows equal the resident table's bit for bit. With no
+    light samples K34 walks nothing, and must leave no copy of the table in
+    flight."""
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**getattr(scenes, cam), device=dev)
+    s = PTSettings(max_bounces=12, light_samples=ls, hwss=c_lanes == 4,
+                   medium_aware=medium)
+    scene = mk.build_mega_scene(world, cam, dev, s)
+    rows = scene.sweep_tab.shape[0]
+    budgets = ([rows - 1, mk.SWEEP_RESIDENT_ROWS]
+               if rows <= mk.SWEEP_RESIDENT_ROWS
+               else [mk.SWEEP_RESIDENT_ROWS])
+    assert (len(budgets) == 1) == (recipe == "mesh_cornell")
+    a = mk.RoundArgs.make(scene.consts, s, width, width)
+    n_pad = -(-width * width // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, width * width,
+                            n_pad, 4)
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.S_MSTK0, mk.S_MSTK1,
+            mk.O4_BOUNCE_CT, mk.O4_CAMERA_CT]
+    k2_disc = k2_discrete(ls) + [mk.O_SCAT, mk.O_MSTK, mk.O_MSTK + 1]
+    sk = state
+    for _ in range(2):
+        u12 = torch.rand((mk.n_u_rows(ls, medium), n_pad), generator=gen,
+                         device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        mf = mk.med_feed(scene.med, sk, u12, ls, c_lanes) if medium else None
+        k2s, outs = [], []
+        for budget in budgets:
+            monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
+            k2s.append(mk.shade_sweep(u12, sk, scene, a, None, mf))
+            outs.append(mk.finalize_sweep(u34, sk, k2s[0], scene, a))
+        torch.cuda.synchronize()
+        assert all(torch.equal(k2s[0], x) for x in k2s[1:])
+        assert all(torch.equal(outs[0], x) for x in outs[1:])
+        k2p = mk.shade_sweep_plain(u12, sk, a=a, mf=mf, **mk._tables(scene))
+        frac, close = match_rows(k2s[0], k2p, k2_disc)
+        assert frac >= 0.9999 and close
+        op = mk.finalize_sweep_plain(u34, sk, k2s[0], scene.dense_tab, a)
+        frac, close = match_rows(outs[0], op, disc)
+        assert frac >= 0.9999 and close
+        assert (int((k2s[0][mk.O_SHADOW_CT] > 0).sum()) > 0) == (ls > 0)
+        sk = outs[0][:mk.NS]
+    assert np.isfinite(sk.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("case", ["hex_aperture", "only_direct"])
+def test_round_options_kernels_match_plain(dev, case):
+    """The respawn's polygon-aperture lens sample (six rounded blades,
+    diameter 0.3) and the direct-only cut of the continuation, which no
+    recipe camera and no default setting reach: the fused round, K12 and K34
+    against their twins over three chained rounds of the chip scene at 2
+    samples per pixel, so that lanes respawn within them."""
+    world = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
+    hexa = case == "hex_aperture"
+    cam = make_projective_camera(
+        **(scenes.HEX_CAMERA if hexa else scenes.CORNELL_CAMERA), device=dev)
+    s = PTSettings(max_bounces=12, light_samples=2, only_direct=not hexa)
+    scene = mk.build_mega_scene(world, cam, dev)
+    a = mk.RoundArgs.make(scene.consts, s, 128, 128)
+    assert a.cam_blades == (6 if hexa else 0) and a.only_direct == (not hexa)
+    n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(8)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 128 * 128,
+                            n_pad, 2)
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
+            mk.O4_CAMERA_CT]
+    sf = sk = state
+    respawned = 0
+    for _ in range(3):
+        u = torch.rand((mk.nu_rows(2), n_pad), generator=gen, device=dev)
+        of = mk.fused_round(u, sf, scene, a)
+        frac, close = match_rows(of, mk.fused_round_plain(
+            u, sf, a=a, **mk._tables(scene)),
+            disc + [mk.O4_SHADOW_CT, mk.O4_ENV_CT])
+        assert frac >= 0.9999 and close
+        u12 = torch.rand((mk.n_u_rows(2), n_pad), generator=gen, device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        k2k = mk.shade_sweep(u12, sk, scene, a)
+        frac, close = match_rows(k2k, mk.shade_sweep_plain(
+            u12, sk, a=a, **mk._tables(scene)), k2_discrete(2))
+        assert frac >= 0.9999 and close
+        ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
+        frac, close = match_rows(ok, mk.finalize_sweep_plain(
+            u34, sk, k2k, scene.dense_tab, a), disc)
+        assert frac >= 0.9999 and close
+        respawned += int(ok[mk.O4_CAMERA_CT].sum()) + int(
+            of[mk.O4_CAMERA_CT].sum())
+        if not hexa:
+            assert float(ok[mk.S_BOUNCE].max()) <= 1.0
+        sf, sk = of[:mk.NS], ok[:mk.NS]
+    assert respawned > 1000
+    assert np.isfinite(sk.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("budget", ["resident", "ring"])
+def test_split_film_equals_two_prog_film_on_the_gem(dev, monkeypatch, budget):
+    """The split round (K1 and K3 on the older walk of the [P_pad, 128]
+    table) renders, from the same uniforms, the film of the two-program
+    round (K12 and K34 on the shared-memory walk): every closest hit and
+    every shadow verdict of a render agree between the two walks."""
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+
+    world = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    s = PTSettings(max_bounces=8, light_samples=2, russian_roulette=True)
+    if budget == "ring":
+        monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", 0)
+    films = []
+    for stepper in (None, "split"):
+        gen = torch.Generator(device=dev).manual_seed(12)
+        launches = (mk.SHADE_LAUNCHES, dense.ANY_ROWS_LAUNCHES)
+        film, profile, _ = render_regen(world, cam, s, 96, 96, 4,
+                                        generator=gen, device=dev,
+                                        stepper=stepper)
+        films.append((film, profile.total_rays))
+        assert (mk.SHADE_LAUNCHES > launches[0]) == (stepper is None)
+        assert (dense.ANY_ROWS_LAUNCHES > launches[1]) == (stepper == "split")
+    assert torch.equal(films[0][0], films[1][0])
+    assert films[0][1] == films[1][1]
+    assert bool(torch.isfinite(films[0][0]).all())
+    assert float(films[0][0][..., 1].mean()) > 0.0
 
 
 @pytest.mark.parametrize("table", ["chip", "random"])

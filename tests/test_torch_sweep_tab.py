@@ -1,0 +1,185 @@
+"""The compact sweep table that K12 and K34 walk (`dense.pack_sweep_np`,
+`MegaScene.sweep_tab`): columns 0..10 are the packed dense table's, and a
+rect's baked unit normal, bb and cc carry, bit for bit, what the plain twin's
+rect branch (`dense.chunk_t`) computes in f32. The kernels read the baked
+values where the twin recomputes them, so equality of the bits is what lets
+kernel and twin agree on every lane.
+
+One operation is held to its IEEE result instead of torch's CPU result: the
+f32 `torch.sqrt` of this CPU build is off by one ulp on about 0.6% of inputs,
+while numpy's, the CUDA `sqrtf` and `torch.sqrt` on a CUDA tensor round
+correctly. The expressions here take the square root in f64 and round it to
+f32, which is the correctly rounded f32 root; every other operation (multiply,
+subtract, add, divide, clamp) is torch f32 on the CPU. The same comparison
+with `torch.sqrt` itself runs on the card (tests/test_torch_cuda.py)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
+
+from pathtracer_tpu_torch import scenes
+from pathtracer_tpu_torch.camera import make_projective_camera
+from pathtracer_tpu_torch.core import spectral
+from pathtracer_tpu_torch.geometry.soa import PRIM_RECT
+from pathtracer_tpu_torch.kernels import dense
+from pathtracer_tpu_torch.kernels import megakernel as mk
+from pathtracer_tpu_torch.parsing import SceneBuilder
+
+RECIPES = [("chip_scene", "CORNELL_CAMERA"), ("gem_cornell", "CORNELL_CAMERA"),
+           ("textured_cornell", "TEXTURED_CAMERA"),
+           ("fog_cornell", "CORNELL_CAMERA"),
+           ("mesh_cornell", "CORNELL_CAMERA")]
+
+
+def sqrt_rn(x):
+    """The correctly rounded f32 square root of an f32 tensor."""
+    return torch.sqrt(x.double()).float()
+
+
+def rect_terms_torch(pb, pc):
+    """n (3), bb, cc of rects with half-edges pb, pc [P, 3], by the
+    expressions of `dense.chunk_t`'s rect branch, in torch f32."""
+    pbx, pby, pbz = (torch.as_tensor(pb[:, i]) for i in range(3))
+    pcx, pcy, pcz = (torch.as_tensor(pc[:, i]) for i in range(3))
+    nx = pby * pcz - pbz * pcy
+    ny = pbz * pcx - pbx * pcz
+    nz = pbx * pcy - pby * pcx
+    nlen = sqrt_rn(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
+    bb = torch.clamp(pbx * pbx + pby * pby + pbz * pbz, min=1e-20)
+    cc = torch.clamp(pcx * pcx + pcy * pcy + pcz * pcz, min=1e-20)
+    return torch.stack([nx, ny, nz, bb, cc], dim=1).numpy()
+
+
+def bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.uint32)
+
+
+def check_table(sweep, dense_tab):
+    """`sweep` [P_pad, 16] against the dense table it was packed beside."""
+    assert sweep.dtype == np.float32
+    assert sweep.shape == (dense_tab.shape[0], dense.SWEEP_COLS)
+    assert np.array_equal(bits(sweep[:, :11]), bits(dense_tab[:, :11]))
+    is_rect = (dense_tab[:, 0] == PRIM_RECT) & (dense_tab[:, 1] > 0.5)
+    want = rect_terms_torch(dense_tab[:, 5:8], dense_tab[:, 8:11])
+    assert np.array_equal(bits(sweep[is_rect, 11:]), bits(want[is_rect]))
+    rows = dense_tab[:, 0] != PRIM_RECT
+    assert not sweep[rows, 11:].any()
+    return int(is_rect.sum())
+
+
+@pytest.mark.parametrize("recipe,cam", RECIPES, ids=[r for r, _ in RECIPES])
+def test_bake_carries_sweep_tab(recipe, cam):
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build("cpu")
+    camera = make_projective_camera(**getattr(scenes, cam), device="cpu")
+    scene = mk.bake_mega_scene(world, camera, device="cpu")
+    assert scene.sweep_tab.device.type == "cpu"
+    assert scene.sweep_tab.is_contiguous()
+    assert scene.sweep_tab.shape[0] == scene.dense_tab.shape[0]
+    assert scene.sweep_tab.shape[0] % dense.PBF == 0
+    # every recipe here stands in a box of rect walls
+    assert check_table(scene.sweep_tab.numpy(), scene.dense_tab.numpy()) > 0
+    # the wrappers' check takes the baked pair and refuses a stale one
+    assert mk._sweep_tab(scene) is scene.sweep_tab
+    stale = dataclasses.replace(scene, sweep_tab=scene.sweep_tab[:-dense.PBF]
+                                .contiguous())
+    with pytest.raises(ValueError):
+        mk._sweep_tab(stale)
+
+
+def test_pack_sweep_all_types_and_degenerate_rects():
+    """Every prim type, padding rows, invalid prims, and rects whose edges
+    vanish (the 1e-20 clamps) or are parallel (a zero cross product)."""
+    p = scenes.random_prims(SceneBuilder(), spectral, seed=5, grid=6,
+                            n_each=9).build("cpu").prims
+    n = int(p.count)
+    ptype = p.ptype.numpy()[:n].copy()
+    valid = p.valid.numpy()[:n].astype(np.float32).copy()
+    pa, pb, pc = (x.numpy()[:n].astype(np.float32).copy()
+                  for x in (p.pa, p.pb, p.pc))
+    rects = np.flatnonzero(ptype == PRIM_RECT)
+    assert len(rects) >= 5
+    pb[rects[0]] = 0.0                      # zero edge: bb clamps, n = 0/1e-10
+    pc[rects[1]] = 0.0
+    pb[rects[2]] = pc[rects[2]]             # parallel edges: zero normal
+    pb[rects[3]] = np.float32(1e-12)        # squares underflow the clamp
+    valid[rects[4]] = 0.0                   # an invalid rect keeps its terms
+    tab = dense.pack_prims_np(ptype, valid, pa, pb, pc)
+    sweep = dense.pack_sweep_np(ptype, valid, pa, pb, pc)
+    assert sweep.shape[0] > n               # padding rows
+    assert not sweep[n:].any()
+    is_rect = tab[:, 0] == PRIM_RECT
+    is_rect[n:] = False
+    want = rect_terms_torch(tab[:, 5:8], tab[:, 8:11])
+    assert np.array_equal(bits(sweep[:, :11]), bits(tab[:, :11]))
+    assert np.array_equal(bits(sweep[is_rect, 11:]), bits(want[is_rect]))
+    assert not sweep[~is_rect, 11:].any()
+    assert sweep[rects[0], 14] == np.float32(1e-20)
+    assert sweep[rects[1], 15] == np.float32(1e-20)
+    assert not sweep[rects[2], 11:14].any()
+    assert np.isfinite(sweep).all()
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(hnp.arrays(np.float32, (24, 6), elements=st.floats(
+    -8.0, 8.0, width=32, allow_nan=False, allow_infinity=False)),
+    st.integers(0, 40))
+def test_pack_sweep_random_rects_match_twin_bits(edges, shift):
+    """Random rects over many magnitudes: the numpy bake and the twin's torch
+    expressions round alike."""
+    edges = (edges * np.float32(2.0 ** -shift)).astype(np.float32)
+    pb, pc = edges[:, :3], edges[:, 3:]
+    n = len(edges)
+    sweep = dense.pack_sweep_np(np.full(n, PRIM_RECT, np.int32),
+                                np.ones(n, np.float32),
+                                np.zeros((n, 3), np.float32), pb, pc)
+    assert np.array_equal(bits(sweep[:n, 11:]), bits(rect_terms_torch(pb, pc)))
+
+
+def test_rect_twin_reads_the_same_terms():
+    """`chunk_t`'s rect hits are unchanged by feeding it the baked terms:
+    the twin's t, computed from n, bb and cc as the kernel reads them from
+    the row, equals `chunk_t`'s on every ray."""
+    g = np.random.default_rng(3)
+    n_p, n_r = 32, 4096
+    pb = g.uniform(-0.4, 0.4, (8 * n_p, 3)).astype(np.float32)
+    pc = g.uniform(-0.4, 0.4, (8 * n_p, 3)).astype(np.float32)
+    # `chunk_t` takes its root with torch.sqrt: keep the rects whose |n| this
+    # build's CPU sqrt rounds correctly (see the module note)
+    n2 = torch.as_tensor(np.cross(pb, pc))
+    n2 = n2[:, 0] * n2[:, 0] + n2[:, 1] * n2[:, 1] + n2[:, 2] * n2[:, 2]
+    keep = (torch.sqrt(n2) == sqrt_rn(n2)).numpy()
+    pb, pc = pb[keep][:n_p], pc[keep][:n_p]
+    assert len(pb) == n_p
+    pa = g.uniform(0, 1, (n_p, 3)).astype(np.float32)
+    ptype = np.full(n_p, PRIM_RECT, np.int32)
+    tab = torch.as_tensor(dense.pack_prims_np(ptype, np.ones(n_p), pa, pb, pc))
+    sw = torch.as_tensor(dense.pack_sweep_np(ptype, np.ones(n_p), pa, pb, pc))
+    o = torch.as_tensor(g.uniform(-0.2, 1.2, (n_r, 3)).astype(np.float32))
+    d = torch.as_tensor(g.normal(size=(n_r, 3)).astype(np.float32))
+    cols = [o[:, i:i + 1] for i in range(3)] + [d[:, i:i + 1]
+                                                for i in range(3)]
+    t_min, t_max = 1e-6, 1e9
+    t_twin = dense.chunk_t(dense._chunk_cols(tab), *cols, t_min, t_max)
+
+    def c(k):
+        return sw[:, k][None, :]
+
+    ox, oy, oz, dx, dy, dz = cols
+    denom = dx * c(11) + dy * c(12) + dz * c(13)
+    dok = torch.abs(denom) > 1e-12
+    t = ((c(2) - ox) * c(11) + (c(3) - oy) * c(12) + (c(4) - oz) * c(13)
+         ) / torch.where(dok, denom, 1.0)
+    rx, ry, rz = ox + t * dx - c(2), oy + t * dy - c(3), oz + t * dz - c(4)
+    ra = (rx * c(5) + ry * c(6) + rz * c(7)) / c(14)
+    rb = (rx * c(8) + ry * c(9) + rz * c(10)) / c(15)
+    ok = (dok & (torch.abs(ra) <= 1.0) & (torch.abs(rb) <= 1.0)
+          & (t > t_min) & (t < t_max))
+    t_row = torch.where(ok, t, float("inf"))
+    assert int(torch.isfinite(t_twin).sum()) > 1000
+    assert np.array_equal(bits(t_row.numpy()), bits(t_twin.numpy()))

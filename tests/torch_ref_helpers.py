@@ -83,6 +83,7 @@ RECIPES = {
     "scattering_furnace": (scenes.scattering_furnace, scenes.MEDIUM_CAMERA),
     "nested_media": (scenes.nested_media, scenes.MEDIUM_CAMERA),
     "fog_cornell": (scenes.fog_cornell, scenes.CORNELL_CAMERA),
+    "cornell_hex": (scenes.cornell_box, scenes.HEX_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -217,16 +218,17 @@ def two_prog_setup(recipe, c_lanes, width, spp, medium=False,
 
 
 def chained_two_prog(recipe, c_lanes, rounds=3, width=32, spp=4,
-                     medium=False):
+                     medium=False, settings=NEE_SETTINGS):
     """`rounds` rounds of the JAX two-program round (_k12_call + _k34_call,
     interpret mode) and of the port's plain shade_sweep + finalize_sweep
     (after env_feed for Sun and HDR environments and med_feed for
     medium-aware settings), each chained on its own state from the JAX
-    initial state, with the uniform blocks the JAX calls draw. Returns per
+    initial state, with the uniform blocks the JAX calls draw, under the
+    estimator `settings` (keywords of both packages' PTSettings). Returns per
     round a dict: jax/port k2 rows, the alive mask going in, jax state, port
     out (with the K2 counter rows at O4_SHADOW_CT and O4_ENV_CT, as
     check_round reads them) and the jax counter delta."""
-    s = two_prog_setup(recipe, c_lanes, width, spp, medium)
+    s = two_prog_setup(recipe, c_lanes, width, spp, medium, settings)
     jscene, st_t, ct_t, tabs, k_iter = (s.jscene, s.st_t, s.ct_t, s.tabs,
                                         s.k_iter)
     state, counters, n_pad, tscene, a = (s.state, s.counters, s.n_pad,
