@@ -36,12 +36,16 @@ its bound (the least time the card could take: the larger of the f32
 operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
 published peaks; the kernels are built without FMA contraction, so a sweep
 of separate multiplies and adds cannot go under twice a bound by
-operations). K12 and K34 walk the compact sweep table from shared memory:
-they are held to their twins with the table resident (the gem, the HDR
-blob), through the ring of tiles (the mesh's 41 tiles) and with the budget
-set one row under the gem's and the fog box's tables, and the gem is rendered
-a second time through the split round, whose older walk must give the same
-film. The last line is the device summary:
+operations). K12, K34, the fused round and K12-LT walk the compact sweep
+table from shared memory. K12 and K34 are held to their twins with the
+table resident (the gem, the HDR blob), through the ring of tiles (the
+mesh's 41 tiles) and with the budget set one row under the gem's and the
+fog box's tables, and the gem is rendered a second time through the split
+round, whose older walk must give the same film. The fused round must equal
+its twin on every row over three chained rounds at light samples 2 (C = 1
+and 4, 1080x1080) and 1 and 3 (C = 1, 256x256), and K12-LT its twin on
+every row, its table resident and with the budget one row under it. The
+last line is the device summary:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -246,9 +250,13 @@ def phase_build(torch):
     two_prog = {name: {} for name in which}
     for c in (1, 4):
         regs, local = ctypes.c_int(), ctypes.c_int()
-        rc = lib.fused_round_attrs(c, ctypes.byref(regs), ctypes.byref(local))
+        shared, blocks = ctypes.c_int(), ctypes.c_int()
+        rc = lib.fused_round_attrs(c, ctypes.byref(regs), ctypes.byref(local),
+                                   ctypes.byref(shared), ctypes.byref(blocks))
         check(rc == 0, f"fused_round_attrs: CUDA error {rc}")
-        attrs[f"C{c}"] = dict(regs=regs.value, local_bytes=local.value)
+        attrs[f"C{c}"] = dict(regs=regs.value, local_bytes=local.value,
+                              static_shared_bytes=shared.value,
+                              blocks_per_sm=blocks.value)
         for name, (k, templated) in which.items():
             if not templated and c != 1:
                 continue  # one instantiation
@@ -259,23 +267,25 @@ def phase_build(torch):
                 check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
                 two_prog[name][f"C{c}" + ("_medium" if medium else "")] = \
                     dict(regs=regs.value, local_bytes=local.value)
-    # K12's and K34's dynamic shared memory and the blocks an SM holds: the
-    # gem's 352-row table resident, the largest table the budget keeps
-    # resident, and the ring
+    # K12's, K34's and K12-LT's dynamic shared memory and the blocks an SM
+    # holds: the gem's 352-row table (chip_lens's 32 rows for K12-LT)
+    # resident, the largest table the budget keeps resident, and the ring
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
     walk_shared = {}
     budget = mk.SWEEP_RESIDENT_ROWS
-    for name, k in (("shade_sweep", 0), ("finalize_sweep", 1)):
-        for label, rows in (("resident_352_rows", 352),
+    for name, k in (("shade_sweep", 0), ("finalize_sweep", 1),
+                    ("lt_shade", None)):
+        first = 32 if k is None else 352
+        for label, rows in ((f"resident_{first}_rows", first),
                             (f"resident_{budget}_rows", budget),
                             ("ring", budget + 32)):
             stat, dyn, blocks = (ctypes.c_int(), ctypes.c_int(),
                                  ctypes.c_int())
-            rc = lib.walk_shared_bytes(k, 1, rows, budget, ctypes.byref(stat),
-                                       ctypes.byref(dyn),
-                                       ctypes.byref(blocks))
-            check(rc == 0, f"walk_shared_bytes: CUDA error {rc}")
+            out = (ctypes.byref(stat), ctypes.byref(dyn), ctypes.byref(blocks))
+            rc = (lib.lt_shade_shared_bytes(rows, budget, *out) if k is None
+                  else lib.walk_shared_bytes(k, 1, rows, budget, *out))
+            check(rc == 0, f"{name} shared bytes: CUDA error {rc}")
             walk_shared[f"{name}_{label}"] = dict(
                 static_bytes=stat.value, dynamic_bytes=dyn.value,
                 blocks_per_sm=blocks.value)
@@ -458,7 +468,12 @@ def compare_round(torch, mk, out_k, out_p):
     return compare_rows(torch, out_k, out_p, disc, range(mk.NS))
 
 
-def phase_round(torch, dev, width):
+def phase_round(torch, dev, width, odd_width):
+    """Three chained fused rounds of the chip scene against the twin, each
+    side on its own state, which must be equal on every row: at `width`
+    x `width`, light samples 2, C = 1 and 4 (then the kernel's and the
+    twin's times on the first round's inputs, and the bound), and at
+    `odd_width` x `odd_width`, C = 1, light samples 1 and 3."""
     from pathtracer_tpu_torch import scenes
     from pathtracer_tpu_torch.camera import make_projective_camera
     from pathtracer_tpu_torch.core import spectral
@@ -468,15 +483,17 @@ def phase_round(torch, dev, width):
 
     world = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
     cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
-    n = width * width
-    n_pad = -(-n // mk.TILE) * mk.TILE
     res = {}
-    for c in (1, 4):
-        settings = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
-                              russian_roulette=True, hwss=c == 4)
+    for c, ls, w in ((1, 2, width), (4, 2, width), (1, 1, odd_width),
+                     (1, 3, odd_width)):
+        settings = PTSettings(max_bounces=12, min_bounces=1,
+                              light_samples=ls, russian_roulette=True,
+                              hwss=c == 4)
         scene = mk.build_mega_scene(world, cam, dev)
-        a = mk.RoundArgs.make(scene.consts, settings, width, width)
-        gen = torch.Generator(device=dev).manual_seed(5 + c)
+        a = mk.RoundArgs.make(scene.consts, settings, w, w)
+        n = w * w
+        n_pad = -(-n // mk.TILE) * mk.TILE
+        gen = torch.Generator(device=dev).manual_seed(5 + c + 10 * ls)
         state0, _ = mk.mega_init(
             cam, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
             n_pad, 16)
@@ -493,35 +510,41 @@ def phase_round(torch, dev, width):
             frac, bad, err, rel = compare_round(torch, mk, ok, op)
             rounds.append(dict(match_frac=frac, bad_rows=bad,
                                max_abs_err=err, max_rel_err_bad=rel,
-                               alive=float(ok[mk.S_ALIVE].sum())))
+                               equal=bool(torch.equal(ok, op)),
+                               alive=float(ok[mk.S_ALIVE].sum()),
+                               shadow_rays=float(ok[mk.O4_SHADOW_CT].sum())))
             sk, sp = ok[:mk.NS], op[:mk.NS]
-        u = torch.rand((nu, n_pad), generator=gen, device=dev)
-        ms = cuda_ms(torch, lambda: mk.fused_round(u, state0, scene, a), 10)
-        plain_ms = cuda_ms(torch, lambda: mk.fused_round_plain(
-            u, state0, scene.dense_tab, scene.prim_tab, scene.mat_tab,
-            scene.light_tab, scene.spec_tab, a), 2)
-        # the bound of the timed call: every lane's state read and out
-        # written, a live lane's uniforms, its closest-hit sweep, and each
-        # shadow ray at least its cheapest single test
-        live = int((state0[mk.S_ALIVE] > 0.5).sum())
-        shadows = int(mk.fused_round(u, state0, scene, a)[
-            mk.O4_SHADOW_CT].sum())
-        res[f"C{c}"] = dict(lanes=n_pad, rounds=rounds, ms=ms,
-                            plain_ms=plain_ms, **bound(
-                                live * sweep_ops(scene.dense_tab)
-                                + shadows * min(PRIM_OPS),
-                                F32 * (72 * n_pad + live * (nu - 1))
-                                + table_bytes(scene)
-                                + F32 * dense_floats(scene.dense_tab)))
+        rec = dict(lanes=n_pad, light_samples=ls, rounds=rounds)
+        if w == width:
+            u = torch.rand((nu, n_pad), generator=gen, device=dev)
+            rec["ms"] = cuda_ms(torch, lambda: mk.fused_round(u, state0,
+                                                              scene, a), 10)
+            rec["plain_ms"] = cuda_ms(torch, lambda: mk.fused_round_plain(
+                u, state0, scene.dense_tab, scene.prim_tab, scene.mat_tab,
+                scene.light_tab, scene.spec_tab, a), 2)
+            # the bound of the timed call: every lane's state read and out
+            # written, a live lane's uniforms, its closest-hit sweep, and
+            # each shadow ray at least its cheapest single test; the sweep
+            # table at 64 B a row
+            live = int((state0[mk.S_ALIVE] > 0.5).sum())
+            shadows = int(mk.fused_round(u, state0, scene, a)[
+                mk.O4_SHADOW_CT].sum())
+            rec.update(bound(live * sweep_ops(scene.dense_tab)
+                             + shadows * min(PRIM_OPS),
+                             F32 * (72 * n_pad + live * (nu - 1))
+                             + table_bytes(scene)
+                             + F32 * int(scene.sweep_tab.numel())))
+            res[f"C{c}"] = rec
+        else:
+            res[f"C{c}_ls{ls}_{w}"] = rec
     emit("fused_round", **res)
     for key, r in res.items():
         for i, rd in enumerate(r["rounds"]):
-            check(rd["match_frac"] >= 0.9999,
-                  f"fused round {key} #{i}: discrete rows match on only "
-                  f"{rd['match_frac']:.6f} of lanes")
-            check(not rd["bad_rows"],
-                  f"fused round {key} #{i}: continuous rows beyond rtol 1e-4 "
-                  f"atol 1e-5: {rd['bad_rows']}")
+            check(rd["equal"] and rd["match_frac"] == 1.0 and not
+                  rd["bad_rows"] and rd["max_abs_err"] == 0.0,
+                  f"fused round {key} #{i}: not equal to the twin: {rd}")
+        check(r["rounds"][-1]["shadow_rays"] > 0,
+              f"fused round {key}: no shadow ray was walked")
     return res
 
 
@@ -1078,8 +1101,14 @@ def phase_render(torch, dev, width, spp):
     exr, png = output_film(film_h, f"chip_cornell_{width}", Reinhard0(),
                            output_dir=os.path.join(ROOT, "output"))
     rays = profile.total_rays
+    # a second render, warm (CUDA's lazy module loads paid)
+    _, warm_profile, warm_s = render_regen(
+        world, cam, settings, width, width, spp,
+        generator=torch.Generator(device=dev).manual_seed(2027), device=dev)
     emit("main_path", width=width, height=width, spp=spp, rounds=stats[
         "rounds"], wall_s=elapsed, mrays_per_s=rays / elapsed / 1e6,
+        warm_wall_s=warm_s,
+        warm_mrays_per_s=warm_profile.total_rays / warm_s / 1e6,
         camera_rays=profile.camera_rays, bounce_rays=profile.bounce_rays,
         shadow_rays=profile.shadow_rays, env_hits=profile.env_hits,
         mean_y=mean_y, fused_launches=launches, plain_calls=plain_calls,
@@ -1162,7 +1191,9 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
     connection rows, a respawning lane's spawn uniforms (v2: 11) or feed
     rows (v1: 11, and the connection's 8 where valid), every out row; each
     unblocked shadow ray tests every prim, a blocked one at least the
-    cheapest test. Shading and spawning arithmetic is not counted."""
+    cheapest test. K12-LT reads the sweep table (64 B a row), K34-LT the
+    dense table's 44 B a row. Shading and spawning arithmetic is not
+    counted."""
     n = state.shape[1]
     a, t = scene.a, scene.tabs
     cs, tab = a.cs, t.dense_tab
@@ -1171,7 +1202,7 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
     p_bytes = F32 * dense_floats(tab)
     b12 = bound(live * sweep_ops(tab), F32 * (
         n + live * (11 + 2 * cs + 3) + lt.q2_rows(cs) * n)
-        + table_bytes(t) + p_bytes)
+        + table_bytes(t) + F32 * int(t.sweep_tab.numel()))
     rays = []
     for ci in range(cs):
         b = lt.Q_CONN + lt.CONN_ROWS * ci
@@ -1206,9 +1237,12 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
 def phase_lt_round(torch, dev, cases):
     """Three chained LT rounds per case from a state of dead lanes with a
     budget of 2 particles: K12-LT and K34-LT (v2, or v1 after the torch
-    spawn feed) against their twins, each side on its own state; then the
-    kernels', the twins' and the feed's times and the bounds on the second
-    round's inputs (the first round only spawns)."""
+    spawn feed) against their twins, each side on its own state; K12-LT's
+    Q rows must also equal the twin's on the kernel's own state on every
+    row, with its sweep table resident and through the ring (the budget
+    one row under the table); then the kernels', the twins' and the feed's
+    times and the bounds on the second round's inputs (the first round
+    only spawns)."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import lt_mega as lt
     from pathtracer_tpu_torch.kernels import megakernel as mk
@@ -1231,9 +1265,19 @@ def phase_lt_round(torch, dev, cases):
         cells = settings.strata_uv ** 2 * settings.strata_lam
         sk = sp = state0
         rounds, inputs = [], None
+        budget0 = mk.SWEEP_RESIDENT_ROWS
+        rows = int(t.sweep_tab.shape[0])
+        check(rows <= budget0, f"{recipe}: {rows} rows are not resident")
         for it in range(3):
             u = unif.round(it, lt.nu_lt(cs), n, dev)
             qk = lt.lt_shade(u, sk, scene)
+            try:
+                mk.SWEEP_RESIDENT_ROWS = rows - 1
+                q_ring = lt.lt_shade(u, sk, scene)
+            finally:
+                mk.SWEEP_RESIDENT_ROWS = budget0
+            q_own = lt.lt_shade_plain(u, sk, t.dense_tab, t.prim_tab,
+                                      t.mat_tab, t.spec_tab, a)
             qp = lt.lt_shade_plain(u, sp, t.dense_tab, t.prim_tab, t.mat_tab,
                                    t.spec_tab, a)
             usp = feed = None
@@ -1258,7 +1302,9 @@ def phase_lt_round(torch, dev, cases):
                 (ok[lt.K4_CONN + 4 * ci + 2] > 0).sum() for ci in range(cs))
             rounds.append(dict(
                 k12=dict(match_frac=f12, bad_rows=bad12, max_abs_err=err12,
-                         max_rel_err_bad=rel12),
+                         max_rel_err_bad=rel12,
+                         equal=bool(torch.equal(qk, q_own)),
+                         ring_equal=bool(torch.equal(q_ring, q_own))),
                 k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
                          max_rel_err_bad=rel34),
                 alive=float(ok[lt.LS_ALIVE].sum()),
@@ -1270,6 +1316,7 @@ def phase_lt_round(torch, dev, cases):
         u, usp, feed, s1, q1, o1 = inputs
         rec = dict(
             lanes=n, prims=int(t.dense_tab.shape[0]), camera_samples=cs,
+            sweep_rows=rows, ring_budget_rows=rows - 1,
             route="v2" if v2 else "v1", rounds=rounds,
             lt_shade_ms=cuda_ms(torch, lambda: lt.lt_shade(u, s1, scene), 10),
             lt_shade_plain_ms=cuda_ms(torch, lambda: lt.lt_shade_plain(
@@ -1296,7 +1343,7 @@ def phase_lt_round(torch, dev, cases):
         rec.update(lt_shade_bound=b12, finalize_bound=b34,
                    shadow_rays_swept_free=rays)
         res[f"{recipe}_{'v2' if v2 else 'v1'}_cs{cs}"] = rec
-        del sk, sp, ok, op, qk, qp, inputs, s1, q1, o1
+        del sk, sp, ok, op, qk, qp, q_ring, q_own, inputs, s1, q1, o1
         torch.cuda.empty_cache()
     emit("lt_round", **res)
     for key, r in res.items():
@@ -1308,6 +1355,10 @@ def phase_lt_round(torch, dev, cases):
                 check(not rd[k]["bad_rows"],
                       f"LT {k} {key} #{i}: rows beyond rtol 1e-4 atol 1e-5: "
                       f"{rd[k]['bad_rows']}")
+            check(rd["k12"]["equal"] and rd["k12"]["ring_equal"],
+                  f"LT K12-LT {key} #{i}: the Q rows (resident: "
+                  f"{rd['k12']['equal']}, ring: {rd['k12']['ring_equal']}) "
+                  "differ from the twin's on the same state")
         check(r["rounds"][0]["spawned"] > 0 and r["rounds"][1]["walking"] > 0
               and r["rounds"][1]["splats"] > 0, f"LT {key}: no work")
     return res
@@ -1834,7 +1885,7 @@ def main():
     phase_build(torch)
     sweep = phase_sweep(torch, dev, SWEEP_RAYS)
     rows = phase_rows_sweep(torch, dev, SWEEP_RAYS)
-    rnd = phase_round(torch, dev, WIDTH)
+    rnd = phase_round(torch, dev, WIDTH, 256)
     two = phase_two_prog(torch, dev, TWO_PROG_CASES)
     ring = phase_walk_ring(torch, dev, 256)
     tex = phase_texfeed(torch, dev, WIDTH)
@@ -1954,14 +2005,18 @@ def main():
              replaces="pathtracer_tpu/kernels/lt_mega.py:1005",
              launches=lt_hdri["lt_finalize"],
              max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_"))],
-        # the sweep device code (sweep.cuh) is inlined in all the round
-        # kernels; dense_sweep.cu launches it on its own only in this check
+        # the sweep device code (sweep.cuh, walked by tiles.cuh) is inlined
+        # in the round kernels that keep the older walk of the [P_pad, 128]
+        # table; dense_sweep.cu launches it on its own only in this check.
+        # The other round kernels inline walk.cuh's walk of the compact
+        # sweep table, which returns the same bits
         "inlined": [dict(
             name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
-            inlined_in=["fused_round", "shade_sweep", "finalize_sweep",
-                        "sweep_closest_rows", "sweep_any_rows", "lt_shade",
+            inlined_in=["sweep_closest_rows", "sweep_any_rows",
                         "lt_finalize_spawn", "lt_finalize"],
+            walk_cuh_inlined_in=["shade_sweep", "finalize_sweep",
+                                 "fused_round", "lt_shade"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
             **timed(dict(ms=sweep["chip"]["closest_ms"],
                          plain_ms=sweep["chip"]["closest_plain_ms"],

@@ -103,7 +103,7 @@ _SIGNATURES = {
     # (rays, tab, n, p_rows, out, stream)
     "dense_sweep_closest": [_P, _P, _I, _I, _P, _P],
     "dense_sweep_any": [_P, _P, _I, _I, _P, _P],
-    # (u, nu, state, out, n, dense, p_dense, prim, p_pad, mat, light, spec,
+    # (u, nu, state, out, n, sweep, p_rows, prim, p_pad, mat, light, spec,
     #  spec_rows, args*, stream)
     "fused_round_launch": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
                            _I, _P, _P],
@@ -123,24 +123,27 @@ _SIGNATURES = {
     "sweep_any_rows_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _P],
     # (u, state, k2, blk, out, n, args*, stream)
     "finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _P],
-    # (u, state, q, n, dense, p_dense, prim, p_pad, mat, spec, args*,
-    #  stream)
-    "lt_shade_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    # (u, state, q, n, sweep, p_rows, resident_rows, prim, p_pad, mat, spec,
+    #  args*, stream)
+    "lt_shade_launch": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
     # (u, usp, state, q, out, n, dense, p_dense, light, spec, lcdf, args*,
     #  stream)
     "lt_finalize_spawn_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
                                  _P, _P],
     # (u, state, q, feed, out, n, dense, p_dense, args*, stream)
     "lt_finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
-    # (c_lanes, regs*, local_bytes*); (which: 0 K12, 1 K34, 2 K2, 3 K1,
-    # 4 K4, 5 K3; + 8 for the medium instantiation of K12, K34, K2, K4;
-    # c_lanes, ...); (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1, ...)
-    "fused_round_attrs": [_I, _P, _P],
+    # (c_lanes, regs*, local_bytes*, static_shared_bytes*, blocks_per_sm*);
+    # (which: 0 K12, 1 K34, 2 K2, 3 K1, 4 K4, 5 K3; + 8 for the medium
+    # instantiation of K12, K34, K2, K4; c_lanes, regs*, local_bytes*);
+    # (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1, regs*, local_bytes*)
+    "fused_round_attrs": [_I, _P, _P, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],
     # (which: 0 K12, 1 K34; + 8 medium; c_lanes; p_rows; resident_rows;
     #  static_bytes*, dynamic_bytes*, blocks_per_sm*)
     "walk_shared_bytes": [_I, _I, _I, _I, _P, _P, _P],
     "lt_round_attrs": [_I, _P, _P],
+    # (p_rows, resident_rows, static_bytes*, dynamic_bytes*, blocks_per_sm*)
+    "lt_shade_shared_bytes": [_I, _I, _P, _P, _P],
     "round_args_size": [],
     "lt_args_size": [],
     "pt_error_string": [_I],

@@ -19,7 +19,17 @@
 // kernels (one index_add_ per round), so every row can be held against the
 // twin's.
 //
-// One thread runs one lane, with the table walks of tiles.cuh. The Pallas
+// One thread runs one lane. K12-LT walks the compact sweep table
+// (kernels/dense.py:pack_sweep_np, MegaScene.sweep_tab) from shared memory
+// through walk.cuh, as K12 does: resident up to the caller's budget of rows,
+// copied there once per block by one bulk copy on an mbarrier, else through
+// walk.cuh's ring of bulk-copied tiles; the ray's terms once per ray, a
+// rect's normal and edge norms read from its row, two rows a loop turn.
+// K34-LT (v2 and v1) keep tiles.cuh's walk of the [P_pad, 128] dense table
+// (256-prim tiles staged between two block barriers). What bounds the
+// kernels on the H100: instruction issue in the walks (a live lane's
+// closest-hit walk in K12-LT, up to cs + 1 shadow walks in K34-LT) and in
+// the shading, against about 0.3 KB of memory traffic a lane. The Pallas
 // one-hot fetches (_prim_attr_fetch, _sel_rows, the light rows) are indexed
 // loads, _spectral_fetch the f32 lerp of round_common.cuh, and the [knot,
 // lane] compare-and-sum inversion of the emission CDF a per-lane binary
@@ -36,6 +46,7 @@
 
 #include "round_common.cuh"
 #include "tiles.cuh"
+#include "walk.cuh"
 
 // mirrors kernels/lt_mega.py:_CLtArgs (all fields 4 bytes, same order)
 struct LtArgs {
@@ -149,11 +160,14 @@ __device__ __forceinline__ float emission_dir_pdf(float mtype, float side,
 
 __global__ void __launch_bounds__(BLOCK) lt_shade_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
-    float* __restrict__ q, int n, const float* __restrict__ dense,
-    int p_dense, const float* __restrict__ prim, int p_pad,
+    float* __restrict__ q, int n, const float* __restrict__ sweep,
+    int p_rows, int resident_rows, const float* __restrict__ prim, int p_pad,
     const float* __restrict__ mat, const float* __restrict__ spec,
     const LtArgs a) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
+                                   walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   auto S = [&](int r) { return state[r * N + i]; };
@@ -165,7 +179,7 @@ __global__ void __launch_bounds__(BLOCK) lt_shade_kernel(
   }
   float t_hit = INFINITY;
   int pid = -1;
-  tiles::closest_tiles(dense, p_dense, prims, live, o, d, &t_hit, &pid);
+  walk::closest(T, live, o, d, &t_hit, &pid);
   if (i >= n) return;
   const int cs = a.cs;
   auto Q = [&](int r, float v) { q[r * N + i] = v; };
@@ -649,17 +663,25 @@ bool args_ok(const LtArgs* a, int p_dense) {
 extern "C" {
 
 // K12-LT: u [>= 2 cs + 4, n], state [16, n] -> q [q2_rows(cs), n]; tables
-// as baked by kernels/megakernel.py:bake_mega_scene. Returns a cudaError_t.
+// as baked by kernels/megakernel.py:bake_mega_scene, sweep [p_rows, 16] its
+// compact sweep table, resident in shared memory where p_rows <=
+// resident_rows. Returns a cudaError_t.
 int lt_shade_launch(const float* u, const float* state, float* q, int n,
-                    const float* dense, int p_dense, const float* prim,
-                    int p_pad, const float* mat, const float* spec,
-                    const LtArgs* args, cudaStream_t stream) {
+                    const float* sweep, int p_rows, int resident_rows,
+                    const float* prim, int p_pad, const float* mat,
+                    const float* spec, const LtArgs* args,
+                    cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (!args_ok(args, p_dense) || p_pad < p_dense)
+  if (!args_ok(args, p_rows) ||
+      !walk::table_ok(p_rows, MAX_PRIMS, resident_rows) || p_pad < p_rows)
     return (int)cudaErrorInvalidValue;
+  const int smem = walk::shared_bytes(p_rows, resident_rows);
+  int rc = walk::allow_shared((const void*)lt_shade_kernel, smem);
+  if (rc != 0) return rc;
   int grid = (n + BLOCK - 1) / BLOCK;
-  lt_shade_kernel<<<grid, BLOCK, 0, stream>>>(u, state, q, n, dense, p_dense,
-                                              prim, p_pad, mat, spec, *args);
+  lt_shade_kernel<<<grid, BLOCK, smem, stream>>>(u, state, q, n, sweep,
+                                                 p_rows, resident_rows, prim,
+                                                 p_pad, mat, spec, *args);
   return (int)cudaGetLastError();
 }
 
@@ -700,6 +722,18 @@ int lt_round_attrs(int which, int* regs, int* local_bytes) {
                    : which == 1 ? (const void*)lt_finalize_spawn_kernel
                                 : (const void*)lt_finalize_kernel;
   return attrs(fn, regs, local_bytes);
+}
+
+// the shared memory of one block of K12-LT walking a table of p_rows rows:
+// its static bytes, the dynamic bytes the launcher asks for, and the blocks
+// of it one SM holds at once
+int lt_shade_shared_bytes(int p_rows, int resident_rows, int* static_bytes,
+                          int* dynamic_bytes, int* blocks_per_sm) {
+  if (!walk::table_ok(p_rows, MAX_PRIMS, resident_rows))
+    return (int)cudaErrorInvalidValue;
+  *dynamic_bytes = walk::shared_bytes(p_rows, resident_rows);
+  return walk::occupancy((const void*)lt_shade_kernel, BLOCK, *dynamic_bytes,
+                         static_bytes, blocks_per_sm);
 }
 
 // sizeof(LtArgs), for the caller's check of its mirror of the struct

@@ -1,8 +1,10 @@
-// The block-wide table walks of the round kernels (two_prog_round.cu: K1,
-// K12, K34; lt_round.cu: K12-LT, K34-LT): the dense table is staged in
-// shared-memory tiles of TILE_P prims (12 KB) that every thread of the
-// block walks together, so every thread of the block must call them (the
-// syncs need the whole block); a lane that has no ray passes `live` false.
+// The block-wide walks of the [P_pad, 128] dense table that K1 and K3
+// (two_prog_round.cu) and K34-LT v2 and v1 (lt_round.cu) keep; K12, K34,
+// the fused round and K12-LT walk the compact sweep table through walk.cuh.
+// The dense table is staged in shared-memory tiles of TILE_P prims (12 KB)
+// that every thread of the block walks together, so every thread of the
+// block must call them (the syncs need the whole block); a lane that has no
+// ray passes `live` false.
 #pragma once
 
 #include "sweep.cuh"

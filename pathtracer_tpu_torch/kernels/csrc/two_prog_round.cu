@@ -449,14 +449,6 @@ int dispatch(const RoundArgs& a, F fn) {
   return (int)cudaErrorInvalidValue;
 }
 
-// a kernel that asks for more than 48 KB of dynamic shared memory must be
-// allowed it first; the attribute stays set on the function
-int allow_shared(const void* fn, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 struct LaunchShadeSweep {
   const float *u, *state, *ef, *mf;
   float* k2;
@@ -471,7 +463,8 @@ struct LaunchShadeSweep {
   template <int C, bool MEDIUM>
   int operator()() const {
     const int smem = walk::shared_bytes(p_rows, resident_rows);
-    int rc = allow_shared((const void*)shade_sweep_kernel<C, MEDIUM>, smem);
+    int rc = walk::allow_shared((const void*)shade_sweep_kernel<C, MEDIUM>,
+                                 smem);
     if (rc != 0) return rc;
     shade_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                                     stream>>>(
@@ -509,7 +502,8 @@ struct LaunchFinalizeSweep {
   template <int C, bool MEDIUM>
   int operator()() const {
     const int smem = walk::shared_bytes(p_rows, resident_rows);
-    int rc = allow_shared((const void*)finalize_sweep_kernel<C, MEDIUM>, smem);
+    int rc = walk::allow_shared(
+        (const void*)finalize_sweep_kernel<C, MEDIUM>, smem);
     if (rc != 0) return rc;
     finalize_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                                        stream>>>(
@@ -546,11 +540,8 @@ struct KernelOf {
   }
 };
 
-// the walks take a table of up to MAX_PRIMS rows, 32 to a chunk, resident
-// up to what one block's shared memory holds
 bool walk_ok(int p_rows, int resident_rows) {
-  return p_rows > 0 && p_rows <= MAX_PRIMS && p_rows % 32 == 0 &&
-         resident_rows >= 0 && resident_rows <= walk::MAX_RESIDENT_ROWS;
+  return walk::table_ok(p_rows, MAX_PRIMS, resident_rows);
 }
 
 int attrs(const void* fn, int* regs, int* local_bytes) {
@@ -690,15 +681,9 @@ int walk_shared_bytes(int which, int c, int p_rows, int resident_rows,
   a.medium = (which & 8) ? 1 : 0;
   int rc = dispatch(a, KernelOf{which & 7, &fn});
   if (rc != 0) return rc;
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
-  if (err != cudaSuccess) return (int)err;
-  *static_bytes = (int)fa.sharedSizeBytes;
   *dynamic_bytes = walk::shared_bytes(p_rows, resident_rows);
-  rc = allow_shared(fn, *dynamic_bytes);
-  if (rc != 0) return rc;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fn, BLOCK, (size_t)*dynamic_bytes);
+  return walk::occupancy(fn, BLOCK, *dynamic_bytes, static_bytes,
+                         blocks_per_sm);
 }
 
 // sizeof(RoundArgs), for the caller's check of its mirror of the struct

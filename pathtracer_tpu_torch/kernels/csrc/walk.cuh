@@ -1,16 +1,17 @@
-// The table walks of K12 and K34 (two_prog_round.cu), designed for the
-// H100: a compact baked sweep table in shared memory, brought there by the
-// TMA unit's asynchronous bulk copies, and a walk that computes what
-// depends only on the ray once per ray and what depends only on the prim
-// once per scene.
+// The table walks of the round kernels designed for the H100: K12 and K34
+// (two_prog_round.cu), the fused round (fused_round.cu) and K12-LT
+// (lt_round.cu). A compact baked sweep table in shared memory, brought
+// there by the TMA unit's asynchronous bulk copies, and a walk that computes
+// what depends only on the ray once per ray and what depends only on the
+// prim once per scene.
 //
 // The table is kernels/dense.py:pack_sweep_np's f32[P_pad, 16]: 64-byte
 // rows of ptype, valid, pa[3], pb[3], pc[3], and for a rect its unit normal
 // n[3], bb and cc (zeros for other prims). Every f32 expression below is
 // sweep.cuh:prim_t's with its operands, order and rounding (the library is
 // built with --fmad=false and IEEE divide and sqrt), so a walk returns the
-// bits tiles.cuh's walk returns, which K1, K3, the fused round and the light
-// tracer's kernels keep. What is not in the per-prim loop here:
+// bits tiles.cuh's walk returns, which K1, K3 and K34-LT (v2 and v1) keep.
+// What is not in the per-prim loop here:
 //   - the triangle test's axis permutation, sheared direction, 1/dz and the
 //     permuted origin are RayTerms of the ray; the prim's vertices are
 //     fetched in permuted order by indexed shared-memory loads (a selection,
@@ -27,7 +28,8 @@
 // operations the bound counts, and nothing contracts to an FMA (see the
 // note in two_prog_round.cu), so twice the bound by operations is the floor.
 // Staging: a table of at most `resident_rows` rows is copied whole into the
-// block's dynamic shared memory by one cp.async.bulk that completes on an
+// block's shared memory (dynamic; the fused round's table of at most 128
+// rows into a static array) by one cp.async.bulk that completes on an
 // mbarrier, once per block, and every walk of the block reads it there; the
 // exit test of an any-hit walk is then per warp. A larger table cycles
 // through a ring of RING_STAGES tiles of RING_ROWS rows: one elected thread
@@ -39,6 +41,7 @@
 // used again or the block exits).
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sweep.cuh"
@@ -57,6 +60,36 @@ constexpr float RAY_TMAX = 1e9f;
 // dynamic shared memory of a block for a table of `rows` rows
 __host__ __device__ inline int shared_bytes(int rows, int resident_rows) {
   return (rows <= resident_rows ? rows : RING_STAGES * RING_ROWS) * ROW * 4;
+}
+
+// a table the walks take: up to max_rows rows, 32 to a chunk, resident up
+// to what one block's shared memory holds
+inline bool table_ok(int rows, int max_rows, int resident_rows) {
+  return rows > 0 && rows <= max_rows && rows % 32 == 0 &&
+         resident_rows >= 0 && resident_rows <= MAX_RESIDENT_ROWS;
+}
+
+// a kernel that asks for more than 48 KB of dynamic shared memory must be
+// allowed it first; the attribute stays set on the function
+inline int allow_shared(const void* fn, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// the shared memory of one block of kernel `fn` (`block` threads) that
+// asks for `dynamic_bytes`: its static bytes, and the blocks of it one SM
+// holds at once
+inline int occupancy(const void* fn, int block, int dynamic_bytes,
+                     int* static_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  int rc = allow_shared(fn, dynamic_bytes);
+  if (rc != 0) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, block, (size_t)dynamic_bytes);
 }
 
 // ------------------------------------------------------------ ray terms
@@ -266,7 +299,7 @@ struct Table {
   const float* tab;  // [rows, 16] in device memory
   int rows;
   bool resident;
-  float* smem;     // dynamic shared memory, shared_bytes(rows, ...) of it
+  float* smem;     // shared memory, shared_bytes(rows, ...) of it
   uint64_t* bars;  // RING_STAGES mbarriers (the resident table's: bars[0])
   uint32_t phase;  // bit s: the parity of stage s's next wait
 };

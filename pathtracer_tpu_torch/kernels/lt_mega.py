@@ -928,7 +928,9 @@ def _check(scene: LtScene, u, state, rows: dict):
 
 def lt_shade(u, state, scene: LtScene):
     """K12-LT -> Q rows [q2_rows(cs), N]: the CUDA kernel on CUDA tensors,
-    the plain twin on CPU tensors."""
+    the plain twin on CPU tensors. The kernel walks the scene's compact
+    `sweep_tab`, resident in shared memory up to
+    `megakernel.SWEEP_RESIDENT_ROWS` rows, else through the ring of tiles."""
     global SHADE_LAUNCHES
     t, a = scene.tabs, scene.a
     _check(scene, u, state, {})
@@ -937,6 +939,7 @@ def lt_shade(u, state, scene: LtScene):
     if state.device.type == "cpu":
         return lt_shade_plain(u, state, t.dense_tab, t.prim_tab, t.mat_tab,
                               t.spec_tab, a)
+    sweep = mk._sweep_tab(t)
     lib = _lib()
     n = state.shape[1]
     q = torch.empty((q2_rows(a.cs), n), dtype=torch.float32,
@@ -944,8 +947,9 @@ def lt_shade(u, state, scene: LtScene):
     cargs = _c_args(a)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.lt_shade_launch(
-        mk._ptr(u), mk._ptr(state), mk._ptr(q), n, mk._ptr(t.dense_tab),
-        t.dense_tab.shape[0], mk._ptr(t.prim_tab), t.prim_tab.shape[1],
+        mk._ptr(u), mk._ptr(state), mk._ptr(q), n, mk._ptr(sweep),
+        sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
+        mk._ptr(t.prim_tab), t.prim_tab.shape[1],
         mk._ptr(t.mat_tab), mk._ptr(t.spec_tab), ctypes.byref(cargs),
         ctypes.c_void_p(stream))
     mk._raise_on(rc, "lt_shade")

@@ -27,7 +27,9 @@ counter rows. A round takes one of three routes, as the JAX package's
   K12 and K34 walk the compact `sweep_tab` (64-byte rows with a rect's
   normal and edge norms baked in) from shared memory (`csrc/walk.cuh`):
   whole where it has at most `SWEEP_RESIDENT_ROWS` rows, else through a
-  ring of tiles; the other kernels and every twin read `dense_tab`.
+  ring of tiles. The fused round walks it too (always whole: at most 128
+  rows), and so does the light tracer's K12-LT (`kernels/lt_mega.py`), at
+  the same budget; K1, K3, K34-LT and every twin read `dense_tab`.
 
 `stepper="split"` runs every scene of the gate through the split round
 instead (`split_round`, the JAX package's five-program pipeline): K1 ->
@@ -159,9 +161,9 @@ NEE_ROWS = 12
 NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
 
 MEGA_MAX_PRIMS = 8192  # the megakernel gate
-# K12 and K34 keep a sweep table of at most this many rows whole in a
-# block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
-# costs none of the six 128-thread blocks an SM holds of either kernel (the
+# K12, K34 and K12-LT keep a sweep table of at most this many rows whole in
+# a block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
+# costs none of the six 128-thread blocks an SM holds of any of them (the
 # ring takes 24 KB). A larger table goes through the ring of csrc/walk.cuh:
 # on the card a resident table that cut the blocks to two ran 1.6-1.8x
 # slower than the ring, while the ring costs 3-5% where the table would
@@ -1969,6 +1971,7 @@ def fused_round(u, state, scene: MegaScene, a: RoundArgs):
         raise NotImplementedError(_NOT_FUSED)
     if state.device.type == "cpu":
         return fused_round_plain(u, state, a=a, **_tables(scene))
+    sweep = _sweep_tab(scene)
     lib = _lib()
     n = state.shape[1]
     out = torch.empty((NK4, n), dtype=torch.float32, device=state.device)
@@ -1976,7 +1979,7 @@ def fused_round(u, state, scene: MegaScene, a: RoundArgs):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.fused_round_launch(
         _ptr(u), u.shape[0], _ptr(state), _ptr(out), n,
-        _ptr(scene.dense_tab), scene.dense_tab.shape[0],
+        _ptr(sweep), sweep.shape[0],
         _ptr(scene.prim_tab), scene.prim_tab.shape[1],
         _ptr(scene.mat_tab), _ptr(scene.light_tab), _ptr(scene.spec_tab),
         scene.spec_tab.shape[0], ctypes.byref(cargs),

@@ -1,8 +1,11 @@
 """Times of K12 (`shade_sweep`) and K34 (`finalize_sweep`) on the card, on a
 first round's inputs from one camera spawn at 1080 x 1080 (the mesh at
-256 x 256), by sweep-table size and residency budget.
+256 x 256), by sweep-table size and residency budget; with `--rounds`, of
+the fused round and the light tracer's kernels too.
 
     python -m pathtracer_tpu_torch.tools.walk_bench
+    python -m pathtracer_tpu_torch.tools.walk_bench --cases none \
+        --rounds fused,lt
 
 Cases: the gem (352 table rows), a finer gem (1,312 rows: 82 KB, resident
 only with the opt-in above 48 KB), the mesh (5,152 rows, always the ring)
@@ -11,6 +14,12 @@ budget of `--budgets` that changes its staging (0 forces the ring). K1 and K3,
 which keep the older walk of the [P_pad, 128] table, are timed beside them on
 the same rays. Prints one JSON line per case and budget, each with the card's
 name and power limit; CUDA events around `--reps` launches after a warm-up.
+
+`--rounds fused`: the fused round on the chip scene (1080 x 1080, a first
+round's inputs, C = 1 and 4); `--rounds lt`: K12-LT and K34-LT on a second
+round's inputs at 2^20 lanes (chip_lens v2 at 1 and 2 camera samples, the
+HDR blob v1), as chip_smoke.py times them. With the registers and spill
+bytes of each kernel.
 
 The script also runs on a tree from before the shared-memory walk (copy it
 there): it then times that tree's kernels, under `"walk": "tiles"`."""
@@ -65,9 +74,98 @@ def blocks_per_sm(which, c, rows, budget):
     return dyn.value, blocks.value
 
 
+def attrs(fn_name, *which):
+    """(registers, local bytes) of a kernel from its attrs entry point
+    (whatever else the entry point reports is dropped)."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    extra = len(_build._SIGNATURES[fn_name]) - len(which) - 2
+    rc = getattr(_build.library(), fn_name)(
+        *which, ctypes.byref(regs), ctypes.byref(local),
+        *[ctypes.byref(ctypes.c_int()) for _ in range(extra)])
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+    return regs.value, local.value
+
+
+def bench_fused(dev, smi, reps):
+    """The fused round on the chip scene's first-round inputs at 1080 x
+    1080, light samples 2, C = 1 and 4."""
+    world = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    width = 1080
+    n = width * width
+    n_pad = -(-n // mk.TILE) * mk.TILE
+    for c in (1, 4):
+        s = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
+                       russian_roulette=True, hwss=c == 4)
+        scene = mk.build_mega_scene(world, cam, dev)
+        a = mk.RoundArgs.make(scene.consts, s, width, width)
+        gen = torch.Generator(device=dev).manual_seed(5 + c)
+        state, _ = mk.mega_init(
+            cam, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+            n_pad, 16)
+        u = torch.rand((mk.nu_rows(2), n_pad), generator=gen, device=dev)
+        regs, local = attrs("fused_round_attrs", c)
+        print(json.dumps(dict(
+            case="fused_chip", lanes=n_pad, c_lanes=c, card=smi,
+            fused_ms=cuda_ms(lambda: mk.fused_round(u, state, scene, a),
+                             reps),
+            regs=regs, local_bytes=local)), flush=True)
+
+
+def bench_lt(dev, smi, reps):
+    """K12-LT and K34-LT on a second round's inputs at 2^20 lanes."""
+    from pathtracer_tpu_torch.integrator.lt import LTSettings
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+
+    lanes = 1 << 20
+    for recipe, cam, cs, v2, width in (
+            ("chip_lens", "CHIP_LENS_CAMERA", 1, True, 1080),
+            ("chip_lens", "CHIP_LENS_CAMERA", 2, True, 1080),
+            ("hdri_blob", "SPHERE_CAMERA", 1, False, 512)):
+        world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+        camera = make_projective_camera(**getattr(scenes, cam), device=dev)
+        s = LTSettings(max_bounces=8, min_bounces=1, camera_samples=cs,
+                       russian_roulette=True, stratified=True)
+        scene = lt.build_lt_scene(world, camera, s, width, width, dev, v2)
+        state = torch.zeros((lt.NS_LT, lanes), device=dev)
+        state[lt.LS_BUDGET] = 2.0
+        unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(41))
+        cells = s.strata_uv ** 2 * s.strata_lam
+
+        def finalize(it, u, st, q):
+            if v2:
+                usp = lt.stratify_usp(s, unif.round(it, lt.NUSP, lanes, dev),
+                                      unif.permutation(it, cells, dev))
+                return lambda: lt.lt_finalize_spawn(u, usp, st, q, scene)
+            feed = lt.spawn_feed_for(scene, s, unif, it, lanes)
+            return lambda: lt.lt_finalize(u, st, q, feed, scene)
+
+        u = unif.round(0, lt.nu_lt(cs), lanes, dev)
+        state = finalize(0, u, state, lt.lt_shade(u, state, scene))()[
+            :lt.NS_LT].contiguous()
+        u = unif.round(1, lt.nu_lt(cs), lanes, dev)
+        q = lt.lt_shade(u, state, scene)
+        fin = finalize(1, u, state, q)
+        rec = dict(case=f"lt_{recipe}_cs{cs}", lanes=lanes, card=smi,
+                   route="v2" if v2 else "v1",
+                   walking=int((state[lt.LS_ALIVE] > 0.5).sum()),
+                   lt_shade_ms=cuda_ms(lambda: lt.lt_shade(u, state, scene),
+                                       reps),
+                   finalize_ms=cuda_ms(fin, reps))
+        for key, which in (("lt_shade", 0),
+                           ("finalize", 1 if v2 else 2)):
+            rec[f"{key}_regs"], rec[f"{key}_local_bytes"] = attrs(
+                "lt_round_attrs", which)
+        print(json.dumps(rec), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--cases", default="gem,gem_fine,mesh,fog")
+    ap.add_argument("--cases", default="gem,gem_fine,mesh,fog",
+                    help="K12/K34 cases, comma-separated, or none")
+    ap.add_argument("--rounds", default="",
+                    help="fused and/or lt, comma-separated")
     ap.add_argument("--budgets", default="576,0,1408")
     ap.add_argument("--c-lanes", type=int, default=1)
     ap.add_argument("--light-samples", type=int, default=2)
@@ -82,7 +180,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     c, ls = args.c_lanes, args.light_samples
+    for name in args.rounds.split(","):
+        if name:
+            dict(fused=bench_fused, lt=bench_lt)[name](dev, smi, args.reps)
     for name in args.cases.split(","):
+        if name == "none":
+            continue
         recipe, kw, cam, width, medium = CASES[name]
         world = getattr(scenes, recipe)(SceneBuilder(), spectral,
                                         **kw).build(dev)

@@ -10,23 +10,27 @@ need not have.)
 The sweep must match exactly (hit, prim id, t, any-hit mask). The round
 kernels and their twins run the same operations in the same order (the
 twins divide by constants as IEEE divisions, and the kernels are built
-without FMA contraction), so the discrete rows must be equal on >= 99.99%
-of lanes and the continuous rows within rtol 1e-4, atol 1e-5 on those
-lanes. That holds for the fused round, for K12 (shade_sweep, its K2
-rows) and K34 (finalize_sweep) of the two-program round on the multi-chunk
-gem, the HDR blob and the Sun scene, and for K1 (sweep_closest_rows: hit and
-prim id exact, t within rtol 1e-5), K2 (shade) and K34 of the texture-feed
-round on the textured Cornell box, each chained over three rounds; and
-for the medium instantiations of K12, K2, K34 and K4 and the split round's
-K3 (sweep_any_rows: mask equal) and K4 (finalize) on the fog and nested
-media scenes. K12 and K34 walk the compact sweep table from shared memory
-(csrc/walk.cuh): they are held to their twins with the table resident and
-through the ring of tiles (a table one row over the residency budget, and
-the 41 tiles of the mesh), the two bit for bit equal to each other, at 1, 2
-and 3 NEE samples; and the split round, whose K1 and K3 keep the older walk
-of the [P_pad, 128] table, renders the film of the two-program round. The
-polygon-aperture respawn and the direct-only cut, which no recipe reaches,
-have a case each (fused round, K12, K34)."""
+without FMA contraction). The fused round and K12-LT must equal their twins
+on every row: the fused round at 0 to 3 NEE samples, C = 1 and 4, over
+three chained rounds in which lanes die mid-warp; K12-LT with its sweep
+table resident and through the ring. Elsewhere the discrete rows must be
+equal on >= 99.99% of lanes and the continuous rows within rtol 1e-4, atol
+1e-5 on those lanes. That holds for K12 (shade_sweep, its K2 rows) and K34
+(finalize_sweep) of the two-program round on the multi-chunk gem, the HDR
+blob and the Sun scene, and for K1 (sweep_closest_rows: hit and prim id
+exact, t within rtol 1e-5), K2 (shade) and K34 of the texture-feed round on
+the textured Cornell box, each chained over three rounds; and for the
+medium instantiations of K12, K2, K34 and K4 and the split round's K3
+(sweep_any_rows: mask equal) and K4 (finalize) on the fog and nested media
+scenes. K12, K34, the fused round and K12-LT walk the compact sweep table
+from shared memory (csrc/walk.cuh). K12 and K34 are held to their twins
+with the table resident and through the ring of tiles (a table one row
+over the residency budget, and the 41 tiles of the mesh), the two bit for
+bit equal to each other, at 1, 2 and 3 NEE samples; and the split round,
+whose K1 and K3 keep the older walk of the [P_pad, 128] table, renders the
+film of the two-program round. The polygon-aperture respawn and the
+direct-only cut, which no recipe reaches, have a case each (fused round,
+K12, K34)."""
 
 import numpy as np
 import pytest
@@ -88,32 +92,39 @@ def test_sweep_kernel_matches_plain(dev, table):
 @pytest.mark.parametrize("recipe", [scenes.chip_scene, scenes.cornell_sharp],
                          ids=["chip", "sharp"])
 @pytest.mark.parametrize("c_lanes", [1, 4])
-def test_fused_round_kernel_matches_plain(dev, c_lanes, recipe):
+@pytest.mark.parametrize("ls", [0, 1, 2, 3])
+def test_fused_round_kernel_matches_plain(dev, ls, c_lanes, recipe):
+    """Three chained fused rounds equal to the twin's on every row. One
+    sample a pixel, so that lanes die and stay dead mid-warp from the
+    second round on, and 91 lanes fewer than a whole number of blocks, so
+    that the last block has threads past n: every thread still takes part
+    in every walk."""
     world = recipe(SceneBuilder(), spectral).build(dev)
     cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
-    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4)
+    s = PTSettings(max_bounces=12, light_samples=ls, hwss=c_lanes == 4)
     scene = mk.build_mega_scene(world, cam, dev)
     a = mk.RoundArgs.make(scene.consts, s, 128, 128)
     n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
     gen = torch.Generator(device=dev).manual_seed(4)
     state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
                                             device=dev), a, 128 * 128,
-                            n_pad, 4)
-    sk = sp = state
-    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
-            mk.O4_CAMERA_CT, mk.O4_SHADOW_CT, mk.O4_ENV_CT]
+                            n_pad, 1)
+    n = n_pad - 91
+    sk = state[:, :n].contiguous()
+    dead = 0
     for _ in range(3):
-        u = torch.rand((mk.nu_rows(2), n_pad), generator=gen, device=dev)
+        u = torch.rand((mk.nu_rows(ls), n), generator=gen, device=dev)
+        launches = mk.FUSED_LAUNCHES
         ok = mk.fused_round(u, sk, scene, a)
-        op = mk.fused_round_plain(u, sp, scene.dense_tab, scene.prim_tab,
+        op = mk.fused_round_plain(u, sk, scene.dense_tab, scene.prim_tab,
                                   scene.mat_tab, scene.light_tab,
                                   scene.spec_tab, a)
-        match = (ok[disc] == op[disc]).all(dim=0)
-        assert float(match.float().mean()) >= 0.9999
-        cont = [r for r in range(mk.NS) if r not in disc]
-        assert torch.allclose(ok[cont][:, match], op[cont][:, match],
-                              rtol=1e-4, atol=1e-5)
-        sk, sp = ok[:mk.NS], op[:mk.NS]
+        assert mk.FUSED_LAUNCHES == launches + 1
+        assert torch.equal(ok, op)
+        dead += int((sk[mk.S_ALIVE] <= 0.5).sum())
+        sk = ok[:mk.NS]
+    assert dead > 0
+    assert (int(ok[mk.O4_SHADOW_CT].sum()) > 0) == (ls > 0)
     assert np.isfinite(sk.cpu().numpy()).all()
 
 
@@ -489,6 +500,39 @@ def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
     assert torch.equal(
         dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6),
         dense.sweep_any_rows_plain(k2s, scene.dense_tab, row0, row0 + 6))
+
+
+@pytest.mark.parametrize("cs", [1, 2])
+def test_lt_shade_resident_and_ring_match_plain(dev, monkeypatch, cs):
+    """K12-LT over three chained rounds of chip_lens (its 32-row sweep
+    table), with the table resident in shared memory and through the ring
+    (the budget one row under the table: one short tile), its Q rows equal
+    to the twin's bit for bit on every row; the rounds are chained through
+    K34-LT v2."""
+    lt, s, scene, state = _lt_setup(dev, "chip_lens", "CHIP_LENS_CAMERA", cs,
+                                    True)
+    unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(10))
+    t, a = scene.tabs, scene.a
+    rows = int(t.sweep_tab.shape[0])
+    assert rows <= mk.SWEEP_RESIDENT_ROWS
+    n = state.shape[1]
+    sk = state
+    walking = 0.0
+    for it in range(3):
+        u = unif.round(it, lt.nu_lt(cs), n, dev)
+        qs = []
+        for budget in (mk.SWEEP_RESIDENT_ROWS, rows - 1):
+            monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
+            launches = lt.SHADE_LAUNCHES
+            qs.append(lt.lt_shade(u, sk, scene))
+            assert lt.SHADE_LAUNCHES == launches + 1
+        qp = lt.lt_shade_plain(u, sk, t.dense_tab, t.prim_tab, t.mat_tab,
+                               t.spec_tab, a)
+        assert torch.equal(qs[0], qp) and torch.equal(qs[1], qp)
+        walking += float(qp[lt.Q_ALIVE].sum())
+        usp = unif.round(it, lt.NUSP, n, dev)
+        sk = lt.lt_finalize_spawn(u, usp, sk, qs[0], scene)[:lt.NS_LT]
+    assert walking > 0
 
 
 def _lt_setup(dev, recipe, cam, cs, spawn_inkernel, lanes=1 << 15):

@@ -1,8 +1,12 @@
 """The port's plain fused bounce round (twin of csrc/fused_round.cu) against
 the JAX package's fused round (_step_fused, Pallas interpret mode) on the
 chip scene at 64x64, for C = 1 and C = 4 hero-wavelength lanes, light
-samples 2. Both chain three rounds on their own state from the JAX initial
-state with the same uniform blocks.
+samples 2, and at 32x32 for C = 1 at light samples 1 and 3 (1,024 live
+lanes of the 4,096 a round pads to: at 64x64 one lane of 4,096 leaves rtol
+5e-3 in a direction row by round 3 at light samples 3, through the
+near-delta glass below).
+Both chain three rounds on their own state from the JAX initial state with
+the same uniform blocks.
 
 Tolerances, and why:
 - discrete rows (alive, bounce, samples left) equal on >= 99.9% of lanes,
@@ -36,6 +40,21 @@ def rounds(request):
 @pytest.mark.parametrize("r", [0, 1, 2], ids=["round1", "round2", "round3"])
 def test_round_matches_jax(rounds, r):
     check_round(*rounds[r])
+
+
+@pytest.fixture(scope="module", params=[1, 3], ids=["ls1", "ls3"])
+def rounds_odd(request):
+    return request.param, chained_rounds(RECIPE, 1, width=32,
+                                         light_samples=request.param)
+
+
+@pytest.mark.parametrize("r", [0, 1, 2], ids=["round1", "round2", "round3"])
+def test_round_matches_jax_odd_light_samples(rounds_odd, r):
+    ls, rounds = rounds_odd
+    check_round(*rounds[r])
+    # every sample worth a ray is counted: at most ls a lane
+    shadow = rounds[r][1][tm.O4_SHADOW_CT]
+    assert shadow.max() <= ls and shadow.sum() > 0
 
 
 def test_rounds_do_work(rounds):

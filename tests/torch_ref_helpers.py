@@ -150,14 +150,18 @@ class JaxReplay:
         return torch.as_tensor(np.array(u), device=device)
 
 
-def chained_rounds(recipe, c_lanes, rounds=3, width=64, spp=4):
+def chained_rounds(recipe, c_lanes, rounds=3, width=64, spp=4,
+                   light_samples=None):
     """`rounds` bounce rounds of the JAX fused round (_step_fused,
     interpret mode) and of the port's plain fused_round_plain, each chained
     on its own state, from the JAX initial state with the same uniform
-    blocks (drawn as _step_fused draws them). Returns per round
-    (jax state [NS, n_pad], port out [NK4, n_pad], jax counter delta [5])."""
+    blocks (drawn as _step_fused draws them). `light_samples` replaces the
+    recipe's NEE sample count. Returns per round (jax state [NS, n_pad],
+    port out [NK4, n_pad], jax counter delta [5])."""
     jw, tw, jc, tc = both_worlds(recipe)
-    kw = FURNACE_SETTINGS if recipe == "furnace" else NEE_SETTINGS
+    kw = dict(FURNACE_SETTINGS if recipe == "furnace" else NEE_SETTINGS)
+    if light_samples is not None:
+        kw["light_samples"] = light_samples
     js, ts = both_settings(**kw, hwss=c_lanes == 4)
     n = width * width
     n_pad = -(-n // tm.TILE) * tm.TILE
