@@ -36,16 +36,17 @@ its bound (the least time the card could take: the larger of the f32
 operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
 published peaks; the kernels are built without FMA contraction, so a sweep
 of separate multiplies and adds cannot go under twice a bound by
-operations). K12, K34, the fused round and K12-LT walk the compact sweep
-table from shared memory. K12 and K34 are held to their twins with the
-table resident (the gem, the HDR blob), through the ring of tiles (the
-mesh's 41 tiles) and with the budget set one row under the gem's and the
-fog box's tables, and the gem is rendered a second time through the split
-round, whose older walk must give the same film. The fused round must equal
-its twin on every row over three chained rounds at light samples 2 (C = 1
-and 4, 1080x1080) and 1 and 3 (C = 1, 256x256), and K12-LT its twin on
-every row, its table resident and with the budget one row under it. The
-last line is the device summary:
+operations). Every round kernel but K3 walks the compact sweep table from
+shared memory. K12 and K34 are held to their twins with the table resident
+(the gem, the HDR blob), through the ring of tiles (the mesh's 41 tiles)
+and with the budget set one row under the gem's and the fog box's tables,
+and the gem is rendered a second time through the split round (K1, and K3
+on the older walk), which must give the same film. The fused round must
+equal its twin on every row over three chained rounds at light samples 2
+(C = 1 and 4, 1080x1080) and 1 and 3 (C = 1, 256x256); K1, K12-LT and
+K34-LT (v2 and v1) their twins on every row of the kernel's own state, the
+table resident and with the budget one row under it. The last line is the
+device summary:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -121,8 +122,8 @@ PRIM_OPS = (41, 23, 35, 29)
 RAY_OPS = (3, 6, 0, 0)
 F32 = 4
 # the floats a sweep must read of a row of the [P_pad, 128] dense table
-# (ptype, valid, pa, pb, pc); K12 and K34 read the compact sweep table, and
-# all 16 floats of its rows
+# (ptype, valid, pa, pb, pc), as K3 and dense_sweep.cu read it; the kernels
+# on walk.cuh read the compact sweep table, and all 16 floats of its rows
 DENSE_COLS = 11
 
 
@@ -207,13 +208,13 @@ def any_rows_bound(torch, mk, dense, k2, scene, si):
                         + dense_floats(scene.dense_tab)))
 
 
-def rows_bound(mk, state, tab):
+def rows_bound(mk, state, sweep):
     """K1: every lane's alive flag, a live lane's ray rows and sweep, every
-    lane's 8 out rows."""
+    lane's 8 out rows, the sweep table (64 B a row)."""
     n = state.shape[1]
     live = int((state[mk.S_ALIVE] > 0.5).sum())
-    return bound(live * sweep_ops(tab),
-                 F32 * (n + 6 * live + 8 * n + dense_floats(tab)))
+    return bound(live * sweep_ops(sweep),
+                 F32 * (n + 6 * live + 8 * n + int(sweep.numel())))
 
 
 def shade_bound(mk, state, scene, a, sweep, fed_rows):
@@ -267,35 +268,46 @@ def phase_build(torch):
                 check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
                 two_prog[name][f"C{c}" + ("_medium" if medium else "")] = \
                     dict(regs=regs.value, local_bytes=local.value)
-    # K12's, K34's and K12-LT's dynamic shared memory and the blocks an SM
-    # holds: the gem's 352-row table (chip_lens's 32 rows for K12-LT)
-    # resident, the largest table the budget keeps resident, and the ring
+    # the dynamic shared memory of the kernels that walk the sweep table and
+    # the blocks an SM holds: the gem's 352-row table (chip_lens's 32 rows
+    # for the LT kernels) resident, the largest table the budget keeps
+    # resident, and the ring. (walk_shared_bytes's which, or the LT kernel's
+    # which and camera samples)
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
     walk_shared = {}
     budget = mk.SWEEP_RESIDENT_ROWS
-    for name, k in (("shade_sweep", 0), ("finalize_sweep", 1),
-                    ("lt_shade", None)):
-        first = 32 if k is None else 352
+    for name, k, lt_cs in (("shade_sweep", 0, None),
+                           ("finalize_sweep", 1, None),
+                           ("sweep_closest_rows", 3, None),
+                           ("lt_shade", 0, 1), ("lt_finalize_spawn", 1, 1),
+                           ("lt_finalize_spawn_cs2", 1, 2),
+                           ("lt_finalize", 2, 1)):
+        first = 352 if lt_cs is None else 32
         for label, rows in ((f"resident_{first}_rows", first),
                             (f"resident_{budget}_rows", budget),
                             ("ring", budget + 32)):
             stat, dyn, blocks = (ctypes.c_int(), ctypes.c_int(),
                                  ctypes.c_int())
             out = (ctypes.byref(stat), ctypes.byref(dyn), ctypes.byref(blocks))
-            rc = (lib.lt_shade_shared_bytes(rows, budget, *out) if k is None
-                  else lib.walk_shared_bytes(k, 1, rows, budget, *out))
+            rc = (lib.walk_shared_bytes(k, 1, rows, budget, *out)
+                  if lt_cs is None else
+                  lib.lt_round_shared_bytes(k, lt_cs, rows, budget, *out))
             check(rc == 0, f"{name} shared bytes: CUDA error {rc}")
             walk_shared[f"{name}_{label}"] = dict(
                 static_bytes=stat.value, dynamic_bytes=dyn.value,
                 blocks_per_sm=blocks.value)
+    # K34-LT v2 has one instantiation per camera-sample count it walks
+    # jointly (1 and 2) and one for any other count
     lt_round = {}
     for which, name in enumerate(("lt_shade", "lt_finalize_spawn",
                                   "lt_finalize")):
-        rc = lib.lt_round_attrs(which, ctypes.byref(regs),
-                                ctypes.byref(local))
-        check(rc == 0, f"lt_round_attrs: CUDA error {rc}")
-        lt_round[name] = dict(regs=regs.value, local_bytes=local.value)
+        for cs in ((1, 2, 3) if which == 1 else (1,)):
+            rc = lib.lt_round_attrs(which, cs, ctypes.byref(regs),
+                                    ctypes.byref(local))
+            check(rc == 0, f"lt_round_attrs: CUDA error {rc}")
+            lt_round.setdefault(name, {})[f"cs{cs}"] = dict(
+                regs=regs.value, local_bytes=local.value)
     log = _build.BUILD_INFO.get("log", "")
     usage = [ln.strip() for ln in log.splitlines()
              if "registers" in ln.lower() or "spill" in ln.lower()
@@ -319,9 +331,22 @@ def _rays(torch, n, gen, dev, tmax=None):
     return torch.cat([o, d, tmin, tm]).contiguous()
 
 
+def one_row_under(mk, rows, fn):
+    """fn() with the residency budget one row under a sweep table of `rows`
+    rows: the table goes through the ring of tiles."""
+    budget0 = mk.SWEEP_RESIDENT_ROWS
+    try:
+        mk.SWEEP_RESIDENT_ROWS = rows - 1
+        return fn()
+    finally:
+        mk.SWEEP_RESIDENT_ROWS = budget0
+
+
 def sweep_tables(torch, dev):
-    """The sweep phases' tables: the chip scene's (28 prims) and a random
-    one of all four prim types (1,100 prims)."""
+    """The sweep phases' tables, each as (the [P_pad, 128] dense table, the
+    compact sweep table packed beside it): the chip scene's (28 prims, 32
+    rows: resident) and a random one of all four prim types (1,100 prims,
+    1,120 rows: through the ring at the default budget)."""
     from pathtracer_tpu_torch import scenes
     from pathtracer_tpu_torch.core import spectral
     from pathtracer_tpu_torch.kernels import dense
@@ -329,15 +354,17 @@ def sweep_tables(torch, dev):
     from pathtracer_tpu_torch.camera import make_projective_camera
     from pathtracer_tpu_torch.parsing import SceneBuilder
 
-    chip = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
-    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    chip = build_mega_scene(
+        scenes.chip_scene(SceneBuilder(), spectral).build(dev),
+        make_projective_camera(**scenes.CORNELL_CAMERA, device=dev), dev)
     p = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
                             n_each=100).build("cpu").prims
+    cols = (p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+            p.pc.numpy())
     return {
-        "chip": build_mega_scene(chip, cam, dev).dense_tab,
-        "random": torch.as_tensor(dense.pack_prims_np(
-            p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
-            p.pc.numpy()), device=dev),
+        "chip": (chip.dense_tab, chip.sweep_tab),
+        "random": (torch.as_tensor(dense.pack_prims_np(*cols), device=dev),
+                   torch.as_tensor(dense.pack_sweep_np(*cols), device=dev)),
     }
 
 
@@ -347,7 +374,7 @@ def phase_sweep(torch, dev, n_rays):
     tabs = sweep_tables(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     res = {}
-    for name, tab in tabs.items():
+    for name, (tab, _) in tabs.items():
         rays = _rays(torch, n_rays, gen, dev)
         k = dense.sweep_closest(rays, tab)
         pl = dense.sweep_closest_plain(rays, tab)
@@ -394,39 +421,46 @@ def phase_sweep(torch, dev, n_rays):
 
 def phase_rows_sweep(torch, dev, n_lanes):
     """K1 on a state of `n_lanes` lanes (random rays in rows S_O..S_D+2,
-    nine lanes in ten alive) against its twin: hit and prim id exact on
-    every lane, t within rtol 1e-5 on hits; a dead lane must read as a
-    miss."""
+    nine lanes in ten alive) against its twin, its rows equal to the twin's
+    bit for bit (a dead lane reads as a miss), with the sweep table at the
+    default budget (the chip table resident, the random one through the
+    ring) and again with the budget one row under the table."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
     gen = torch.Generator(device=dev).manual_seed(12)
     res = {}
-    for name, tab in sweep_tables(torch, dev).items():
+    for name, (tab, sweep) in sweep_tables(torch, dev).items():
         state = torch.rand((mk.NS, n_lanes), generator=gen, device=dev)
         state[mk.S_O:mk.S_O + 6] = _rays(torch, n_lanes, gen, dev)[:6]
         state[mk.S_ALIVE] = (torch.rand(n_lanes, generator=gen, device=dev)
                              < 0.9).float()
+        rows = int(sweep.shape[0])
 
         def run():
-            return dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE)
+            return dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE,
+                                            sweep)
 
         def twin():
             return dense.sweep_closest_rows_plain(state, tab, mk.S_O,
                                                   mk.S_ALIVE)
 
         k, pl = run(), twin()
+        k_under = one_row_under(mk, rows, run)
         torch.cuda.synchronize()
         err = compare_hits(torch, k, pl, f"rows sweep {name}")
-        dead = state[mk.S_ALIVE] <= 0.5
-        check(bool((k[1][dead] == -1).all() and (k[0][dead] == float("inf"))
-                   .all() and not k[2:].any()),
-              f"rows sweep {name}: a dead lane or a zero row is written")
+        for what, x in (("default budget", k), ("budget one row under", 
+                                                  k_under)):
+            check(torch.equal(x, pl), f"rows sweep {name}, {what}: the rows "
+                  "differ from the twin's")
         res[name] = dict(
-            prims=int(tab.shape[0]), lanes=n_lanes, live=int((~dead).sum()),
+            prims=int(tab.shape[0]), lanes=n_lanes,
+            live=int((state[mk.S_ALIVE] > 0.5).sum()),
+            staging="resident" if rows <= mk.SWEEP_RESIDENT_ROWS else "ring",
             hit_frac=float((k[1] >= 0).float().mean()), max_abs_err_t=err,
+            equal=True, under_budget_equal=True,
             ms=cuda_ms(torch, run, 20), plain_ms=cuda_ms(torch, twin, 3),
-            **rows_bound(mk, state, tab))
+            **rows_bound(mk, state, sweep))
     emit("rows_sweep", **res)
     return res
 
@@ -733,8 +767,10 @@ def phase_texfeed(torch, dev, width):
     """Three chained texture-feed rounds of textured_cornell at C = 1 and 4:
     K1, K2 and K34 against their twins (each route chained on its own state
     from one camera spawn, each fed by the torch texture feed of its own
-    hit rows); then the kernels', the twins' and the feed's times on the
-    first round's inputs, and the device kernels one round launches."""
+    hit rows), K1's rows also equal to the twin's on the kernel's own state
+    bit for bit, its sweep table resident and with the budget one row under
+    it; then the kernels', the twins' and the feed's times on the first
+    round's inputs, and the device kernels one round launches."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
@@ -760,11 +796,15 @@ def phase_texfeed(torch, dev, width):
 
         def k1(st):
             return dense.sweep_closest_rows(st, scene.dense_tab, mk.S_O,
-                                            mk.S_ALIVE)
+                                            mk.S_ALIVE, scene.sweep_tab)
 
         def k1_plain(st):
             return dense.sweep_closest_rows_plain(st, scene.dense_tab,
                                                   mk.S_O, mk.S_ALIVE)
+
+        def k1_ring(st):
+            return one_row_under(mk, int(scene.sweep_tab.shape[0]),
+                                 lambda: k1(st))
 
         def k2_plain(u12, st, tp, tf):
             return mk.shade_plain(u12, st, tp, scene.prim_tab, scene.mat_tab,
@@ -778,6 +818,7 @@ def phase_texfeed(torch, dev, width):
                              device=dev)
             u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
             tpk, tpp = k1(sk), k1_plain(sp)
+            tp_own, tp_ring = k1_plain(sk), k1_ring(sk)
             tfk = mk.tex_feed(scene.tex, sk, tpk, c)
             tfp = mk.tex_feed(scene.tex, sp, tpp, c)
             k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk)
@@ -792,7 +833,9 @@ def phase_texfeed(torch, dev, width):
                                                     range(mk.NS))
             rounds.append(dict(
                 k1=dict(max_abs_err_t=err1,
-                        hit_frac=float((tpk[1] >= 0).float().mean())),
+                        hit_frac=float((tpk[1] >= 0).float().mean()),
+                        equal=bool(torch.equal(tpk, tp_own)),
+                        ring_equal=bool(torch.equal(tp_ring, tp_own))),
                 tf_equal=bool(torch.equal(tfk, tfp)),
                 k2=dict(match_frac=f2, bad_rows=bad2, max_abs_err=err2,
                         max_rel_err_bad=rel2),
@@ -808,7 +851,9 @@ def phase_texfeed(torch, dev, width):
             sweep_closest_rows=dict(
                 ms=cuda_ms(torch, lambda: k1(state0), 10),
                 plain_ms=cuda_ms(torch, lambda: k1_plain(state0), 2),
-                **rows_bound(mk, state0, scene.dense_tab)),
+                ring_ms=cuda_ms(torch, lambda: k1_ring(state0), 10),
+                sweep_rows=int(scene.sweep_tab.shape[0]),
+                **rows_bound(mk, state0, scene.sweep_tab)),
             shade=dict(
                 ms=cuda_ms(torch, lambda: mk.shade(u12, state0, tp0, scene, a,
                                                    tf=tf0), 10),
@@ -834,13 +879,17 @@ def phase_texfeed(torch, dev, width):
         res[f"C{c}"] = dict(lanes=n_pad, live=int(
             (state0[mk.S_ALIVE] > 0.5).sum()), rounds=rounds,
             tex_feed_ms=tex_feed_ms, device_kernels=launches, **kernels)
-        del sk, sp, ok, op, k2k, k2p, first, k2_0
+        del sk, sp, ok, op, k2k, k2p, first, k2_0, tp_own, tp_ring
         torch.cuda.empty_cache()
     emit("texfeed_round", **res)
     for key, r in res.items():
         for i, rd in enumerate(r["rounds"]):
             check(rd["tf_equal"], f"tex_feed {key} #{i}: the two routes' "
                   "feeds differ")
+            check(rd["k1"]["equal"] and rd["k1"]["ring_equal"],
+                  f"K1 {key} #{i}: the rows (resident: {rd['k1']['equal']}, "
+                  f"ring: {rd['k1']['ring_equal']}) differ from the twin's "
+                  "on the same state")
             for k in ("k2", "k34"):
                 check(rd[k]["match_frac"] >= 0.9999,
                       f"{k} {key} #{i}: discrete rows match on only "
@@ -1191,18 +1240,17 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
     connection rows, a respawning lane's spawn uniforms (v2: 11) or feed
     rows (v1: 11, and the connection's 8 where valid), every out row; each
     unblocked shadow ray tests every prim, a blocked one at least the
-    cheapest test. K12-LT reads the sweep table (64 B a row), K34-LT the
-    dense table's 44 B a row. Shading and spawning arithmetic is not
-    counted."""
+    cheapest test. Both read the sweep table (64 B a row). Shading and
+    spawning arithmetic is not counted."""
     n = state.shape[1]
     a, t = scene.a, scene.tabs
     cs, tab = a.cs, t.dense_tab
     alive0 = state[lt.LS_ALIVE] > 0.5
     live = int(alive0.sum())
-    p_bytes = F32 * dense_floats(tab)
+    p_bytes = F32 * int(t.sweep_tab.numel())
     b12 = bound(live * sweep_ops(tab), F32 * (
         n + live * (11 + 2 * cs + 3) + lt.q2_rows(cs) * n)
-        + table_bytes(t) + F32 * int(t.sweep_tab.numel()))
+        + table_bytes(t) + p_bytes)
     rays = []
     for ci in range(cs):
         b = lt.Q_CONN + lt.CONN_ROWS * ci
@@ -1238,9 +1286,10 @@ def phase_lt_round(torch, dev, cases):
     """Three chained LT rounds per case from a state of dead lanes with a
     budget of 2 particles: K12-LT and K34-LT (v2, or v1 after the torch
     spawn feed) against their twins, each side on its own state; K12-LT's
-    Q rows must also equal the twin's on the kernel's own state on every
-    row, with its sweep table resident and through the ring (the budget
-    one row under the table); then the kernels', the twins' and the feed's
+    Q rows and K34-LT's out rows must also equal the twins' on the kernel's
+    own state on every row, with the sweep table resident and through the
+    ring (the budget one row under the table); then the kernels', the
+    twins' and the feed's
     times and the bounds on the second round's inputs (the first round
     only spawns)."""
     from pathtracer_tpu_torch.kernels import dense
@@ -1265,17 +1314,17 @@ def phase_lt_round(torch, dev, cases):
         cells = settings.strata_uv ** 2 * settings.strata_lam
         sk = sp = state0
         rounds, inputs = [], None
-        budget0 = mk.SWEEP_RESIDENT_ROWS
         rows = int(t.sweep_tab.shape[0])
-        check(rows <= budget0, f"{recipe}: {rows} rows are not resident")
+        check(rows <= mk.SWEEP_RESIDENT_ROWS,
+              f"{recipe}: {rows} rows are not resident")
+
+        def ring(fn):
+            return one_row_under(mk, rows, fn)
+
         for it in range(3):
             u = unif.round(it, lt.nu_lt(cs), n, dev)
             qk = lt.lt_shade(u, sk, scene)
-            try:
-                mk.SWEEP_RESIDENT_ROWS = rows - 1
-                q_ring = lt.lt_shade(u, sk, scene)
-            finally:
-                mk.SWEEP_RESIDENT_ROWS = budget0
+            q_ring = ring(lambda: lt.lt_shade(u, sk, scene))
             q_own = lt.lt_shade_plain(u, sk, t.dense_tab, t.prim_tab,
                                       t.mat_tab, t.spec_tab, a)
             qp = lt.lt_shade_plain(u, sp, t.dense_tab, t.prim_tab, t.mat_tab,
@@ -1285,14 +1334,26 @@ def phase_lt_round(torch, dev, cases):
                 usp = lt.stratify_usp(settings,
                                       unif.round(it, lt.NUSP, n, dev),
                                       unif.permutation(it, cells, dev))
-                ok = lt.lt_finalize_spawn(u, usp, sk, qk, scene)
-                op = lt.lt_finalize_spawn_plain(
-                    u, usp, sp, qp, t.dense_tab, t.light_tab, t.spec_tab,
-                    scene.lcdf_tab, a)
+
+                def k34(st, q):
+                    return lt.lt_finalize_spawn(u, usp, st, q, scene)
+
+                def k34_plain(st, q):
+                    return lt.lt_finalize_spawn_plain(
+                        u, usp, st, q, t.dense_tab, t.light_tab, t.spec_tab,
+                        scene.lcdf_tab, a)
             else:
                 feed = lt.spawn_feed_for(scene, settings, unif, it, n)
-                ok = lt.lt_finalize(u, sk, qk, feed, scene)
-                op = lt.lt_finalize_plain(u, sp, qp, feed, t.dense_tab, a)
+
+                def k34(st, q):
+                    return lt.lt_finalize(u, st, q, feed, scene)
+
+                def k34_plain(st, q):
+                    return lt.lt_finalize_plain(u, st, q, feed, t.dense_tab,
+                                                a)
+            ok, op = k34(sk, qk), k34_plain(sp, qp)
+            o_ring = ring(lambda: k34(sk, qk))
+            o_own = k34_plain(sk, qk)
             torch.cuda.synchronize()
             f12, bad12, err12, rel12 = compare_rows(
                 torch, qk, qp, q_disc, range(qk.shape[0]))
@@ -1306,7 +1367,9 @@ def phase_lt_round(torch, dev, cases):
                          equal=bool(torch.equal(qk, q_own)),
                          ring_equal=bool(torch.equal(q_ring, q_own))),
                 k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
-                         max_rel_err_bad=rel34),
+                         max_rel_err_bad=rel34,
+                         equal=bool(torch.equal(ok, o_own)),
+                         ring_equal=bool(torch.equal(o_ring, o_own))),
                 alive=float(ok[lt.LS_ALIVE].sum()),
                 walking=float(qk[lt.Q_ALIVE].sum()),
                 spawned=float(ok[aux["resp"]].sum()), splats=int(splats)))
@@ -1343,7 +1406,8 @@ def phase_lt_round(torch, dev, cases):
         rec.update(lt_shade_bound=b12, finalize_bound=b34,
                    shadow_rays_swept_free=rays)
         res[f"{recipe}_{'v2' if v2 else 'v1'}_cs{cs}"] = rec
-        del sk, sp, ok, op, qk, qp, q_ring, q_own, inputs, s1, q1, o1
+        del sk, sp, ok, op, qk, qp, q_ring, q_own, o_ring, o_own, inputs, \
+            s1, q1, o1
         torch.cuda.empty_cache()
     emit("lt_round", **res)
     for key, r in res.items():
@@ -1355,10 +1419,10 @@ def phase_lt_round(torch, dev, cases):
                 check(not rd[k]["bad_rows"],
                       f"LT {k} {key} #{i}: rows beyond rtol 1e-4 atol 1e-5: "
                       f"{rd[k]['bad_rows']}")
-            check(rd["k12"]["equal"] and rd["k12"]["ring_equal"],
-                  f"LT K12-LT {key} #{i}: the Q rows (resident: "
-                  f"{rd['k12']['equal']}, ring: {rd['k12']['ring_equal']}) "
-                  "differ from the twin's on the same state")
+                check(rd[k]["equal"] and rd[k]["ring_equal"],
+                      f"LT {k} {key} #{i}: the rows (resident: "
+                      f"{rd[k]['equal']}, ring: {rd[k]['ring_equal']}) "
+                      "differ from the twin's on the same state")
         check(r["rounds"][0]["spawned"] > 0 and r["rounds"][1]["walking"] > 0
               and r["rounds"][1]["splats"] > 0, f"LT {key}: no work")
     return res
@@ -1608,7 +1672,7 @@ def phase_medium_rounds(torch, dev, width):
             op = mk.finalize_sweep_plain(u34, sp, k2p, scene.dense_tab, a)
             # the split round on the kernels' state
             tp = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O,
-                                          mk.S_ALIVE)
+                                          mk.S_ALIVE, scene.sweep_tab)
             tpp = dense.sweep_closest_rows_plain(sk, scene.dense_tab, mk.S_O,
                                                  mk.S_ALIVE)
             k2s = mk.shade(u12, sk, tp, scene, a, None, None, mfk)
@@ -1626,6 +1690,7 @@ def phase_medium_rounds(torch, dev, width):
                 k34=cmp(ok, op, out_disc, range(mk.NS)),
                 k1_max_abs_err_t=compare_hits(torch, tp, tpp,
                                               f"medium K1 C{c} #{r}"),
+                k1_equal=bool(torch.equal(tp, tpp)),
                 k2=cmp(k2s, k2sp, k2_disc, range(k2s.shape[0])),
                 k3_mismatches=sum(int((b != bp).sum())
                                   for b, bp in zip(blks, blks_p)),
@@ -1658,10 +1723,11 @@ def phase_medium_rounds(torch, dev, width):
                 **k34_bound(torch, mk, dense, k2_2, s2, scene, a)),
             sweep_closest_rows=dict(
                 ms=ms(lambda: dense.sweep_closest_rows(
-                    s2, scene.dense_tab, mk.S_O, mk.S_ALIVE)),
+                    s2, scene.dense_tab, mk.S_O, mk.S_ALIVE,
+                    scene.sweep_tab)),
                 plain_ms=ms(lambda: dense.sweep_closest_rows_plain(
                     s2, scene.dense_tab, mk.S_O, mk.S_ALIVE), 2),
-                **rows_bound(mk, s2, scene.dense_tab)),
+                **rows_bound(mk, s2, scene.sweep_tab)),
             shade=dict(
                 ms=ms(lambda: mk.shade(u12, s2, tp2, scene, a, None, None,
                                        mf2)),
@@ -1709,6 +1775,8 @@ def phase_medium_rounds(torch, dev, width):
                       f"1e-5: {rd[k]['bad_rows']}")
             check(rd["k3_mismatches"] == 0,
                   f"medium K3 {key} #{i}: {rd['k3_mismatches']} lanes differ")
+            check(rd["k1_equal"], f"medium K1 {key} #{i}: the rows differ "
+                  "from the twin's on the same state")
             check(rd["split_k2_equal"] and rd["split_out_equal"],
                   f"medium {key} #{i}: the split round's rows differ from "
                   "the two-program round's")
@@ -2006,17 +2074,18 @@ def main():
              launches=lt_hdri["lt_finalize"],
              max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_"))],
         # the sweep device code (sweep.cuh, walked by tiles.cuh) is inlined
-        # in the round kernels that keep the older walk of the [P_pad, 128]
-        # table; dense_sweep.cu launches it on its own only in this check.
-        # The other round kernels inline walk.cuh's walk of the compact
-        # sweep table, which returns the same bits
+        # in K3, the one round kernel that keeps the older walk of the
+        # [P_pad, 128] table; dense_sweep.cu launches it on its own only in
+        # this check. The other round kernels inline walk.cuh's walk of the
+        # compact sweep table, which returns the same bits
         "inlined": [dict(
             name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
-            inlined_in=["sweep_closest_rows", "sweep_any_rows",
-                        "lt_finalize_spawn", "lt_finalize"],
+            inlined_in=["sweep_any_rows"],
             walk_cuh_inlined_in=["shade_sweep", "finalize_sweep",
-                                 "fused_round", "lt_shade"],
+                                 "sweep_closest_rows", "fused_round",
+                                 "lt_shade", "lt_finalize_spawn",
+                                 "lt_finalize"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
             **timed(dict(ms=sweep["chip"]["closest_ms"],
                          plain_ms=sweep["chip"]["closest_plain_ms"],

@@ -113,8 +113,8 @@ _SIGNATURES = {
                            _P, _P, _P, _P],
     # (u, state, k2, out, n, sweep, p_rows, resident_rows, args*, stream)
     "finalize_sweep_launch": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
-    # (src, row0, alive_row, dense, p_dense, out, n, stream)
-    "sweep_closest_rows_launch": [_P, _I, _I, _P, _I, _P, _I, _P],
+    # (src, row0, alive_row, sweep, p_rows, resident_rows, out, n, stream)
+    "sweep_closest_rows_launch": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
     # (u, state, tp, ef, tf, mf, k2, n, prim, p_pad, mat, light, spec,
     #  args*, stream)
     "shade_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
@@ -126,24 +126,27 @@ _SIGNATURES = {
     # (u, state, q, n, sweep, p_rows, resident_rows, prim, p_pad, mat, spec,
     #  args*, stream)
     "lt_shade_launch": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
-    # (u, usp, state, q, out, n, dense, p_dense, light, spec, lcdf, args*,
+    # (u, usp, state, q, out, n, sweep, p_rows, resident_rows, light, spec,
+    #  lcdf, args*, stream)
+    "lt_finalize_spawn_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+                                 _P, _P, _P],
+    # (u, state, q, feed, out, n, sweep, p_rows, resident_rows, args*,
     #  stream)
-    "lt_finalize_spawn_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
-                                 _P, _P],
-    # (u, state, q, feed, out, n, dense, p_dense, args*, stream)
-    "lt_finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+    "lt_finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
     # (c_lanes, regs*, local_bytes*, static_shared_bytes*, blocks_per_sm*);
     # (which: 0 K12, 1 K34, 2 K2, 3 K1, 4 K4, 5 K3; + 8 for the medium
     # instantiation of K12, K34, K2, K4; c_lanes, regs*, local_bytes*);
-    # (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1, regs*, local_bytes*)
+    # (which: 0 K12-LT, 1 K34-LT v2, 2 K34-LT v1; camera samples; regs*,
+    #  local_bytes*)
     "fused_round_attrs": [_I, _P, _P, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],
-    # (which: 0 K12, 1 K34; + 8 medium; c_lanes; p_rows; resident_rows;
-    #  static_bytes*, dynamic_bytes*, blocks_per_sm*)
+    # (which: 0 K12, 1 K34, 3 K1; + 8 medium; c_lanes; p_rows;
+    #  resident_rows; static_bytes*, dynamic_bytes*, blocks_per_sm*)
     "walk_shared_bytes": [_I, _I, _I, _I, _P, _P, _P],
-    "lt_round_attrs": [_I, _P, _P],
-    # (p_rows, resident_rows, static_bytes*, dynamic_bytes*, blocks_per_sm*)
-    "lt_shade_shared_bytes": [_I, _I, _P, _P, _P],
+    "lt_round_attrs": [_I, _I, _P, _P],
+    # (which as lt_round_attrs's; camera samples; p_rows; resident_rows;
+    #  static_bytes*, dynamic_bytes*, blocks_per_sm*)
+    "lt_round_shared_bytes": [_I, _I, _I, _I, _P, _P, _P],
     "round_args_size": [],
     "lt_args_size": [],
     "pt_error_string": [_I],

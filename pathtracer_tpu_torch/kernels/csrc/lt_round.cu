@@ -19,23 +19,33 @@
 // kernels (one index_add_ per round), so every row can be held against the
 // twin's.
 //
-// One thread runs one lane. K12-LT walks the compact sweep table
+// One thread runs one lane. All three kernels walk the compact sweep table
 // (kernels/dense.py:pack_sweep_np, MegaScene.sweep_tab) from shared memory
-// through walk.cuh, as K12 does: resident up to the caller's budget of rows,
-// copied there once per block by one bulk copy on an mbarrier, else through
-// walk.cuh's ring of bulk-copied tiles; the ray's terms once per ray, a
-// rect's normal and edge norms read from its row, two rows a loop turn.
-// K34-LT (v2 and v1) keep tiles.cuh's walk of the [P_pad, 128] dense table
-// (256-prim tiles staged between two block barriers). What bounds the
-// kernels on the H100: instruction issue in the walks (a live lane's
-// closest-hit walk in K12-LT, up to cs + 1 shadow walks in K34-LT) and in
-// the shading, against about 0.3 KB of memory traffic a lane. The Pallas
-// one-hot fetches (_prim_attr_fetch, _sel_rows, the light rows) are indexed
-// loads, _spectral_fetch the f32 lerp of round_common.cuh, and the [knot,
-// lane] compare-and-sum inversion of the emission CDF a per-lane binary
-// search over the picked light's column of the spawn table (the same knot
-// count, the CDF being monotone). A lane dead at the round's start gets
-// zero Q rows and sweeps nothing in K12-LT; a live lane that hits nothing
+// through walk.cuh, as K12 and K34 do: resident up to the caller's budget of
+// rows, copied there once per block by one bulk copy on an mbarrier, else
+// through walk.cuh's ring of bulk-copied tiles; the ray's terms once per
+// ray, a rect's normal and edge norms read from its row. K12-LT walks for
+// the closest hit, two rows a loop turn. K34-LT walks all the shadow rays
+// of a lane: v2 walks its cs connection rays and its light vertex's lens
+// connection together, each row read once and tested against every one of
+// them, a warp leaving the rows when none of its lanes has a ray unresolved
+// (cs 1 and 2 are instantiated; any other cs, and v1, walk one ray at a
+// time). The walks need every thread of the block, so a lane reads its walk
+// state, samples its respawn (v2) and writes its new state rows, which read
+// no verdict, before them; only the splat and counter rows wait for the
+// verdicts, and the lane holds no more than them across the walks.
+//
+// What bounds the kernels on the H100: instruction issue in the walks (a
+// live lane's closest-hit walk in K12-LT; in K34-LT up to cs + 1 shadow rays
+// over the table) and in the shading and the spawn (its powf, sincos and
+// dependent CDF loads, which must keep their bits), against about 0.3 KB of
+// memory traffic a lane. The Pallas one-hot fetches (_prim_attr_fetch,
+// _sel_rows, the light rows) are indexed loads, _spectral_fetch the f32
+// lerp of round_common.cuh, and the [knot, lane] compare-and-sum inversion
+// of the emission CDF a per-lane binary search over the picked light's
+// column of the spawn table (the same knot count, the CDF being monotone).
+// A lane dead at the round's start gets zero Q rows and sweeps nothing in
+// K12-LT; a live lane that hits nothing
 // gets zero Q rows too, which leaves zero-length connection rays that K34-LT
 // counts as unblocked, as the JAX kernels count their NaN rays. K34-LT
 // sweeps the connection rays of lanes alive at the round's start (the
@@ -45,7 +55,6 @@
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
-#include "tiles.cuh"
 #include "walk.cuh"
 
 // mirrors kernels/lt_mega.py:_CLtArgs (all fields 4 bytes, same order)
@@ -64,7 +73,6 @@ namespace {
 
 using pt::V3;
 using rc::LamPos;
-using tiles::TILE_P;
 
 constexpr int BLOCK = 128;
 constexpr int MAX_PRIMS = 8192;  // the megakernel gate
@@ -364,33 +372,81 @@ __device__ __forceinline__ void walk_in(const float* __restrict__ state,
   w.hw = !w.cp && w.budget >= 0.5f;
 }
 
-// the connections' shadow sweeps (every thread of the block calls it):
-// each unblocked valid connection's splat rows into out; -> the number of
-// unblocked rays of a lane alive at the round's start
-__device__ __forceinline__ float resolve_connections(
-    const float* __restrict__ k2, float* __restrict__ out, size_t N, int i,
-    bool in, bool alive0, const float* __restrict__ dense, int p_dense,
-    float* prims, const LtArgs& a) {
+// connection ci's shadow ray of a lane alive at the round's start, from its
+// Q rows (zeros on any other lane) -> whether it is walked: a zero-length
+// ray (tmax <= T_MIN) is never blocked, as the JAX kernels count their NaN
+// rays
+__device__ __forceinline__ bool conn_ray(const float* __restrict__ k2,
+                                         size_t N, int i, int ci,
+                                         bool alive0, V3* so, V3* sd,
+                                         float* tmax) {
   auto K = [&](int r) { return k2[r * N + i]; };
-  float conn_ct = 0.0f;
-  for (int ci = 0; ci < a.cs; ++ci) {
+  const int b = Q_CONN + CONN_ROWS * ci;
+  *so = *sd = V3{0.f, 0.f, 0.f};
+  *tmax = 0.0f;
+  if (alive0) {
+    *so = V3{K(b), K(b + 1), K(b + 2)};
+    *sd = V3{K(b + 3), K(b + 4), K(b + 5)};
+    *tmax = K(b + 6);
+  }
+  return alive0 && *tmax > walk::T_MIN;
+}
+
+// connection ci's verdict: its splat rows into out (a lane < n), and 1 if
+// it counts as an unblocked ray of a lane alive at the round's start
+__device__ __forceinline__ float conn_out(const float* __restrict__ k2,
+                                          float* __restrict__ out, size_t N,
+                                          int i, int ci, bool in, bool alive0,
+                                          bool blocked) {
+  if (in) {
+    auto K = [&](int r) { return k2[r * N + i]; };
     const int b = Q_CONN + CONN_ROWS * ci;
-    V3 so{0.f, 0.f, 0.f}, sd{0.f, 0.f, 0.f};
-    float tmax = 0.0f;
-    if (alive0) {
-      so = V3{K(b), K(b + 1), K(b + 2)};
-      sd = V3{K(b + 3), K(b + 4), K(b + 5)};
-      tmax = K(b + 6);
+    const bool ok = K(b + 11) > 0.5f && !blocked;
+    const int o = K4_CONN + 4 * ci;
+    for (int k = 0; k < 4; ++k)
+      out[(o + k) * N + i] = ok ? K(b + 7 + k) : 0.0f;
+  }
+  return (alive0 && !blocked) ? 1.0f : 0.0f;
+}
+
+// the shadow walks of a lane (every thread of the block calls it): its cs
+// connection rays and its light vertex's lens connection (lv_want false
+// where it has none). CS = cs (1 or 2): all cs + 1 rays in one walk of the
+// table, each row tested against all of them; CS = 0 (any other cs): one
+// ray a walk. Writes the connections' splat rows; -> the unblocked
+// connections of a lane alive at the round's start
+template <int CS>
+__device__ __forceinline__ float shadow_walks(
+    walk::Table& T, const float* __restrict__ k2, float* __restrict__ out,
+    size_t N, int i, bool in, bool alive0, int cs, bool lv_want, V3 lv_o,
+    V3 lv_d, float lv_tmax, bool* lv_blocked) {
+  float conn_ct = 0.0f;
+  if constexpr (CS > 0) {
+    bool want[CS + 1], blocked[CS + 1];
+    V3 so[CS + 1], sd[CS + 1];
+    float tmax[CS + 1];
+#pragma unroll
+    for (int ci = 0; ci < CS; ++ci)
+      want[ci] = conn_ray(k2, N, i, ci, alive0, &so[ci], &sd[ci], &tmax[ci]);
+    want[CS] = lv_want;
+    so[CS] = lv_o;
+    sd[CS] = lv_d;
+    tmax[CS] = lv_tmax;
+    walk::any_hit<CS + 1>(T, want, so, sd, tmax, blocked);
+#pragma unroll
+    for (int ci = 0; ci < CS; ++ci)
+      conn_ct += conn_out(k2, out, N, i, ci, in, alive0, blocked[ci]);
+    *lv_blocked = blocked[CS];
+  } else {
+    for (int ci = 0; ci < cs; ++ci) {
+      V3 so, sd;
+      float tmax;
+      bool blocked;
+      const bool want = conn_ray(k2, N, i, ci, alive0, &so, &sd, &tmax);
+      walk::any_hit<1>(T, &want, &so, &sd, &tmax, &blocked);
+      conn_ct += conn_out(k2, out, N, i, ci, in, alive0, blocked);
     }
-    // a zero-length ray (tmax <= T_MIN) is never blocked: skip its sweep
-    const bool blocked = tiles::any_hit_tiles(
-        dense, p_dense, prims, alive0 && tmax > tiles::T_MIN, so, sd, tmax);
-    if (alive0 && !blocked) conn_ct += 1.0f;
-    if (in) {
-      const bool ok = K(b + 11) > 0.5f && !blocked;
-      const int o = K4_CONN + 4 * ci;
-      for (int k = 0; k < 4; ++k) out[(o + k) * N + i] = ok ? K(b + 7 + k) : 0.0f;
-    }
+    walk::any_hit<1>(T, &lv_want, &lv_o, &lv_d, &lv_tmax, lv_blocked);
   }
   return conn_ct;
 }
@@ -563,35 +619,46 @@ __device__ __forceinline__ void spawn_v2(const LtArgs& a,
   sp.lv_xyz[2] = e * pt::z_bar(lam_i);
 }
 
-// K34-LT v2: the respawn sampled in the kernel
-__global__ void __launch_bounds__(BLOCK) lt_finalize_spawn_kernel(
+// K34-LT v2: the respawn sampled in the kernel; CS as shadow_walks'. The
+// joint walk keeps cs + 1 rays' terms live beside the lane's walk and spawn
+// (86 registers at cs 1, 110 at cs 2: five and four blocks an SM); capped at
+// six blocks an SM (80 registers, a few bytes spilled) it ran 3-10% faster
+// on the H100 than uncapped and than one ray a walk
+template <int CS>
+__global__ void __launch_bounds__(BLOCK, 6) lt_finalize_spawn_kernel(
     const float* __restrict__ u, const float* __restrict__ usp,
     const float* __restrict__ state, const float* __restrict__ k2,
-    float* __restrict__ out, int n, const float* __restrict__ dense,
-    int p_dense, const float* __restrict__ light,
+    float* __restrict__ out, int n, const float* __restrict__ sweep,
+    int p_rows, int resident_rows, const float* __restrict__ light,
     const float* __restrict__ spec, const float* __restrict__ lcdf,
     const LtArgs a) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  // cs >= 1 (args_ok): a walk always follows
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
+                                   walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   const bool in = i < n;
   const bool alive0 = in && state[LS_ALIVE * N + i] > 0.5f;
-  const int cs = a.cs;
-  const float conn_ct = resolve_connections(k2, out, N, i, in, alive0, dense,
-                                            p_dense, prims, a);
+  const int cs = CS > 0 ? CS : a.cs;
   Walk w;
   Spawn sp{};
-  w.hw = false;
+  w.hw = w.cp = false;
   if (in) {
     walk_in(state, k2, u[(2 * cs + 3) * N + i], N, i, a, w);
     if (w.hw) spawn_v2(a, usp, N, i, light, spec, lcdf, sp);
+    // the state rows read no verdict: written before the walk, which then
+    // holds neither the lane's walk nor its new particle
+    write_state(state, out, N, i, w, sp.o, sp.d, sp.lam, sp.beta, sp.prev0,
+                w.hw && sp.alive, sp.pick_env ? 1.0f : 0.0f);
   }
   const bool lv_want = in && w.hw && sp.lv_valid;
-  const bool lv_blocked = tiles::any_hit_tiles(
-      dense, p_dense, prims, lv_want, sp.so_lv, sp.dir_lv, sp.tmax_lv);
+  bool lv_blocked;
+  const float conn_ct =
+      shadow_walks<CS>(T, k2, out, N, i, in, alive0, cs, lv_want, sp.so_lv,
+                       sp.dir_lv, sp.tmax_lv, &lv_blocked);
   if (!in) return;
-  write_state(state, out, N, i, w, sp.o, sp.d, sp.lam, sp.beta, sp.prev0,
-              w.hw && sp.alive, sp.pick_env ? 1.0f : 0.0f);
   auto O = [&](int r, float v) { out[r * N + i] = v; };
   const bool lv_gate = lv_want && !lv_blocked;
   const int base = K4_CONN + 4 * cs;
@@ -604,24 +671,32 @@ __global__ void __launch_bounds__(BLOCK) lt_finalize_spawn_kernel(
   for (int r = base + 8; r < (base + 8 + 7) / 8 * 8; ++r) O(r, 0.0f);
 }
 
-// K34-LT v1: the respawn copied from the spawn feed's rows
+// K34-LT v1: the respawn copied from the spawn feed's rows; one shadow ray
+// a walk (shadow_walks<0>): the joint walk's registers cost v1 a block an
+// SM, and on the H100 it ran 1-2% slower than this
 __global__ void __launch_bounds__(BLOCK) lt_finalize_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ k2, const float* __restrict__ feed,
-    float* __restrict__ out, int n, const float* __restrict__ dense,
-    int p_dense, const LtArgs a) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+    float* __restrict__ out, int n, const float* __restrict__ sweep,
+    int p_rows, int resident_rows, const LtArgs a) {
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
+                                   walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   const bool in = i < n;
   const bool alive0 = in && state[LS_ALIVE * N + i] > 0.5f;
   const int cs = a.cs;
   auto F = [&](int r) { return feed[r * N + i]; };
-  const float conn_ct = resolve_connections(k2, out, N, i, in, alive0, dense,
-                                            p_dense, prims, a);
   Walk w;
-  w.hw = false;
-  if (in) walk_in(state, k2, u[(2 * cs + 3) * N + i], N, i, a, w);
+  w.hw = w.cp = false;
+  if (in) {
+    walk_in(state, k2, u[(2 * cs + 3) * N + i], N, i, a, w);
+    write_state(state, out, N, i, w, V3{F(F_O), F(F_O + 1), F(F_O + 2)},
+                V3{F(F_D), F(F_D + 1), F(F_D + 2)}, F(F_LAM), F(F_BETA),
+                F(F_PREV), w.hw && F(F_ALIVE) > 0.5f, F(F_ENV));
+  }
   const bool lv_want = in && w.hw && F(F_LV_VALID) > 0.5f;
   V3 so{0.f, 0.f, 0.f}, sd{0.f, 0.f, 0.f};
   float tmax = 0.0f;
@@ -630,12 +705,10 @@ __global__ void __launch_bounds__(BLOCK) lt_finalize_kernel(
     sd = V3{F(F_LV + 3), F(F_LV + 4), F(F_LV + 5)};
     tmax = F(F_LV + 6);
   }
-  const bool lv_blocked =
-      tiles::any_hit_tiles(dense, p_dense, prims, lv_want, so, sd, tmax);
+  bool lv_blocked;
+  const float conn_ct = shadow_walks<0>(T, k2, out, N, i, in, alive0, cs,
+                                        lv_want, so, sd, tmax, &lv_blocked);
   if (!in) return;
-  write_state(state, out, N, i, w, V3{F(F_O), F(F_O + 1), F(F_O + 2)},
-              V3{F(F_D), F(F_D + 1), F(F_D + 2)}, F(F_LAM), F(F_BETA),
-              F(F_PREV), w.hw && F(F_ALIVE) > 0.5f, F(F_ENV));
   auto O = [&](int r, float v) { out[r * N + i] = v; };
   const int base = K4_CONN + 4 * cs;
   O(base, (lv_want && !lv_blocked) ? 1.0f : 0.0f);
@@ -643,6 +716,31 @@ __global__ void __launch_bounds__(BLOCK) lt_finalize_kernel(
   O(base + 2, w.cp ? 1.0f : 0.0f);
   O(base + 3, conn_ct);
   for (int r = base + 4; r < (base + 4 + 7) / 8 * 8; ++r) O(r, 0.0f);
+}
+
+// K34-LT v2 (v2 true) at cs camera samples, or K34-LT v1
+const void* finalize_fn(bool v2, int cs) {
+  if (!v2) return (const void*)lt_finalize_kernel;
+  return cs == 1   ? (const void*)lt_finalize_spawn_kernel<1>
+         : cs == 2 ? (const void*)lt_finalize_spawn_kernel<2>
+                   : (const void*)lt_finalize_spawn_kernel<0>;
+}
+
+// the LT round kernel `which` (0 K12-LT, 1 K34-LT v2, 2 K34-LT v1) at cs
+// camera samples
+const void* kernel_of(int which, int cs) {
+  return which == 0 ? (const void*)lt_shade_kernel
+                    : finalize_fn(which == 1, cs);
+}
+
+// launch fn over n lanes, `smem` bytes of dynamic shared memory a block,
+// with the kernel arguments `args`
+int launch(const void* fn, int n, int smem, void** args,
+           cudaStream_t stream) {
+  int rc = walk::allow_shared(fn, smem);
+  if (rc != 0) return rc;
+  return (int)cudaLaunchKernel(fn, dim3((n + BLOCK - 1) / BLOCK), dim3(BLOCK),
+                               args, (size_t)smem, stream);
 }
 
 int attrs(const void* fn, int* regs, int* local_bytes) {
@@ -654,8 +752,9 @@ int attrs(const void* fn, int* regs, int* local_bytes) {
   return 0;
 }
 
-bool args_ok(const LtArgs* a, int p_dense) {
-  return p_dense <= MAX_PRIMS && a->cs >= 1 && a->n_lights <= 128;
+bool args_ok(const LtArgs* a, int p_rows, int resident_rows) {
+  return walk::table_ok(p_rows, MAX_PRIMS, resident_rows) && a->cs >= 1 &&
+         a->n_lights <= 128;
 }
 
 }  // namespace
@@ -672,8 +771,7 @@ int lt_shade_launch(const float* u, const float* state, float* q, int n,
                     const float* spec, const LtArgs* args,
                     cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (!args_ok(args, p_rows) ||
-      !walk::table_ok(p_rows, MAX_PRIMS, resident_rows) || p_pad < p_rows)
+  if (!args_ok(args, p_rows, resident_rows) || p_pad < p_rows)
     return (int)cudaErrorInvalidValue;
   const int smem = walk::shared_bytes(p_rows, resident_rows);
   int rc = walk::allow_shared((const void*)lt_shade_kernel, smem);
@@ -686,53 +784,56 @@ int lt_shade_launch(const float* u, const float* state, float* q, int n,
 }
 
 // K34-LT v2: u, usp [16, n], state, q -> out [k4_rows_v2(cs), n]; light
-// [16, 128], spec, lcdf [520, 128] (kernels/lt_mega.py:bake_lt_spawn_tab)
+// [16, 128], spec, lcdf [520, 128] (kernels/lt_mega.py:bake_lt_spawn_tab);
+// sweep as K12-LT's
 int lt_finalize_spawn_launch(const float* u, const float* usp,
                              const float* state, const float* q, float* out,
-                             int n, const float* dense, int p_dense,
-                             const float* light, const float* spec,
-                             const float* lcdf, const LtArgs* args,
-                             cudaStream_t stream) {
+                             int n, const float* sweep, int p_rows,
+                             int resident_rows, const float* light,
+                             const float* spec, const float* lcdf,
+                             const LtArgs* args, cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (!args_ok(args, p_dense)) return (int)cudaErrorInvalidValue;
-  int grid = (n + BLOCK - 1) / BLOCK;
-  lt_finalize_spawn_kernel<<<grid, BLOCK, 0, stream>>>(
-      u, usp, state, q, out, n, dense, p_dense, light, spec, lcdf, *args);
-  return (int)cudaGetLastError();
+  if (!args_ok(args, p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
+  void* kargs[] = {&u,      &usp,           &state, &q,
+                   &out,    &n,             &sweep, &p_rows,
+                   &resident_rows,          &light, &spec,
+                   &lcdf,   const_cast<LtArgs*>(args)};
+  return launch(finalize_fn(true, args->cs), n,
+                walk::shared_bytes(p_rows, resident_rows), kargs, stream);
 }
 
 // K34-LT v1: u, state, q, feed [24, n] (kernels/lt_mega.py:lt_spawn_feed)
-// -> out [k4_rows(cs), n]
+// -> out [k4_rows(cs), n]; sweep as K12-LT's
 int lt_finalize_launch(const float* u, const float* state, const float* q,
                        const float* feed, float* out, int n,
-                       const float* dense, int p_dense, const LtArgs* args,
-                       cudaStream_t stream) {
+                       const float* sweep, int p_rows, int resident_rows,
+                       const LtArgs* args, cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (!args_ok(args, p_dense)) return (int)cudaErrorInvalidValue;
-  int grid = (n + BLOCK - 1) / BLOCK;
-  lt_finalize_kernel<<<grid, BLOCK, 0, stream>>>(u, state, q, feed, out, n,
-                                                 dense, p_dense, *args);
-  return (int)cudaGetLastError();
+  if (!args_ok(args, p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
+  void* kargs[] = {&u,      &state,         &q,     &feed,
+                   &out,    &n,             &sweep, &p_rows,
+                   &resident_rows,          const_cast<LtArgs*>(args)};
+  return launch(finalize_fn(false, args->cs), n,
+                walk::shared_bytes(p_rows, resident_rows), kargs, stream);
 }
 
 // registers per thread and local (spill) bytes of K12-LT (which 0),
-// K34-LT v2 (1) or K34-LT v1 (2)
-int lt_round_attrs(int which, int* regs, int* local_bytes) {
-  const void* fn = which == 0   ? (const void*)lt_shade_kernel
-                   : which == 1 ? (const void*)lt_finalize_spawn_kernel
-                                : (const void*)lt_finalize_kernel;
-  return attrs(fn, regs, local_bytes);
+// K34-LT v2 (1) or K34-LT v1 (2) at cs camera samples
+int lt_round_attrs(int which, int cs, int* regs, int* local_bytes) {
+  return attrs(kernel_of(which, cs), regs, local_bytes);
 }
 
-// the shared memory of one block of K12-LT walking a table of p_rows rows:
-// its static bytes, the dynamic bytes the launcher asks for, and the blocks
-// of it one SM holds at once
-int lt_shade_shared_bytes(int p_rows, int resident_rows, int* static_bytes,
-                          int* dynamic_bytes, int* blocks_per_sm) {
+// the shared memory of one block of K12-LT (which 0), K34-LT v2 (1) or v1
+// (2) at cs camera samples walking a table of p_rows rows: its static
+// bytes, the dynamic bytes the launcher asks for, and the blocks of it one
+// SM holds at once
+int lt_round_shared_bytes(int which, int cs, int p_rows, int resident_rows,
+                          int* static_bytes, int* dynamic_bytes,
+                          int* blocks_per_sm) {
   if (!walk::table_ok(p_rows, MAX_PRIMS, resident_rows))
     return (int)cudaErrorInvalidValue;
   *dynamic_bytes = walk::shared_bytes(p_rows, resident_rows);
-  return walk::occupancy((const void*)lt_shade_kernel, BLOCK, *dynamic_bytes,
+  return walk::occupancy(kernel_of(which, cs), BLOCK, *dynamic_bytes,
                          static_bytes, blocks_per_sm);
 }
 

@@ -43,30 +43,34 @@
 // rows sweep sweeps every lane. K2 sweeps nothing: it is bound by its state,
 // K2-row and table reads, about 0.6 KB per lane.
 //
-// What bounds K12, K34, K1 and K3 on the H100: the sweeps' f32 operations.
-// A live lane tests every prim of the table for its closest hit and for
-// each unblocked shadow ray (up to 8192 prims x 23 to 41 operations),
-// against ~1 KB of memory traffic per lane and round. The edge functions must round
-// as the twin's separate multiplies and subtracts do, so the library is
-// built with --fmad=false and nothing contracts to an FMA: the card's
-// data-sheet f32 rate counts an FMA as two operations, and a sweep of
-// separate multiplies and adds cannot go under twice its bound by
-// operations.
+// What bounds K12, K34, K1 and K3 on the H100: the sweeps' f32 operations,
+// as instructions issued. A live lane tests every prim of the table for its
+// closest hit and for each unblocked shadow ray (up to 8192 prims x 23 to
+// 41 operations), against ~1 KB of memory traffic per lane and round. The
+// edge functions must round as the twin's separate multiplies and
+// subtracts do, so the library is built with --fmad=false and nothing
+// contracts to an FMA: the card's data-sheet f32 rate counts an FMA as two
+// operations, and a sweep of separate multiplies and adds cannot go under
+// twice its bound by operations.
 //
-// K12 (shade_sweep_kernel, replaces megakernel.py:_k12_call) and K34
-// (finalize_sweep_kernel, replaces megakernel.py:_k34_call) walk the table
-// through walk.cuh, the walk designed for this card: the compact baked
-// sweep table (64-byte rows, a rect's normal and edge norms precomputed)
-// is brought into shared memory by asynchronous bulk copies, whole and once
-// per block where it fits the residency budget, through a ring of tiles
-// otherwise; the ray's permutation, shear and reciprocals are computed once
-// per ray, not once per prim; and K34 tests each row against two NEE
-// samples' shadow rays of the lane at once (pairs of samples, in order; the
-// radiance is still summed in sample order), leaving the rows per warp when
-// no lane has a ray unresolved. K1 and K3 keep tiles.cuh's walk of the
-// [P_pad, 128] table (256-prim tiles staged between two block barriers, K3
-// stopping when no shadow ray of the block is unresolved); K3's mask equals
-// K34's verdicts lane for lane, which holds the two walks to each other.
+// K12 (shade_sweep_kernel, replaces megakernel.py:_k12_call), K34
+// (finalize_sweep_kernel, replaces megakernel.py:_k34_call) and K1
+// (sweep_closest_rows_kernel, replaces dense.py:sweep_closest_rows) walk
+// the table through walk.cuh, the walk designed for this card: the compact
+// baked sweep table (64-byte rows, a rect's normal and edge norms
+// precomputed) is brought into shared memory by asynchronous bulk copies,
+// whole and once per block where it fits the residency budget, through a
+// ring of tiles otherwise; the ray's permutation, shear and reciprocals are
+// computed once per ray, not once per prim; and K34 tests each row against
+// two NEE samples' shadow rays of the lane at once (pairs of samples, in
+// order; the radiance is still summed in sample order), leaving the rows
+// per warp when no lane has a ray unresolved. K1's walk is K12's, the
+// closest hit of a live lane's ray, two rows a loop turn. K3 alone keeps
+// tiles.cuh's walk of the [P_pad, 128] table (256-prim tiles staged between
+// two block barriers, stopping when no shadow ray of the block is
+// unresolved): it runs only on the split round, the test route of K3 and
+// K4, and its mask equals K34's verdicts lane for lane, which holds the two
+// walks to each other.
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
@@ -77,7 +81,6 @@ namespace {
 
 using namespace rc;
 using pt::V3;
-using tiles::closest_tiles;
 using tiles::TILE_P;
 
 constexpr int BLOCK = 128;
@@ -94,12 +97,15 @@ __device__ __forceinline__ void load_ray(const float* __restrict__ src,
 
 // K1: the closest hit of every live lane's ray, read in place from rows
 // row0 .. row0 + 5 of src -> out [8, n]: t, prim id (-1 on a miss and on a
-// dead lane, whose t is inf), zeros
+// dead lane, whose t is inf), zeros; the sweep table as K12's
 __global__ void __launch_bounds__(BLOCK) sweep_closest_rows_kernel(
     const float* __restrict__ src, int row0, int alive_row,
-    const float* __restrict__ dense, int p_dense, float* __restrict__ out,
-    int n) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
+    float* __restrict__ out, int n) {
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
+                                   walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   const bool live = i < n && src[alive_row * N + i] > 0.5f;
@@ -107,7 +113,7 @@ __global__ void __launch_bounds__(BLOCK) sweep_closest_rows_kernel(
   if (live) load_ray(src, N, i, row0, &o, &d);
   float t_hit = INFINITY;
   int pid = -1;
-  closest_tiles(dense, p_dense, prims, live, o, d, &t_hit, &pid);
+  walk::closest(T, live, o, d, &t_hit, &pid);
   if (i >= n) return;
   out[i] = t_hit;
   out[N + i] = (float)pid;
@@ -580,15 +586,19 @@ int shade_sweep_launch(const float* u, const float* state, const float* ef,
 }
 
 // K1: src [>= row0 + 6, n] (rays in rows row0 .. row0 + 5, alive flag in
-// row alive_row), dense [p_dense, 128] -> out [8, n]
+// row alive_row), sweep [p_rows, 16] (as K12's) -> out [8, n]
 int sweep_closest_rows_launch(const float* src, int row0, int alive_row,
-                              const float* dense, int p_dense, float* out,
-                              int n, cudaStream_t stream) {
+                              const float* sweep, int p_rows,
+                              int resident_rows, float* out, int n,
+                              cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
+  if (!walk_ok(p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
+  const int smem = walk::shared_bytes(p_rows, resident_rows);
+  int rc = walk::allow_shared((const void*)sweep_closest_rows_kernel, smem);
+  if (rc != 0) return rc;
   int grid = (n + BLOCK - 1) / BLOCK;
-  sweep_closest_rows_kernel<<<grid, BLOCK, 0, stream>>>(
-      src, row0, alive_row, dense, p_dense, out, n);
+  sweep_closest_rows_kernel<<<grid, BLOCK, smem, stream>>>(
+      src, row0, alive_row, sweep, p_rows, resident_rows, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -667,20 +677,23 @@ int two_prog_attrs(int which, int c, int* regs, int* local_bytes) {
 }
 
 // the shared memory of one block of K12 (which 0) or K34 (1; + 8: the medium
-// instantiation) at C lanes walking a table of p_rows rows: its static
-// bytes, the dynamic bytes the launcher asks for, and the blocks of it one
-// SM holds at once
+// instantiation) at C lanes, or of K1 (3; c unread), walking a table of
+// p_rows rows: its static bytes, the dynamic bytes the launcher asks for,
+// and the blocks of it one SM holds at once
 int walk_shared_bytes(int which, int c, int p_rows, int resident_rows,
                       int* static_bytes, int* dynamic_bytes,
                       int* blocks_per_sm) {
-  if ((which & 7) > 1 || !walk_ok(p_rows, resident_rows))
+  const int k = which & 7;
+  if ((k > 1 && k != 3) || !walk_ok(p_rows, resident_rows))
     return (int)cudaErrorInvalidValue;
-  const void* fn = nullptr;
-  RoundArgs a{};
-  a.c_lanes = c;
-  a.medium = (which & 8) ? 1 : 0;
-  int rc = dispatch(a, KernelOf{which & 7, &fn});
-  if (rc != 0) return rc;
+  const void* fn = (const void*)sweep_closest_rows_kernel;
+  if (k != 3) {
+    RoundArgs a{};
+    a.c_lanes = c;
+    a.medium = (which & 8) ? 1 : 0;
+    int rc = dispatch(a, KernelOf{k, &fn});
+    if (rc != 0) return rc;
+  }
   *dynamic_bytes = walk::shared_bytes(p_rows, resident_rows);
   return walk::occupancy(fn, BLOCK, *dynamic_bytes, static_bytes,
                          blocks_per_sm);

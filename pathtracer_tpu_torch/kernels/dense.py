@@ -5,15 +5,16 @@ The packed primitive table is the JAX package's `[P_pad, 128]` f32 layout
 (`pack_prims_np`): columns 0..10 hold ptype, valid, pa, pb, pc; the rest is
 zero. Rays are `[8, N]` rows: origin (3), direction (3), tmin, tmax.
 `pack_sweep_np` packs the same prims as `[P_pad, 16]` rows with a rect's
-normal and edge norms baked in: the table that K12 and K34 of the bounce
-round walk in shared memory (`csrc/walk.cuh`).
+normal and edge norms baked in: the table that the round kernels walk in
+shared memory (`csrc/walk.cuh`), K1 among them.
 
 `sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
 on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
 `sweep_any_plain`) on CPU tensors. `sweep_closest_rows` (K1 of the
 texture-feed round) reads the rays in place from rows of the megakernel
 state and writes `[8, N]` rows (t, prim id); its kernel is in
-`csrc/two_prog_round.cu`, its twin `sweep_closest_rows_plain`.
+`csrc/two_prog_round.cu` and walks the sweep table, its twin
+`sweep_closest_rows_plain` the packed table.
 `sweep_any_rows` (K3 of the split round) reads each lane's shadow ray and
 its tmax in place from the K2 rows and writes the blocked mask; its kernel
 is in the same file, its twin `sweep_any_rows_plain`. The closest hit is the
@@ -67,8 +68,8 @@ def pack_prims_np(ptype, valid, pa, pb, pc):
 
 def pack_sweep_np(ptype, valid, pa, pb, pc):
     """[P_pad, 16] f32 compact sweep table (P_pad as `pack_prims_np`'s), the
-    table K12 and K34 walk in shared memory: columns 0..10 are the packed
-    table's; columns 11..15 hold, for a rect, its unit normal n (3),
+    table the round kernels walk in shared memory: columns 0..10 are the
+    packed table's; columns 11..15 hold, for a rect, its unit normal n (3),
     bb = max(pb . pb, 1e-20) and cc = max(pc . pc, 1e-20), and zeros for
     every other prim.
 
@@ -335,6 +336,20 @@ def _check(rays, tab, rows=8):
         raise ValueError(f"unsupported device {rays.device}")
 
 
+def check_sweep(sweep, tab):
+    """The compact sweep table packed beside the dense table `tab`: f32,
+    contiguous, [tab rows, SWEEP_COLS], on tab's device."""
+    if sweep.dtype != torch.float32:
+        raise TypeError(f"sweep_tab must be float32, got {sweep.dtype}")
+    if sweep.dim() != 2 or not sweep.is_contiguous():
+        raise ValueError("sweep_tab must be a contiguous 2-D tensor")
+    if sweep.shape != (tab.shape[0], SWEEP_COLS):
+        raise ValueError(f"sweep_tab must be [{tab.shape[0]}, {SWEEP_COLS}], "
+                         f"got {tuple(sweep.shape)}")
+    if sweep.device != tab.device:
+        raise ValueError(f"sweep_tab is on {sweep.device}, not {tab.device}")
+
+
 def _launch(fn_name, rays, tab, out):
     from pathtracer_tpu_torch.kernels import _build
 
@@ -363,27 +378,39 @@ def sweep_closest(rays, tab):
     return _launch("dense_sweep_closest", rays, tab, out)
 
 
-def sweep_closest_rows(src, tab, row0: int, alive_row: int):
+def sweep_closest_rows(src, tab, row0: int, alive_row: int, sweep=None):
     """K1: the closest hit of the live lanes' rays, read in place from rows
     of src -> [8, N] (see `sweep_closest_rows_plain`): the CUDA kernel on a
-    CUDA tensor, the plain twin on a CPU tensor."""
+    CUDA tensor, the plain twin on a CPU tensor. The kernel walks `sweep`,
+    the compact table packed beside `tab` (`pack_sweep_np`;
+    `MegaScene.sweep_tab`), resident in shared memory up to
+    `megakernel.SWEEP_RESIDENT_ROWS` rows, else through the ring of tiles;
+    the twin reads `tab`."""
     global ROWS_LAUNCHES
     _check(src, tab, rows=None)
     if not (0 <= row0 and row0 + 6 <= src.shape[0]
             and 0 <= alive_row < src.shape[0]):
         raise ValueError(f"rows {row0}..{row0 + 5} and {alive_row} are not "
                          f"all in src [{src.shape[0]}, N]")
+    if sweep is not None:
+        check_sweep(sweep, tab)
     if src.device.type == "cpu":
         return sweep_closest_rows_plain(src, tab, row0, alive_row)
+    if sweep is None:
+        raise ValueError("the CUDA kernel walks the sweep table: pass "
+                         "sweep= (MegaScene.sweep_tab, baked by "
+                         "bake_mega_scene, or pack_sweep_np of the prims)")
     from pathtracer_tpu_torch.kernels import _build
+    from pathtracer_tpu_torch.kernels import megakernel as mk
 
     out = torch.empty((8, src.shape[1]), dtype=torch.float32,
                       device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     rc = _build.library().sweep_closest_rows_launch(
         ctypes.c_void_p(src.data_ptr()), row0, alive_row,
-        ctypes.c_void_p(tab.data_ptr()), tab.shape[0],
-        ctypes.c_void_p(out.data_ptr()), src.shape[1], ctypes.c_void_p(stream))
+        ctypes.c_void_p(sweep.data_ptr()), sweep.shape[0],
+        mk.SWEEP_RESIDENT_ROWS, ctypes.c_void_p(out.data_ptr()),
+        src.shape[1], ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"sweep_closest_rows: CUDA error {rc} "
                            f"({_build.error_string(rc)})")

@@ -26,7 +26,9 @@ rows; the round then adds every splat (direct hits, connections, light
 vertex) to the film with one `index_add_`. The three kernels are
 `csrc/lt_round.cu`; each wrapper launches its kernel on CUDA tensors and
 runs its plain torch twin (`lt_shade_plain`, `lt_finalize_spawn_plain`,
-`lt_finalize_plain`) on CPU tensors.
+`lt_finalize_plain`) on CPU tensors. The kernels walk the scene's compact
+`sweep_tab` from shared memory (`csrc/walk.cuh`), K34-LT every shadow ray
+of a lane in one walk; the twins read `dense_tab`.
 
 Uniforms come from a uniform source (`megakernel.TorchUniforms`, or a
 test's replay of the JAX draws): per round the `[nu_lt(cs), N]` block of
@@ -936,10 +938,10 @@ def lt_shade(u, state, scene: LtScene):
     _check(scene, u, state, {})
     mk._check_tensors(state=state, prim_tab=t.prim_tab, mat_tab=t.mat_tab,
                       spec_tab=t.spec_tab)
+    sweep = mk._sweep_tab(t)
     if state.device.type == "cpu":
         return lt_shade_plain(u, state, t.dense_tab, t.prim_tab, t.mat_tab,
                               t.spec_tab, a)
-    sweep = mk._sweep_tab(t)
     lib = _lib()
     n = state.shape[1]
     q = torch.empty((q2_rows(a.cs), n), dtype=torch.float32,
@@ -959,7 +961,8 @@ def lt_shade(u, state, scene: LtScene):
 
 def lt_finalize_spawn(u, usp, state, k2, scene: LtScene):
     """K34-LT v2 -> [k4_rows_v2(cs), N]: the CUDA kernel on CUDA tensors,
-    the plain twin on CPU tensors."""
+    the plain twin on CPU tensors. The kernel walks the sweep table as
+    `lt_shade` does, every shadow ray of a lane in one walk."""
     global FINALIZE_SPAWN_LAUNCHES
     t, a = scene.tabs, scene.a
     if scene.lcdf_tab is None:
@@ -967,6 +970,7 @@ def lt_finalize_spawn(u, usp, state, k2, scene: LtScene):
     _check(scene, u, state, dict(usp=(usp, NUSP), k2=(k2, q2_rows(a.cs))))
     mk._check_tensors(state=state, light_tab=t.light_tab, spec_tab=t.spec_tab,
                       lcdf_tab=scene.lcdf_tab)
+    sweep = mk._sweep_tab(t)
     if state.device.type == "cpu":
         return lt_finalize_spawn_plain(u, usp, state, k2, t.dense_tab,
                                        t.light_tab, t.spec_tab,
@@ -979,9 +983,9 @@ def lt_finalize_spawn(u, usp, state, k2, scene: LtScene):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.lt_finalize_spawn_launch(
         mk._ptr(u), mk._ptr(usp), mk._ptr(state), mk._ptr(k2), mk._ptr(out),
-        n, mk._ptr(t.dense_tab), t.dense_tab.shape[0], mk._ptr(t.light_tab),
-        mk._ptr(t.spec_tab), mk._ptr(scene.lcdf_tab), ctypes.byref(cargs),
-        ctypes.c_void_p(stream))
+        n, mk._ptr(sweep), sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
+        mk._ptr(t.light_tab), mk._ptr(t.spec_tab), mk._ptr(scene.lcdf_tab),
+        ctypes.byref(cargs), ctypes.c_void_p(stream))
     mk._raise_on(rc, "lt_finalize_spawn")
     FINALIZE_SPAWN_LAUNCHES += 1
     return out
@@ -989,10 +993,12 @@ def lt_finalize_spawn(u, usp, state, k2, scene: LtScene):
 
 def lt_finalize(u, state, k2, feed, scene: LtScene):
     """K34-LT v1 -> [k4_rows(cs), N] from the spawn feed's rows: the CUDA
-    kernel on CUDA tensors, the plain twin on CPU tensors."""
+    kernel on CUDA tensors, the plain twin on CPU tensors. The kernel walks
+    the sweep table as `lt_finalize_spawn` does."""
     global FINALIZE_LAUNCHES
     a = scene.a
     _check(scene, u, state, dict(k2=(k2, q2_rows(a.cs)), feed=(feed, NF)))
+    sweep = mk._sweep_tab(scene.tabs)
     if state.device.type == "cpu":
         return lt_finalize_plain(u, state, k2, feed, scene.tabs.dense_tab, a)
     lib = _lib()
@@ -1003,7 +1009,7 @@ def lt_finalize(u, state, k2, feed, scene: LtScene):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.lt_finalize_launch(
         mk._ptr(u), mk._ptr(state), mk._ptr(k2), mk._ptr(feed), mk._ptr(out),
-        n, mk._ptr(scene.tabs.dense_tab), scene.tabs.dense_tab.shape[0],
+        n, mk._ptr(sweep), sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
         ctypes.byref(cargs), ctypes.c_void_p(stream))
     mk._raise_on(rc, "lt_finalize")
     FINALIZE_LAUNCHES += 1

@@ -28,8 +28,9 @@ counter rows. A round takes one of three routes, as the JAX package's
   normal and edge norms baked in) from shared memory (`csrc/walk.cuh`):
   whole where it has at most `SWEEP_RESIDENT_ROWS` rows, else through a
   ring of tiles. The fused round walks it too (always whole: at most 128
-  rows), and so does the light tracer's K12-LT (`kernels/lt_mega.py`), at
-  the same budget; K1, K3, K34-LT and every twin read `dense_tab`.
+  rows), and so do K1 and the light tracer's K12-LT and K34-LT
+  (`kernels/lt_mega.py`), at the same budget; K3 (the split round's) and
+  every twin read `dense_tab`.
 
 `stepper="split"` runs every scene of the gate through the split round
 instead (`split_round`, the JAX package's five-program pipeline): K1 ->
@@ -79,7 +80,7 @@ from pathtracer_tpu_torch.kernels import cmath
 from pathtracer_tpu_torch.kernels.cmath import V3, fdiv
 from pathtracer_tpu_torch.kernels.dense import (
     PBF,
-    SWEEP_COLS,
+    check_sweep,
     pack_prims_np,
     pack_sweep_np,
     sweep_any_cols,
@@ -161,9 +162,10 @@ NEE_ROWS = 12
 NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
 
 MEGA_MAX_PRIMS = 8192  # the megakernel gate
-# K12, K34 and K12-LT keep a sweep table of at most this many rows whole in
+# The kernels that walk the sweep table from dynamic shared memory (K12,
+# K34, K1, K12-LT, K34-LT) keep a table of at most this many rows whole in
 # a block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
-# costs none of the six 128-thread blocks an SM holds of any of them (the
+# costs none of the six 128-thread blocks an SM holds of K12 and K34 (the
 # ring takes 24 KB). A larger table goes through the ring of csrc/walk.cuh:
 # on the card a resident table that cut the blocks to two ran 1.6-1.8x
 # slower than the ring, while the ring costs 3-5% where the table would
@@ -1924,10 +1926,7 @@ def _sweep_tab(scene: MegaScene):
     if tab is None:
         raise ValueError("the scene carries no sweep_tab: bake it with "
                          "bake_mega_scene")
-    _check_tensors(dense_tab=scene.dense_tab, sweep_tab=tab)
-    if tab.shape != (scene.dense_tab.shape[0], SWEEP_COLS):
-        raise ValueError(f"sweep_tab must be [{scene.dense_tab.shape[0]}, "
-                         f"{SWEEP_COLS}], got {tuple(tab.shape)}")
+    check_sweep(tab, scene.dense_tab)
     if not 0 <= SWEEP_RESIDENT_ROWS <= 3584:
         raise ValueError("SWEEP_RESIDENT_ROWS must be in [0, 3584]")
     return tab
@@ -2253,7 +2252,8 @@ def texfeed_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     the JAX package's `_mega_step_texfeed`: K1 (the closest-hit rows), the
     environment feed of a Sun or HDR environment, the texture feed, K2 on
     the K12 uniform block (stream 0), then K34 on its own (stream 1)."""
-    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE)
+    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE,
+                            _sweep_tab(scene))
     u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
     tf = tex_feed(scene.tex, state, tp, a.c_lanes)
     k2 = shade(u12, state, tp, scene, a, ef, tf, mf)
@@ -2269,7 +2269,8 @@ def split_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     rows sweep of each NEE sample's shadow ray, read in place from the K2
     rows) and K4 on the K34 block (stream 1). It takes every scene of the
     gate and writes what the scene's default round writes, bit for bit."""
-    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE)
+    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE,
+                            _sweep_tab(scene))
     u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
     tf = (tex_feed(scene.tex, state, tp, a.c_lanes)
           if scene.tex is not None else None)

@@ -1,33 +1,38 @@
 """Times of K12 (`shade_sweep`) and K34 (`finalize_sweep`) on the card, on a
 first round's inputs from one camera spawn at 1080 x 1080 (the mesh at
 256 x 256), by sweep-table size and residency budget; with `--rounds`, of
-the fused round and the light tracer's kernels too.
+the fused round, K1 and the light tracer's kernels too.
 
     python -m pathtracer_tpu_torch.tools.walk_bench
     python -m pathtracer_tpu_torch.tools.walk_bench --cases none \
-        --rounds fused,lt
+        --rounds fused,k1,lt
 
 Cases: the gem (352 table rows), a finer gem (1,312 rows: 82 KB, resident
 only with the opt-in above 48 KB), the mesh (5,152 rows, always the ring)
 and the medium-aware fog box (32 rows). Each case runs at each residency
-budget of `--budgets` that changes its staging (0 forces the ring). K1 and K3,
-which keep the older walk of the [P_pad, 128] table, are timed beside them on
-the same rays. Prints one JSON line per case and budget, each with the card's
-name and power limit; CUDA events around `--reps` launches after a warm-up.
+budget of `--budgets` that changes its staging (0 forces the ring). K1 and K3
+(which keeps the older walk of the [P_pad, 128] table) are timed beside them
+on the same rays. Prints one JSON line per case and budget, each with the
+card's name and power limit; CUDA events around `--reps` launches after a
+warm-up.
 
 `--rounds fused`: the fused round on the chip scene (1080 x 1080, a first
-round's inputs, C = 1 and 4); `--rounds lt`: K12-LT and K34-LT on a second
-round's inputs at 2^20 lanes (chip_lens v2 at 1 and 2 camera samples, the
-HDR blob v1), as chip_smoke.py times them. With the registers and spill
-bytes of each kernel.
+round's inputs, C = 1 and 4); `--rounds k1`: K1 on the textured box and the
+gem (1080 x 1080, a first round's inputs), the table resident and through
+the ring; `--rounds lt`: K12-LT and K34-LT on a second round's inputs at
+2^20 lanes (chip_lens v2 at 1 and 2 camera samples, the HDR blob v1), as
+chip_smoke.py times them. With the registers and spill bytes of each
+kernel, and where the tree reports them its shared bytes and blocks per SM.
 
-The script also runs on a tree from before the shared-memory walk (copy it
-there): it then times that tree's kernels, under `"walk": "tiles"`."""
+The script also runs on a tree from before a kernel's move onto the
+shared-memory walk (copy it there): it then times that tree's kernel, under
+`"walk": "tiles"`."""
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import subprocess
 
@@ -63,28 +68,45 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def blocks_per_sm(which, c, rows, budget):
-    """(dynamic shared bytes, blocks an SM holds) of K12 (0) or K34 (1)."""
+def blocks_per_sm(which, c, rows, budget, fn_name="walk_shared_bytes"):
+    """(dynamic shared bytes, blocks an SM holds) of K12 (0), K34 (1) or K1
+    (3) at C lanes; of K34-LT v2 (1) or v1 (2) at c camera samples with
+    `fn_name` "lt_round_shared_bytes"."""
     dyn, stat, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = _build.library().walk_shared_bytes(
+    rc = getattr(_build.library(), fn_name)(
         which, c, rows, budget, ctypes.byref(stat), ctypes.byref(dyn),
         ctypes.byref(blocks))
     if rc != 0:
-        raise RuntimeError(f"walk_shared_bytes: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
     return dyn.value, blocks.value
 
 
 def attrs(fn_name, *which):
-    """(registers, local bytes) of a kernel from its attrs entry point
-    (whatever else the entry point reports is dropped)."""
+    """(registers, local bytes) of a kernel from its attrs entry point, given
+    as many of the int arguments `which` as it takes (a parent tree's may
+    take fewer); whatever else the entry point reports is dropped."""
+    sig = _build._SIGNATURES[fn_name]
+    n_int = sig.index(ctypes.c_void_p)
     regs, local = ctypes.c_int(), ctypes.c_int()
-    extra = len(_build._SIGNATURES[fn_name]) - len(which) - 2
+    extra = len(sig) - n_int - 2
     rc = getattr(_build.library(), fn_name)(
-        *which, ctypes.byref(regs), ctypes.byref(local),
+        *which[:n_int], ctypes.byref(regs), ctypes.byref(local),
         *[ctypes.byref(ctypes.c_int()) for _ in range(extra)])
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}")
     return regs.value, local.value
+
+
+def k1_on_walk():
+    """Whether this tree's K1 walks the sweep table (takes `sweep=`)."""
+    return "sweep" in inspect.signature(dense.sweep_closest_rows).parameters
+
+
+def k1(state, scene):
+    """K1 on a state's rays, on the table this tree's kernel walks."""
+    kw = dict(sweep=scene.sweep_tab) if k1_on_walk() else {}
+    return dense.sweep_closest_rows(state, scene.dense_tab, mk.S_O,
+                                    mk.S_ALIVE, **kw)
 
 
 def bench_fused(dev, smi, reps):
@@ -111,6 +133,45 @@ def bench_fused(dev, smi, reps):
             fused_ms=cuda_ms(lambda: mk.fused_round(u, state, scene, a),
                              reps),
             regs=regs, local_bytes=local)), flush=True)
+
+
+def bench_k1(dev, smi, reps):
+    """K1 on the textured box's and the gem's first-round inputs at 1080 x
+    1080, the sweep table resident and through the ring (the budget one row
+    under the table)."""
+    width = 1080
+    n = width * width
+    n_pad = -(-n // mk.TILE) * mk.TILE
+    regs, local = attrs("two_prog_attrs", 3, 1)
+    budget0 = mk.SWEEP_RESIDENT_ROWS
+    for name, recipe, cam in (("textured", "textured_cornell",
+                               "TEXTURED_CAMERA"),
+                              ("gem", "gem_cornell", "CORNELL_CAMERA")):
+        world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+        camera = make_projective_camera(**getattr(scenes, cam), device=dev)
+        s = PTSettings(max_bounces=12, light_samples=2)
+        scene = mk.build_mega_scene(world, camera, dev, s)
+        a = mk.RoundArgs.make(scene.consts, s, width, width)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        state, _ = mk.mega_init(
+            camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+            n_pad, 16)
+        rows = int(scene.dense_tab.shape[0])
+        stagings = ((("resident", budget0), ("ring", rows - 1))
+                    if k1_on_walk() else (("tiles", None),))
+        for staging, budget in stagings:
+            if budget is not None:
+                mk.SWEEP_RESIDENT_ROWS = budget
+            rec = dict(case=f"k1_{name}", rows=rows, lanes=n_pad, card=smi,
+                       walk=staging, budget_rows=budget,
+                       live=int((state[mk.S_ALIVE] > 0.5).sum()),
+                       k1_ms=cuda_ms(lambda: k1(state, scene), reps),
+                       regs=regs, local_bytes=local)
+            if budget is not None:
+                rec["shared_bytes"], rec["blocks_per_sm"] = blocks_per_sm(
+                    3, 1, rows, budget)
+            print(json.dumps(rec), flush=True)
+        mk.SWEEP_RESIDENT_ROWS = budget0
 
 
 def bench_lt(dev, smi, reps):
@@ -156,7 +217,12 @@ def bench_lt(dev, smi, reps):
         for key, which in (("lt_shade", 0),
                            ("finalize", 1 if v2 else 2)):
             rec[f"{key}_regs"], rec[f"{key}_local_bytes"] = attrs(
-                "lt_round_attrs", which)
+                "lt_round_attrs", which, cs)
+        if "lt_round_shared_bytes" in _build._SIGNATURES:
+            rec["finalize_shared_bytes"], rec["finalize_blocks_per_sm"] = \
+                blocks_per_sm(1 if v2 else 2, cs,
+                              int(scene.tabs.sweep_tab.shape[0]),
+                              mk.SWEEP_RESIDENT_ROWS, "lt_round_shared_bytes")
         print(json.dumps(rec), flush=True)
 
 
@@ -165,7 +231,7 @@ def main():
     ap.add_argument("--cases", default="gem,gem_fine,mesh,fog",
                     help="K12/K34 cases, comma-separated, or none")
     ap.add_argument("--rounds", default="",
-                    help="fused and/or lt, comma-separated")
+                    help="fused, k1 and/or lt, comma-separated")
     ap.add_argument("--budgets", default="576,0,1408")
     ap.add_argument("--c-lanes", type=int, default=1)
     ap.add_argument("--light-samples", type=int, default=2)
@@ -182,7 +248,8 @@ def main():
     c, ls = args.c_lanes, args.light_samples
     for name in args.rounds.split(","):
         if name:
-            dict(fused=bench_fused, lt=bench_lt)[name](dev, smi, args.reps)
+            dict(fused=bench_fused, k1=bench_k1, lt=bench_lt)[name](
+                dev, smi, args.reps)
     for name in args.cases.split(","):
         if name == "none":
             continue
@@ -233,11 +300,13 @@ def main():
                     rec[f"{key}_shared_bytes"] = dyn
                     rec[f"{key}_blocks_per_sm"] = blocks
             print(json.dumps(rec), flush=True)
-        # the older walk on the same rays: K1, and K3 on each NEE sample
-        rec = dict(case=name, rows=rows, card=smi, walk="tiles",
-                   k1_ms=cuda_ms(lambda: dense.sweep_closest_rows(
-                       state, scene.dense_tab, mk.S_O, mk.S_ALIVE),
-                       args.reps))
+        # on the same rays: K1 (at the default budget), and K3, on the
+        # older walk, on each NEE sample
+        if new_walk:
+            mk.SWEEP_RESIDENT_ROWS = budgets[0]
+        rec = dict(case=name, rows=rows, card=smi,
+                   k1_walk="sweep_tab" if k1_on_walk() else "tiles",
+                   k1_ms=cuda_ms(lambda: k1(state, scene), args.reps))
         for si in range(ls):
             row0 = mk.O_NEE + mk.NEE_ROWS * si
             rec[f"k3_sample{si}_ms"] = cuda_ms(

@@ -12,23 +12,23 @@ kernels and their twins run the same operations in the same order (the
 twins divide by constants as IEEE divisions, and the kernels are built
 without FMA contraction). The fused round and K12-LT must equal their twins
 on every row: the fused round at 0 to 3 NEE samples, C = 1 and 4, over
-three chained rounds in which lanes die mid-warp; K12-LT with its sweep
-table resident and through the ring. Elsewhere the discrete rows must be
+three chained rounds in which lanes die mid-warp; K1, K12-LT and K34-LT (v2
+at 1, 2 and 3 camera samples, v1) with their sweep table resident and
+through the ring, on the kernel's own state. Elsewhere the discrete rows must be
 equal on >= 99.99% of lanes and the continuous rows within rtol 1e-4, atol
 1e-5 on those lanes. That holds for K12 (shade_sweep, its K2 rows) and K34
 (finalize_sweep) of the two-program round on the multi-chunk gem, the HDR
-blob and the Sun scene, and for K1 (sweep_closest_rows: hit and prim id
-exact, t within rtol 1e-5), K2 (shade) and K34 of the texture-feed round on
-the textured Cornell box, each chained over three rounds; and for the
+blob and the Sun scene, and for K2 (shade) and K34 of the texture-feed
+round on the textured Cornell box, each chained over three rounds; and for the
 medium instantiations of K12, K2, K34 and K4 and the split round's K3
 (sweep_any_rows: mask equal) and K4 (finalize) on the fog and nested media
-scenes. K12, K34, the fused round and K12-LT walk the compact sweep table
-from shared memory (csrc/walk.cuh). K12 and K34 are held to their twins
-with the table resident and through the ring of tiles (a table one row
-over the residency budget, and the 41 tiles of the mesh), the two bit for
-bit equal to each other, at 1, 2 and 3 NEE samples; and the split round,
-whose K1 and K3 keep the older walk of the [P_pad, 128] table, renders the
-film of the two-program round. The polygon-aperture respawn and the
+scenes. Every round kernel but K3 walks the compact sweep table from
+shared memory (csrc/walk.cuh). K12 and K34 are held to their twins with the
+table resident and through the ring of tiles (a table one row over the
+residency budget, and the 41 tiles of the mesh), the two bit for bit equal
+to each other, at 1, 2 and 3 NEE samples; and the split round, whose K3
+keeps the older walk of the [P_pad, 128] table, renders the film of the
+two-program round. The polygon-aperture respawn and the
 direct-only cut, which no recipe reaches, have a case each (fused round,
 K12, K34)."""
 
@@ -322,10 +322,11 @@ def test_round_options_kernels_match_plain(dev, case):
 
 @pytest.mark.parametrize("budget", ["resident", "ring"])
 def test_split_film_equals_two_prog_film_on_the_gem(dev, monkeypatch, budget):
-    """The split round (K1 and K3 on the older walk of the [P_pad, 128]
-    table) renders, from the same uniforms, the film of the two-program
-    round (K12 and K34 on the shared-memory walk): every closest hit and
-    every shadow verdict of a render agree between the two walks."""
+    """The split round (K1 on the shared-memory walk, K3 on the older walk
+    of the [P_pad, 128] table) renders, from the same uniforms, the film of
+    the two-program round (K12 and K34 on the shared-memory walk): every
+    closest hit and every shadow verdict of a render agree between the
+    routes, K3's against K34's from the two walks."""
     from pathtracer_tpu_torch.renderer.persistent import render_regen
 
     world = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
@@ -349,33 +350,43 @@ def test_split_film_equals_two_prog_film_on_the_gem(dev, monkeypatch, budget):
     assert float(films[0][0][..., 1].mean()) > 0.0
 
 
-@pytest.mark.parametrize("table", ["chip", "random"])
-def test_rows_sweep_kernel_matches_plain(dev, table):
-    """K1 reads the rays from state rows in place; dead lanes read as
-    misses."""
+@pytest.mark.parametrize("table,budget", [("chip", "default"),
+                                          ("random", "default"),
+                                          ("chip", "one_under")])
+def test_rows_sweep_kernel_matches_plain(dev, monkeypatch, table, budget):
+    """K1 reads the rays from state rows in place and walks the sweep table
+    (the chip table's 32 rows resident by default; the random table's 1,120
+    rows through the ring by default; the chip table through the ring with
+    the budget one row under it); dead lanes read as misses. Its rows equal
+    the twin's bit for bit, on an odd lane count (the last block partial)."""
     if table == "chip":
         w = scenes.chip_scene(SceneBuilder(), spectral).build("cpu")
     else:
         w = scenes.random_prims(SceneBuilder(), spectral, seed=2, grid=20,
                                 n_each=100).build("cpu")
     p = w.prims
-    tab = torch.as_tensor(dense.pack_prims_np(
-        p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
-        p.pc.numpy()), device=dev)
+    cols = (p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+            p.pc.numpy())
+    tab = torch.as_tensor(dense.pack_prims_np(*cols), device=dev)
+    sweep = torch.as_tensor(dense.pack_sweep_np(*cols), device=dev)
+    rows = sweep.shape[0]
+    assert (rows <= mk.SWEEP_RESIDENT_ROWS) == (table == "chip")
+    if budget == "one_under":
+        monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", rows - 1)
     gen = torch.Generator(device=dev).manual_seed(3)
-    n = 1 << 16
+    n = (1 << 16) - 91
     state = torch.rand((mk.NS, n), generator=gen, device=dev)
     state[mk.S_O:mk.S_O + 6] = _rays(n, gen, dev)[:6]
     state[mk.S_ALIVE] = (torch.rand(n, generator=gen, device=dev)
                          < 0.9).float()
     launches = dense.ROWS_LAUNCHES
-    k = dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE)
+    k = dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE, sweep)
     pl = dense.sweep_closest_rows_plain(state, tab, mk.S_O, mk.S_ALIVE)
     assert dense.ROWS_LAUNCHES == launches + 1
-    assert torch.equal(k[1], pl[1]) and not k[2:].any()
-    hit = k[1] >= 0
-    assert torch.allclose(k[0][hit], pl[0][hit], rtol=1e-5, atol=0.0)
-    assert torch.equal(k[0][~hit], pl[0][~hit])
+    assert torch.equal(k, pl)
+    assert int((k[1] >= 0).sum()) > n // 10
+    with pytest.raises(ValueError):
+        dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE)
 
 
 @pytest.mark.parametrize("c_lanes", [1, 4])
@@ -402,9 +413,11 @@ def test_texfeed_kernels_match_plain(dev, c_lanes):
         u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
         launches = (dense.ROWS_LAUNCHES, mk.K2_LAUNCHES)
         tpk = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O,
-                                       mk.S_ALIVE)
+                                       mk.S_ALIVE, scene.sweep_tab)
         tpp = dense.sweep_closest_rows_plain(sp, scene.dense_tab, mk.S_O,
                                              mk.S_ALIVE)
+        assert torch.equal(tpk, dense.sweep_closest_rows_plain(
+            sk, scene.dense_tab, mk.S_O, mk.S_ALIVE))
         assert torch.equal(tpk[1], tpp[1])
         hit = tpk[1] >= 0
         assert torch.allclose(tpk[0][hit], tpp[0][hit], rtol=1e-5, atol=0.0)
@@ -471,7 +484,10 @@ def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
         frac, close = match_rows(ok, op, disc)
         assert frac >= 0.9999 and close
         # the split round on the same inputs
-        tp = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O, mk.S_ALIVE)
+        tp = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O, mk.S_ALIVE,
+                                      scene.sweep_tab)
+        assert torch.equal(tp, dense.sweep_closest_rows_plain(
+            sk, scene.dense_tab, mk.S_O, mk.S_ALIVE))
         k2s = mk.shade(u12, sk, tp, scene, a, None, None, mf)
         assert torch.equal(k2s, k2k)
         blks = []
@@ -502,37 +518,54 @@ def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
         dense.sweep_any_rows_plain(k2s, scene.dense_tab, row0, row0 + 6))
 
 
+def lt_budgets(scene):
+    """The residency budgets of an LT scene's walks: the default, which keeps
+    its sweep table resident, and one row under the table (the ring)."""
+    rows = int(scene.tabs.sweep_tab.shape[0])
+    assert rows <= mk.SWEEP_RESIDENT_ROWS
+    return (mk.SWEEP_RESIDENT_ROWS, rows - 1)
+
+
 @pytest.mark.parametrize("cs", [1, 2])
 def test_lt_shade_resident_and_ring_match_plain(dev, monkeypatch, cs):
-    """K12-LT over three chained rounds of chip_lens (its 32-row sweep
-    table), with the table resident in shared memory and through the ring
-    (the budget one row under the table: one short tile), its Q rows equal
-    to the twin's bit for bit on every row; the rounds are chained through
-    K34-LT v2."""
+    """K12-LT and K34-LT v2 over three chained rounds of chip_lens (its
+    32-row sweep table) from lanes with a budget of two particles, so that
+    lanes die mid-warp and respawn: with the table resident in shared memory
+    and through the ring (the budget one row under the table: one short
+    tile), their rows equal the twins' bit for bit on every row of the
+    kernels' own state, on an odd lane count."""
     lt, s, scene, state = _lt_setup(dev, "chip_lens", "CHIP_LENS_CAMERA", cs,
                                     True)
     unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(10))
     t, a = scene.tabs, scene.a
-    rows = int(t.sweep_tab.shape[0])
-    assert rows <= mk.SWEEP_RESIDENT_ROWS
-    n = state.shape[1]
-    sk = state
-    walking = 0.0
+    n = state.shape[1] - 91
+    sk = state[:, :n].contiguous()
+    sk[lt.LS_BUDGET] = 2.0
+    walking = respawned = 0.0
+    budgets = lt_budgets(scene)
     for it in range(3):
         u = unif.round(it, lt.nu_lt(cs), n, dev)
-        qs = []
-        for budget in (mk.SWEEP_RESIDENT_ROWS, rows - 1):
+        usp = unif.round(it, lt.NUSP, n, dev)
+        qs, outs = [], []
+        for budget in budgets:
             monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
-            launches = lt.SHADE_LAUNCHES
+            launches = (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES)
             qs.append(lt.lt_shade(u, sk, scene))
-            assert lt.SHADE_LAUNCHES == launches + 1
+            outs.append(lt.lt_finalize_spawn(u, usp, sk, qs[0], scene))
+            assert (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES) == (
+                launches[0] + 1, launches[1] + 1)
         qp = lt.lt_shade_plain(u, sk, t.dense_tab, t.prim_tab, t.mat_tab,
                                t.spec_tab, a)
-        assert torch.equal(qs[0], qp) and torch.equal(qs[1], qp)
+        op = lt.lt_finalize_spawn_plain(u, usp, sk, qs[0], t.dense_tab,
+                                        t.light_tab, t.spec_tab,
+                                        scene.lcdf_tab, a)
+        assert all(torch.equal(q, qp) for q in qs)
+        assert all(torch.equal(o, op) for o in outs)
         walking += float(qp[lt.Q_ALIVE].sum())
-        usp = unif.round(it, lt.NUSP, n, dev)
-        sk = lt.lt_finalize_spawn(u, usp, sk, qs[0], scene)[:lt.NS_LT]
-    assert walking > 0
+        if it > 0:
+            respawned += float(op[lt.k4_aux_v2(cs)["resp"]].sum())
+        sk = outs[0][:lt.NS_LT]
+    assert walking > 0 and respawned > 0
 
 
 def _lt_setup(dev, recipe, cam, cs, spawn_inkernel, lanes=1 << 15):
@@ -551,21 +584,27 @@ def _lt_setup(dev, recipe, cam, cs, spawn_inkernel, lanes=1 << 15):
 @pytest.mark.parametrize("recipe,cam,cs,v2", [
     ("chip_lens", "CHIP_LENS_CAMERA", 1, True),
     ("chip_lens", "CHIP_LENS_CAMERA", 2, True),
+    ("chip_lens", "CHIP_LENS_CAMERA", 3, True),
     ("chip_lens", "CHIP_LENS_CAMERA", 1, False),
     ("hdri_blob", "SPHERE_CAMERA", 1, False)])
-def test_lt_kernels_match_plain(dev, recipe, cam, cs, v2):
+def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
     """K12-LT and K34-LT (v2: in-kernel spawn; v1: from the torch spawn
     feed) against their twins over three chained rounds from a state of
-    dead lanes with budget, each side on its own state."""
+    dead lanes with budget, each side on its own state, on an odd lane
+    count; and K34-LT on the kernels' state equal to its twin on every row,
+    its sweep table resident and through the ring. Three camera samples
+    take the instantiation that walks one shadow ray at a time."""
     lt, s, scene, state = _lt_setup(dev, recipe, cam, cs, v2)
     unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(9))
     t, a = scene.tabs, scene.a
-    n = state.shape[1]
+    n = state.shape[1] - 91
     q_disc, o_disc = lt.discrete_rows(cs, v2)
     aux = lt.k4_aux_v2(cs) if v2 else lt.k4_aux(cs)
-    sk = sp = state
+    sk = sp = state[:, :n].contiguous()
     spawned = 0.0
+    budgets = lt_budgets(scene)
     for it in range(3):
+        monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budgets[0])
         u = unif.round(it, lt.nu_lt(cs), n, dev)
         launches = (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES,
                     lt.FINALIZE_LAUNCHES)
@@ -576,18 +615,33 @@ def test_lt_kernels_match_plain(dev, recipe, cam, cs, v2):
         assert frac >= 0.9999 and close
         if v2:
             usp = unif.round(it, lt.NUSP, n, dev)
-            ok = lt.lt_finalize_spawn(u, usp, sk, qk, scene)
-            op = lt.lt_finalize_spawn_plain(u, usp, sp, qp, t.dense_tab,
-                                            t.light_tab, t.spec_tab,
-                                            scene.lcdf_tab, a)
+
+            def kernel():
+                return lt.lt_finalize_spawn(u, usp, sk, qk, scene)
+
+            def twin(st, q):
+                return lt.lt_finalize_spawn_plain(u, usp, st, q, t.dense_tab,
+                                                  t.light_tab, t.spec_tab,
+                                                  scene.lcdf_tab, a)
         else:
             fk = lt.spawn_feed_for(scene, s, unif, it, n)
-            ok = lt.lt_finalize(u, sk, qk, fk, scene)
-            op = lt.lt_finalize_plain(u, sp, qp, fk, t.dense_tab, a)
+
+            def kernel():
+                return lt.lt_finalize(u, sk, qk, fk, scene)
+
+            def twin(st, q):
+                return lt.lt_finalize_plain(u, st, q, fk, t.dense_tab, a)
+        outs = []
+        for budget in budgets:
+            monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
+            outs.append(kernel())
+        ok, op = outs[0], twin(sp, qp)
         assert (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES,
                 lt.FINALIZE_LAUNCHES) == (launches[0] + 1,
-                                          launches[1] + int(v2),
-                                          launches[2] + int(not v2))
+                                          launches[1] + 2 * int(v2),
+                                          launches[2] + 2 * int(not v2))
+        own = twin(sk, qk)
+        assert all(torch.equal(o, own) for o in outs)
         frac, close = match_rows(ok, op, o_disc)
         assert frac >= 0.9999 and close
         sk, sp = ok[:lt.NS_LT], op[:lt.NS_LT]

@@ -1,4 +1,4 @@
-"""The compact sweep table that K12 and K34 walk (`dense.pack_sweep_np`,
+"""The compact sweep table that the round kernels walk (`dense.pack_sweep_np`,
 `MegaScene.sweep_tab`): columns 0..10 are the packed dense table's, and a
 rect's baked unit normal, bb and cc carry, bit for bit, what the plain twin's
 rect branch (`dense.chunk_t`) computes in f32. The kernels read the baked
@@ -26,7 +26,9 @@ from pathtracer_tpu_torch import scenes
 from pathtracer_tpu_torch.camera import make_projective_camera
 from pathtracer_tpu_torch.core import spectral
 from pathtracer_tpu_torch.geometry.soa import PRIM_RECT
+from pathtracer_tpu_torch.integrator.lt import LTSettings
 from pathtracer_tpu_torch.kernels import dense
+from pathtracer_tpu_torch.kernels import lt_mega as lt
 from pathtracer_tpu_torch.kernels import megakernel as mk
 from pathtracer_tpu_torch.parsing import SceneBuilder
 
@@ -90,6 +92,95 @@ def test_bake_carries_sweep_tab(recipe, cam):
                                 .contiguous())
     with pytest.raises(ValueError):
         mk._sweep_tab(stale)
+
+
+def lt_bake(recipe, cam, v2):
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build("cpu")
+    camera = make_projective_camera(**getattr(scenes, cam), device="cpu")
+    return lt.build_lt_scene(world, camera, LTSettings(stratified=True), 64,
+                             64, "cpu", v2)
+
+
+LT_BAKES = [("chip_lens", "CHIP_LENS_CAMERA", True),
+            ("hdri_blob", "SPHERE_CAMERA", False)]
+
+
+@pytest.mark.parametrize("recipe,cam,v2", LT_BAKES,
+                         ids=[r for r, _, _ in LT_BAKES])
+def test_lt_bake_carries_sweep_tab(recipe, cam, v2):
+    """The tables K12-LT and K34-LT walk: chip_lens with its lens proxy (the
+    v2 route) and the HDR blob (v1)."""
+    scene = lt_bake(recipe, cam, v2)
+    assert scene.spawn_inkernel == v2
+    t = scene.tabs
+    rects = check_table(t.sweep_tab.numpy(), t.dense_tab.numpy())
+    assert (rects > 0) == (recipe == "chip_lens")
+    assert mk._sweep_tab(t) is t.sweep_tab
+
+
+def test_random_table_packs_beside_dense():
+    """The random table of all four prim types (1,100 prims, 1,120 rows:
+    through the ring at the default budget) that the sweep checks walk."""
+    p = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
+                            n_each=100).build("cpu").prims
+    cols = (p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
+            p.pc.numpy())
+    sweep = dense.pack_sweep_np(*cols)
+    assert sweep.shape == (1120, dense.SWEEP_COLS)
+    assert sweep.shape[0] > mk.SWEEP_RESIDENT_ROWS
+    assert check_table(sweep, dense.pack_prims_np(*cols)) == 100
+
+
+def bad_sweep(sweep, how):
+    """A sweep table the kernels must not walk: stale (a block of rows
+    short), mis-shaped (the dense table's 12 columns), f64, or not
+    contiguous."""
+    if how == "stale":
+        return sweep[:-dense.PBF].contiguous()
+    if how == "cols":
+        return sweep[:, :12].contiguous()
+    if how == "dtype":
+        return sweep.double()
+    return torch.cat([sweep, sweep], dim=1)[:, ::2]
+
+
+@pytest.fixture(scope="module")
+def lt_scenes():
+    return {v2: lt_bake(r, c, v2) for r, c, v2 in LT_BAKES}
+
+
+@pytest.mark.parametrize("how", ["stale", "cols", "dtype", "strided"])
+@pytest.mark.parametrize("wrapper", ["k1", "lt_v2", "lt_v1"])
+def test_wrappers_refuse_a_bad_sweep_tab(lt_scenes, wrapper, how):
+    """K1 (`dense.sweep_closest_rows`) and K34-LT v2 and v1 check the sweep
+    table they would walk before the device branch: on CPU tensors, where
+    the twins read the dense table, a stale or mis-shaped one is refused."""
+    if wrapper == "k1":
+        scene = lt_scenes[True].tabs
+        state = torch.zeros((mk.NS, 64))
+        bad = bad_sweep(scene.sweep_tab, how)
+        with pytest.raises((ValueError, TypeError), match="sweep_tab"):
+            dense.sweep_closest_rows(state, scene.dense_tab, mk.S_O,
+                                     mk.S_ALIVE, bad)
+        out = dense.sweep_closest_rows(state, scene.dense_tab, mk.S_O,
+                                       mk.S_ALIVE, scene.sweep_tab)
+        assert not (out[1] >= 0).any()
+        return
+    v2 = wrapper == "lt_v2"
+    scene = lt_scenes[v2]
+    cs = scene.a.cs
+    state, _ = lt.lt_init(64, "cpu")
+    n = state.shape[1]
+    u = torch.zeros((lt.nu_lt(cs), n))
+    k2 = torch.zeros((lt.q2_rows(cs), n))
+    stale = dataclasses.replace(scene, tabs=dataclasses.replace(
+        scene.tabs, sweep_tab=bad_sweep(scene.tabs.sweep_tab, how)))
+    with pytest.raises((ValueError, TypeError), match="sweep_tab"):
+        if v2:
+            lt.lt_finalize_spawn(u, torch.zeros((lt.NUSP, n)), state, k2,
+                                 stale)
+        else:
+            lt.lt_finalize(u, state, k2, torch.zeros((lt.NF, n)), stale)
 
 
 def test_pack_sweep_all_types_and_degenerate_rects():
