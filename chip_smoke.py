@@ -22,10 +22,12 @@ proxy at 1080x1080, 16 light paths per pixel (v2), and of the HDR blob at
 estimator checks: light against path tracing on the Cornell box, in-kernel
 spawn against the spawn feed on a spike-emission box. Last of all,
 participating media and the split round K1 | feeds | K2 | K3 | K4: K3
-`sweep_any_rows` on the gem's K2 rows against its twin; three chained
+`sweep_any_rows` on the gem's K2 rows and on random rays over the random
+table, each resident and through the ring, against its twin; three chained
 medium-aware rounds of the fog box at 1080x1080 (the medium instantiations
 of K12, K2, K34 and K4, K1 and K3, each against its twin, and the split
-round's rows against the two-program round's, bit for bit); the fog box
+round's rows against the two-program round's, bit for bit; the registers,
+spills and blocks an SM of the medium K2 and K12); the fog box
 rendered at 1080x1080, 16 spp through the two-program round and again
 through the split round, the two films equal; and the Beer-Lambert sphere
 and the scattering furnace. Every phase prints
@@ -36,12 +38,12 @@ its bound (the least time the card could take: the larger of the f32
 operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
 published peaks; the kernels are built without FMA contraction, so a sweep
 of separate multiplies and adds cannot go under twice a bound by
-operations). Every round kernel but K3 walks the compact sweep table from
-shared memory. K12 and K34 are held to their twins with the table resident
-(the gem, the HDR blob), through the ring of tiles (the mesh's 41 tiles)
-and with the budget set one row under the gem's and the fog box's tables,
-and the gem is rendered a second time through the split round (K1, and K3
-on the older walk), which must give the same film. The fused round must
+operations). Every round kernel that sweeps walks the compact sweep table
+from shared memory. K12 and K34 are held to their twins with the table
+resident (the gem, the HDR blob), through the ring of tiles (the mesh's 41
+tiles) and with the budget set one row under the gem's and the fog box's
+tables, and the gem is rendered a second time through the split round (K1
+and K3), which must give the same film. The fused round must
 equal its twin on every row over three chained rounds at light samples 2
 (C = 1 and 4, 1080x1080) and 1 and 3 (C = 1, 256x256); K1, K12-LT and
 K34-LT (v2 and v1) their twins on every row of the kernel's own state, the
@@ -116,14 +118,14 @@ PEAK_BYTES = 3.35e12  # B/s
 # (RAY_OPS: the triangle test's 1/dz and two shear products; the sphere
 # test's d.d and its reciprocal), and what depends on the prim alone (a
 # rect's unit normal and edge norms: 28 operations) not at all: a bake can
-# hold it. The kernels that keep csrc/sweep.cuh:prim_t's walk compute the
-# same function and are held to the same count
+# hold it. dense_sweep.cu, which keeps csrc/sweep.cuh:prim_t's walk,
+# computes the same function and is held to the same count
 PRIM_OPS = (41, 23, 35, 29)
 RAY_OPS = (3, 6, 0, 0)
 F32 = 4
 # the floats a sweep must read of a row of the [P_pad, 128] dense table
-# (ptype, valid, pa, pb, pc), as K3 and dense_sweep.cu read it; the kernels
-# on walk.cuh read the compact sweep table, and all 16 floats of its rows
+# (ptype, valid, pa, pb, pc), as dense_sweep.cu reads it; the kernels on
+# walk.cuh read the compact sweep table, and all 16 floats of its rows
 DENSE_COLS = 11
 
 
@@ -194,18 +196,20 @@ def k34_bound(torch, mk, dense, k2, state, scene, a, sweeps=True):
     return bound(ops, nbytes)
 
 
-def any_rows_bound(torch, mk, dense, k2, scene, si):
-    """K3 on NEE sample si: every lane's worth flag read and blocked flag
-    written, a worth-tracing lane's ray and tmax (7 rows), the table; an
-    unblocked ray tests every prim, a blocked one at least the cheapest
-    single test."""
-    n = k2.shape[1]
-    worth, free = shadow_rays(torch, mk, dense, k2, scene,
-                              si + 1)[si]
-    return bound(free * sweep_ops(scene.dense_tab)
-                 + (worth - free) * min(PRIM_OPS),
-                 F32 * (2 * n + 7 * worth
-                        + dense_floats(scene.dense_tab)))
+def any_rows_bound(n, worth, free, sweep):
+    """K3 on one NEE sample of n lanes, `worth` of them with a shadow ray,
+    `free` of those unblocked: every lane's worth flag read and blocked flag
+    written, a worth-tracing lane's ray and tmax (7 rows), the sweep table
+    (64 B a row); an unblocked ray tests every prim, a blocked one at least
+    the cheapest single test."""
+    return bound(free * sweep_ops(sweep) + (worth - free) * min(PRIM_OPS),
+                 F32 * (2 * n + 7 * worth + int(sweep.numel())))
+
+
+def k2_any_rows_bound(torch, mk, dense, k2, scene, si):
+    """`any_rows_bound` of K3 on NEE sample si of a K2 block."""
+    worth, free = shadow_rays(torch, mk, dense, k2, scene, si + 1)[si]
+    return any_rows_bound(k2.shape[1], worth, free, scene.sweep_tab)
 
 
 def rows_bound(mk, state, sweep):
@@ -280,6 +284,7 @@ def phase_build(torch):
     for name, k, lt_cs in (("shade_sweep", 0, None),
                            ("finalize_sweep", 1, None),
                            ("sweep_closest_rows", 3, None),
+                           ("sweep_any_rows", 5, None),
                            ("lt_shade", 0, 1), ("lt_finalize_spawn", 1, 1),
                            ("lt_finalize_spawn_cs2", 1, 2),
                            ("lt_finalize", 2, 1)):
@@ -320,6 +325,26 @@ def phase_build(torch):
          fused_round=attrs, **two_prog, **lt_round,
          resident_rows=mk.SWEEP_RESIDENT_ROWS, walk_shared=walk_shared,
          resource_usage=usage[:90])
+
+
+def occupancy(which, c, rows, budget):
+    """Registers, local (spill) bytes and blocks an SM of a two-program
+    kernel (`walk_shared_bytes`'s which: 0 K12, 2 K2, + 8 medium) at C lanes
+    and a sweep table of `rows` rows."""
+    import ctypes
+
+    from pathtracer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    stat, dyn, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.two_prog_attrs(which, c, ctypes.byref(regs), ctypes.byref(local))
+    check(rc == 0, f"two_prog_attrs: CUDA error {rc}")
+    rc = lib.walk_shared_bytes(which, c, rows, budget, ctypes.byref(stat),
+                               ctypes.byref(dyn), ctypes.byref(blocks))
+    check(rc == 0, f"walk_shared_bytes: CUDA error {rc}")
+    return dict(regs=regs.value, local_bytes=local.value,
+                blocks_per_sm=blocks.value)
 
 
 def _rays(torch, n, gen, dev, tmax=None):
@@ -967,8 +992,8 @@ def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
     a round, the fused kernel and the plain twins never. `split_too`: a
     warm render, one more under torch.profiler (the device's busy share and
     the kernels' device time), then the same seed through the split round,
-    whose K1 and K3 walk the [P_pad, 128] table the older way: the film must
-    equal the two-program film bit for bit."""
+    whose K1 and K3 walk the sweep table one ray a lane: the film must equal
+    the two-program film bit for bit."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
     from pathtracer_tpu_torch.renderer.output import output_film
@@ -1032,8 +1057,7 @@ def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
               f"{recipe} split: launches {counts_s} for {rounds} rounds")
         check(torch.equal(film_s, film)
               and profile_s.total_rays == profile.total_rays,
-              f"{recipe}: the split film (the older walk) differs from the "
-              "two-program film (the shared-memory walk)")
+              f"{recipe}: the split film differs from the two-program film")
         extra.update(split=dict(wall_s=elapsed_s, launches=counts_s,
                                 mrays_per_s=rays / elapsed_s / 1e6,
                                 film_equals_two_prog=True))
@@ -1566,11 +1590,15 @@ def _medium_scene(torch, dev, recipe, cam, c_lanes, **kw):
                                                         settings)
 
 
-def phase_any_rows(torch, dev, width):
-    """K3 on the K2 rows of the gem's first round at the film's lane count:
-    each NEE sample's blocked mask against the twin's (equal on every lane,
-    and 0 on every lane whose sample is not worth a ray), with its time,
-    the twin's and its bound."""
+def phase_any_rows(torch, dev, width, n_lanes):
+    """K3 on the walk. On the K2 rows of the gem's first round at the film's
+    lane count: each NEE sample's blocked mask against the twin's (equal on
+    every lane, and 0 on every lane whose sample is not worth a ray), the
+    sweep table resident (352 rows) and with the budget one row under it
+    (the ring). Then on `n_lanes` random shadow rays (nine in ten worth a
+    ray) over the random table (1,120 rows): through the ring at the
+    default budget, and resident with the budget at the table. With each
+    staging's time, the twin's and the bound."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
@@ -1586,30 +1614,64 @@ def phase_any_rows(torch, dev, width):
     ls = a.light_samples
     u12 = torch.rand((mk.n_u_rows(ls), n_pad), generator=gen, device=dev)
     k2 = mk.shade_sweep(u12, state0, scene, a)
+
+    def stagings(src, tab, sweep, row0, tmax_row, live_row, what):
+        """K3 at the default budget and at the other staging, each against
+        the twin -> (mask, record of times)."""
+        rows = int(sweep.shape[0])
+
+        def run():
+            return dense.sweep_any_rows(src, tab, row0, tmax_row, live_row,
+                                        sweep)
+
+        def other():
+            budget0 = mk.SWEEP_RESIDENT_ROWS
+            try:
+                mk.SWEEP_RESIDENT_ROWS = (rows - 1 if rows <= budget0
+                                          else rows)
+                return run(), cuda_ms(torch, run, 10)
+            finally:
+                mk.SWEEP_RESIDENT_ROWS = budget0
+
+        def twin():
+            return dense.sweep_any_rows_plain(src, tab, row0, tmax_row,
+                                              live_row)
+
+        k, pl = run(), twin()
+        k_other, other_ms = other()
+        torch.cuda.synchronize()
+        worth = src[live_row] > 0.5
+        for staging, x in (("default budget", k), ("other staging",
+                                                   k_other)):
+            check(torch.equal(x, pl), f"K3 {what}, {staging}: masks differ "
+                  f"on {int((x != pl).sum())} lanes")
+        check(not bool(k[0][~worth].any()),
+              f"K3 {what}: a lane without a shadow ray reads blocked")
+        resident = rows <= mk.SWEEP_RESIDENT_ROWS
+        n_worth = int(worth.sum())
+        free = int((worth & (k[0] < 0.5)).sum())
+        return k, dict(
+            rows=rows, worth=n_worth, blocked=int(k.sum()),
+            mismatches=int((k != pl).sum() + (k_other != pl).sum()),
+            staging="resident" if resident else "ring",
+            ms=cuda_ms(torch, run, 10),
+            **{("ring_ms" if resident else "resident_ms"): other_ms},
+            plain_ms=cuda_ms(torch, twin, 2),
+            **any_rows_bound(int(src.shape[1]), n_worth, free, sweep))
+
     res = dict(lanes=n_pad, prims=int(scene.dense_tab.shape[0]), samples=[])
     for si in range(ls):
         row0 = mk.O_NEE + mk.NEE_ROWS * si
-
-        def run():
-            return dense.sweep_any_rows(k2, scene.dense_tab, row0, row0 + 6,
-                                        live_row=row0 + 7)
-
-        def twin():
-            return dense.sweep_any_rows_plain(k2, scene.dense_tab, row0,
-                                              row0 + 6, row0 + 7)
-
-        k, pl = run(), twin()
-        torch.cuda.synchronize()
-        worth = k2[row0 + 7] > 0.5
-        check(torch.equal(k, pl), f"K3 sample {si}: masks differ on "
-              f"{int((k != pl).sum())} lanes")
-        check(not bool(k[0][~worth].any()),
-              f"K3 sample {si}: a lane without a shadow ray reads blocked")
-        res["samples"].append(dict(
-            worth=int(worth.sum()), blocked=int(k.sum()),
-            mismatches=int((k != pl).sum()), ms=cuda_ms(torch, run, 10),
-            plain_ms=cuda_ms(torch, twin, 2),
-            **any_rows_bound(torch, mk, dense, k2, scene, si)))
+        _, rec = stagings(k2, scene.dense_tab, scene.sweep_tab, row0,
+                          row0 + 6, row0 + 7, f"gem sample {si}")
+        res["samples"].append(rec)
+    tab, sweep = sweep_tables(torch, dev)["random"]
+    src = torch.cat([_rays(torch, n_lanes, gen, dev)[:6],
+                     torch.rand((1, n_lanes), generator=gen, device=dev)
+                     * 1.45 + 0.05,
+                     (torch.rand((1, n_lanes), generator=gen, device=dev)
+                      < 0.9).float()]).contiguous()
+    _, res["random"] = stagings(src, tab, sweep, 0, 6, 7, "random table")
     emit("any_rows_sweep", **res)
     return res
 
@@ -1622,7 +1684,8 @@ def phase_medium_rounds(torch, dev, width):
     K2 rows equal to K12's and its out rows equal to K34's bit for bit.
     Then the kernels', the twins' and the medium feed's times and the bounds
     on the third round's inputs (the camera spawn is in vacuum: the first
-    round scatters nothing), and the device kernels of one feed call."""
+    round scatters nothing), the registers, spill bytes and blocks an SM of
+    the medium K2 and K12, and the device kernels of one feed call."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
@@ -1655,8 +1718,11 @@ def phase_medium_rounds(torch, dev, width):
 
         def k3(k2, si, plain=False):
             row0 = mk.O_NEE + mk.NEE_ROWS * si
-            fn = dense.sweep_any_rows_plain if plain else dense.sweep_any_rows
-            return fn(k2, scene.dense_tab, row0, row0 + 6, row0 + 7)
+            if plain:
+                return dense.sweep_any_rows_plain(k2, scene.dense_tab, row0,
+                                                  row0 + 6, row0 + 7)
+            return dense.sweep_any_rows(k2, scene.dense_tab, row0, row0 + 6,
+                                        row0 + 7, scene.sweep_tab)
 
         sk = sp = state0
         rounds, last = [], None
@@ -1738,7 +1804,7 @@ def phase_medium_rounds(torch, dev, width):
             sweep_any_rows=dict(
                 ms=ms(lambda: k3(k2_2, 0)),
                 plain_ms=ms(lambda: k3(k2_2, 0, plain=True), 2),
-                **any_rows_bound(torch, mk, dense, k2_2, scene, 0)),
+                **k2_any_rows_bound(torch, mk, dense, k2_2, scene, 0)),
             finalize=dict(
                 ms=ms(lambda: mk.finalize(u34, s2, k2_2, blks2, scene, a)),
                 plain_ms=ms(lambda: mk.finalize_plain(u34, s2, k2_2, blks2,
@@ -1749,9 +1815,14 @@ def phase_medium_rounds(torch, dev, width):
             torch, lambda: mk.med_feed(scene.med, s2, u12, ls, c),
             with_ms=True)
         unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(1))
+        rows = int(scene.sweep_tab.shape[0])
         res[f"C{c}"] = dict(
             lanes=n_pad, live=int((s2[mk.S_ALIVE] > 0.5).sum()),
             rounds=rounds,
+            medium_occupancy=dict(
+                shade=occupancy(2 + 8, c, rows, mk.SWEEP_RESIDENT_ROWS),
+                shade_sweep=occupancy(0 + 8, c, rows,
+                                      mk.SWEEP_RESIDENT_ROWS)),
             med_feed_ms=ms(lambda: mk.med_feed(scene.med, s2, u12, ls, c)),
             med_feed_device_ms=feed_device_ms,
             device_kernels=dict(
@@ -1973,7 +2044,7 @@ def main():
     lt_hdri = phase_render_lt(torch, dev, "hdri_blob", "SPHERE_CAMERA", 512,
                               LT_HDRI_PATHS, False, busy=True)
     phase_lt_estimators(torch, dev)
-    k3 = phase_any_rows(torch, dev, WIDTH)
+    k3 = phase_any_rows(torch, dev, WIDTH, SWEEP_RAYS)
     med = phase_medium_rounds(torch, dev, WIDTH)
     fog = phase_render_medium(torch, dev, WIDTH, SPP)
     phase_medium_checks(torch, dev)
@@ -2002,6 +2073,7 @@ def main():
 
     # K3's masks are 0/1: its error is the count of lanes that differ
     k3_err = float(sum(s["mismatches"] for s in k3["samples"])
+                   + k3["random"]["mismatches"]
                    + sum(rd["k3_mismatches"] for r in med.values()
                          for rd in r["rounds"]))
     med1 = med["C1"]
@@ -2073,19 +2145,18 @@ def main():
              replaces="pathtracer_tpu/kernels/lt_mega.py:1005",
              launches=lt_hdri["lt_finalize"],
              max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_"))],
-        # the sweep device code (sweep.cuh, walked by tiles.cuh) is inlined
-        # in K3, the one round kernel that keeps the older walk of the
-        # [P_pad, 128] table; dense_sweep.cu launches it on its own only in
-        # this check. The other round kernels inline walk.cuh's walk of the
-        # compact sweep table, which returns the same bits
+        # the sweep device code (sweep.cuh) runs on its own only in this
+        # check, launched by dense_sweep.cu: every round kernel inlines
+        # walk.cuh's walk of the compact sweep table, which returns the same
+        # bits
         "inlined": [dict(
             name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/dense.py:608",
-            inlined_in=["sweep_any_rows"],
+            inlined_in=[],
             walk_cuh_inlined_in=["shade_sweep", "finalize_sweep",
-                                 "sweep_closest_rows", "fused_round",
-                                 "lt_shade", "lt_finalize_spawn",
-                                 "lt_finalize"],
+                                 "sweep_closest_rows", "sweep_any_rows",
+                                 "fused_round", "lt_shade",
+                                 "lt_finalize_spawn", "lt_finalize"],
             max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
             **timed(dict(ms=sweep["chip"]["closest_ms"],
                          plain_ms=sweep["chip"]["closest_plain_ms"],

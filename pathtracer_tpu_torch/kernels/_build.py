@@ -119,8 +119,9 @@ _SIGNATURES = {
     #  args*, stream)
     "shade_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                      _P],
-    # (src, row0, tmax_row, live_row | -1, dense, p_dense, out, n, stream)
-    "sweep_any_rows_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _P],
+    # (src, row0, tmax_row, live_row | -1, sweep, p_rows, resident_rows,
+    #  out, n, stream)
+    "sweep_any_rows_launch": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P],
     # (u, state, k2, blk, out, n, args*, stream)
     "finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _P],
     # (u, state, q, n, sweep, p_rows, resident_rows, prim, p_pad, mat, spec,
@@ -140,7 +141,7 @@ _SIGNATURES = {
     #  local_bytes*)
     "fused_round_attrs": [_I, _P, _P, _P, _P],
     "two_prog_attrs": [_I, _I, _P, _P],
-    # (which: 0 K12, 1 K34, 3 K1; + 8 medium; c_lanes; p_rows;
+    # (which: 0 K12, 1 K34, 2 K2, 3 K1, 5 K3; + 8 medium; c_lanes; p_rows;
     #  resident_rows; static_bytes*, dynamic_bytes*, blocks_per_sm*)
     "walk_shared_bytes": [_I, _I, _I, _I, _P, _P, _P],
     "lt_round_attrs": [_I, _I, _P, _P],

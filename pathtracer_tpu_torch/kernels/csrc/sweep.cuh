@@ -3,9 +3,9 @@
 // Replaces the device code that the Pallas sweeps inline:
 // pathtracer_tpu/kernels/dense.py:_chunk_t (watertight triangle, sphere,
 // rect, disk) and sweep_rowgroup (closest: min t, ties to min prim id;
-// any: first hit within tmax). dense_sweep.cu and tiles.cuh's walk (K3)
-// run them; walk.cuh's tests compute prim_t's bits from the compact sweep
-// table. A prim is 12 floats: ptype, valid, pa[3], pb[3],
+// any: first hit within tmax). dense_sweep.cu runs them, the independent
+// check of walk.cuh's tests, which compute prim_t's bits from the compact
+// sweep table. A prim is 12 floats: ptype, valid, pa[3], pb[3],
 // pc[3], pad (columns 0..11 of the packed [P_pad, 128] table row).
 #pragma once
 

@@ -25,23 +25,25 @@
 // device code is round_common.cuh, shared with the fused round.
 //
 // K3 reads a sample's shadow ray and tmax in place from the K2 rows and
-// writes one row, 1 where the ray is blocked; it walks the table with the
-// any-hit walk K34 runs inline, so the two agree lane for lane, and like K34
-// it sweeps only the lanes whose sample is worth a ray (the Pallas kernel
-// sweeps all and writes an 8-row block, 7 rows of it zero). K4 is K34's
-// finalize (finalize_lane, shared) with the masks read instead of swept. It
-// is bound by its bytes: the state in, the K2 rows, the out rows.
+// writes one row, 1 where the ray is blocked; it resolves the ray with the
+// any-hit walk K34 runs inline (walk::any_hit, one ray a lane), so the two
+// agree lane for lane, and like K34 it sweeps only the lanes whose sample is
+// worth a ray (the Pallas kernel sweeps all and writes an 8-row block, 7
+// rows of it zero). K4 is K34's finalize (finalize_lane, shared) with the
+// masks read instead of swept. It is bound by its bytes: the state in, the
+// K2 rows, the out rows.
 //
-// One thread runs one lane. The medium branch is the template parameter
-// MEDIUM of K12, K2, K34 and K4 (round_common.cuh): the surface
-// instantiations compile without it. The hit prim's record is an indexed
-// load of its prim_tab column through the read-only cache (the JAX
-// package's one-hot MXU fetch, _prim_attr_fetch). The JAX package skips
-// whole dead tiles; here each dead lane skips: K12 writes 0 to every K2 row
-// of a dead lane, K34 passes its state through, exactly as the plain twins
-// do. K1 skips dead lanes too (t = inf, id = -1 there), where the Pallas
-// rows sweep sweeps every lane. K2 sweeps nothing: it is bound by its state,
-// K2-row and table reads, about 0.6 KB per lane.
+// One thread runs one lane. The medium branch is the template parameter MEDIUM
+// of K12, K2, K34 and K4 (round_common.cuh): the surface instantiations compile
+// without it. The medium K12 and K2 at C = 4 are kernels of their own, capped
+// at MEDIUM_C4_BLOCKS blocks an SM. The hit prim's record is an indexed load of
+// its prim_tab column through the read-only cache (the JAX package's one-hot
+// MXU fetch, _prim_attr_fetch). The JAX package skips whole dead tiles; here
+// each dead lane skips: K12 writes 0 to every K2 row of a dead lane, K34 passes
+// its state through, exactly as the plain twins do. K1 skips dead lanes too (t
+// = inf, id = -1 there), where the Pallas rows sweep sweeps every lane. K2
+// sweeps nothing: it is bound by its state, K2-row and table reads, about 0.6
+// KB per lane.
 //
 // What bounds K12, K34, K1 and K3 on the H100: the sweeps' f32 operations,
 // as instructions issued. A live lane tests every prim of the table for its
@@ -54,34 +56,28 @@
 // twice its bound by operations.
 //
 // K12 (shade_sweep_kernel, replaces megakernel.py:_k12_call), K34
-// (finalize_sweep_kernel, replaces megakernel.py:_k34_call) and K1
-// (sweep_closest_rows_kernel, replaces dense.py:sweep_closest_rows) walk
-// the table through walk.cuh, the walk designed for this card: the compact
-// baked sweep table (64-byte rows, a rect's normal and edge norms
-// precomputed) is brought into shared memory by asynchronous bulk copies,
-// whole and once per block where it fits the residency budget, through a
-// ring of tiles otherwise; the ray's permutation, shear and reciprocals are
-// computed once per ray, not once per prim; and K34 tests each row against
-// two NEE samples' shadow rays of the lane at once (pairs of samples, in
-// order; the radiance is still summed in sample order), leaving the rows
-// per warp when no lane has a ray unresolved. K1's walk is K12's, the
-// closest hit of a live lane's ray, two rows a loop turn. K3 alone keeps
-// tiles.cuh's walk of the [P_pad, 128] table (256-prim tiles staged between
-// two block barriers, stopping when no shadow ray of the block is
-// unresolved): it runs only on the split round, the test route of K3 and
-// K4, and its mask equals K34's verdicts lane for lane, which holds the two
-// walks to each other.
+// (finalize_sweep_kernel, replaces megakernel.py:_k34_call), K1
+// (sweep_closest_rows_kernel, replaces dense.py:sweep_closest_rows) and K3
+// (sweep_any_rows_kernel, replaces dense.py:sweep_any_rows) walk the table
+// through walk.cuh, the walk designed for this card: the compact baked
+// sweep table (64-byte rows, a rect's normal and edge norms precomputed) is
+// brought into shared memory by asynchronous bulk copies, whole and once
+// per block where it fits the residency budget, through a ring of tiles
+// otherwise; the ray's permutation, shear and reciprocals are computed once
+// per ray, not once per prim; and K34 tests each row against two NEE
+// samples' shadow rays of the lane at once (pairs of samples, in order; the
+// radiance is still summed in sample order), leaving the rows per warp when
+// no lane has a ray unresolved. K1's walk is K12's, the closest hit of a
+// live lane's ray, two rows a loop turn; K3's is K34's for one ray a lane.
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
-#include "tiles.cuh"
 #include "walk.cuh"
 
 namespace {
 
 using namespace rc;
 using pt::V3;
-using tiles::TILE_P;
 
 constexpr int BLOCK = 128;
 constexpr int MAX_PRIMS = 8192;  // the megakernel gate
@@ -125,7 +121,14 @@ __global__ void __launch_bounds__(BLOCK) sweep_closest_rows_kernel(
 // medium-feed rows mf, a lane whose free flight ends before the hit
 // scatters there (NEE and continuation from the scatter point), and the
 // medium rows (scattered, lane weights, the stack after a crossing) are
-// written for every live lane
+// written for every live lane.
+//
+// Every row that all live lanes write is written where the warp is not
+// divided between scattered and surface lanes: the scatter flag and the
+// lane weights right after the free flight, the radiance once the emission
+// and environment adds are done (the NEE samples add nothing to it), the
+// stack rows after the branch; only the rows of the NEE and BSDF samples are
+// written inside it. The f32 operations and their order are the twin's
 template <int C, bool MEDIUM>
 __device__ __forceinline__ void shade_lane(
     bool live, float t_hit, int pid, const float* __restrict__ u,
@@ -149,21 +152,31 @@ __device__ __forceinline__ void shade_lane(
   const float kind = hit ? __ldg(prim + R_KIND * p_pad + pid) : 0.0f;
   MedLane<C> M;
   M.scattered = false;
-  if (MEDIUM) med_flight<C>(L, mf, N, i, hit, t_hit, M);
+  Surface<C> S;
+  if (MEDIUM) {
+    med_flight<C>(L, mf, N, i, hit, t_hit, M);
+    K(O_SCAT, M.scattered ? 1.0f : 0.0f);
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci) K(O_MEDW + ci, M.medw[ci]);
+    for (int ci = C; ci < C_LANES; ++ci) K(O_MEDW + ci, 1.0f);
+  }
   const bool scattered = MEDIUM && M.scattered;
   const bool at_surface = hit && kind != 2.0f && !scattered;
   const bool escaped = !hit && !scattered;
   if (escaped) escape_add<C>(L, spec, ef, N, i, a);
-  float stk[4];
-  if (MEDIUM)
-    unpack_stack(state[S_MSTK0 * N + i], state[S_MSTK1 * N + i], stk);
+  if (at_surface)
+    surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, tf, N, i, a,
+                  S);
+  // the radiance is final: the NEE samples add nothing to it
+#pragma unroll
+  for (int ci = 0; ci < C; ++ci) K(O_RAD + ci, L.rad[ci]);
+  for (int ci = C; ci < C_LANES; ++ci) K(O_RAD + ci, 0.0f);
 
   float shadow_ct = 0.0f;
+  // a transmission through a boundary of material S.mid, entering (to its
+  // inner side) or leaving: the tracked stack changes
+  bool cross = false, entering = false;
   if (at_surface || scattered) {
-    Surface<C> S;
-    if (at_surface)
-      surface_at<C>(L, prim, p_pad, pid, t_hit, kind, mat, spec, tf, N, i, a,
-                    S);
     for (int si = 0; si < ls; ++si) {
       NeeSample<C> r;
       nee_sample_m<C, MEDIUM>(L, S, M, si, U(3 * si), U(3 * si + 1),
@@ -185,9 +198,8 @@ __device__ __forceinline__ void shade_lane(
     Bounce<C> B;
     if (at_surface) {
       bsdf_sample<C>(S, U(3 * ls), U(3 * ls + 1), U(3 * ls + 2), a, B);
-      if (MEDIUM && B.wo_z * S.wi_local.z < 0.0f)
-        stack_cross(stk, B.wo_z < 0.0f, __ldg(mat + M_INNER * 128 + S.mid),
-                    __ldg(mat + M_OUTER * 128 + S.mid));
+      cross = MEDIUM && B.wo_z * S.wi_local.z < 0.0f;
+      entering = B.wo_z < 0.0f;
     } else {
       scatter_bounce<C>(mf, N, i, M, B);
     }
@@ -208,41 +220,38 @@ __device__ __forceinline__ void shade_lane(
     for (int r = O_FPDF; r < O_SCAT; ++r) K(r, 0.0f);
     for (int r = O_NEE; r < O_NEE + NEE_ROWS * ls; ++r) K(r, 0.0f);
   }
+  if (MEDIUM) {
+    // the packed stack rows, after a crossing
+    float stk[4];
+    unpack_stack(state[S_MSTK0 * N + i], state[S_MSTK1 * N + i], stk);
+    if (cross)
+      stack_cross(stk, entering, __ldg(mat + M_INNER * 128 + S.mid),
+                  __ldg(mat + M_OUTER * 128 + S.mid));
+    K(O_MSTK, stk[0] + 256.0f * stk[1]);
+    K(O_MSTK + 1, stk[2] + 256.0f * stk[3]);
+  }
   for (int ci = C; ci < C_LANES; ++ci) {
     K(O_RATIO + ci, 0.0f);
     K(O_PSCALE + ci, 0.0f);
   }
-#pragma unroll
-  for (int ci = 0; ci < C; ++ci) K(O_RAD + ci, L.rad[ci]);
-  for (int ci = C; ci < C_LANES; ++ci) K(O_RAD + ci, 0.0f);
   K(O_AT_SURF, at_surface ? 1.0f : 0.0f);
   K(O_ENV_CT, escaped ? 1.0f : 0.0f);
   K(O_SHADOW_CT, shadow_ct);
-  if (MEDIUM) {
-    K(O_SCAT, scattered ? 1.0f : 0.0f);
-#pragma unroll
-    for (int ci = 0; ci < C; ++ci) K(O_MEDW + ci, M.medw[ci]);
-    for (int ci = C; ci < C_LANES; ++ci) K(O_MEDW + ci, 1.0f);
-    K(O_MSTK, stk[0] + 256.0f * stk[1]);
-    K(O_MSTK + 1, stk[2] + 256.0f * stk[3]);
-  } else {
+  if (!MEDIUM)
     for (int r = O_SCAT; r < O_NEE; ++r) K(r, 0.0f);
-  }
   for (int r = O_NEE + NEE_ROWS * ls; r < nk2; ++r) K(r, 0.0f);
 }
 
 // K12: the closest hit, then the shading
 template <int C, bool MEDIUM>
-__global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
+__device__ __forceinline__ void shade_sweep_body(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ ef, const float* __restrict__ mf,
     float* __restrict__ k2, int n,
     const float* __restrict__ sweep, int p_rows, int resident_rows,
     const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
     const float* __restrict__ light, const float* __restrict__ spec,
-    const RoundArgs a) {
-  extern __shared__ __align__(128) float walk_rows[];
-  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+    const RoundArgs& a, float* walk_rows, uint64_t* walk_bars) {
   walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
                                    walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
@@ -261,20 +270,99 @@ __global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
 // K2: the shading from K1's rows tp [8, n] (t, prim id | -1), with the
 // texture-feed rows tf [tf_rows(C), n] (null: every reflectance baked)
 template <int C, bool MEDIUM>
-__global__ void __launch_bounds__(BLOCK) shade_kernel(
+__device__ __forceinline__ void shade_body(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ tp, const float* __restrict__ ef,
     const float* __restrict__ tf, const float* __restrict__ mf,
     float* __restrict__ k2, int n,
     const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
     const float* __restrict__ light, const float* __restrict__ spec,
-    const RoundArgs a) {
+    const RoundArgs& a) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
   const size_t N = (size_t)n;
   const bool live = state[S_ALIVE * N + i] > 0.5f;
   shade_lane<C, MEDIUM>(live, tp[i], live ? (int)tp[N + i] : -1, u, state, ef,
                         tf, mf, k2, N, i, prim, p_pad, mat, light, spec, a);
+}
+
+#define SHADE_SWEEP_PARAMS                                                   \
+  const float *__restrict__ u, const float *__restrict__ state,              \
+      const float *__restrict__ ef, const float *__restrict__ mf,            \
+      float *__restrict__ k2, int n, const float *__restrict__ sweep,        \
+      int p_rows, int resident_rows, const float *__restrict__ prim,         \
+      int p_pad, const float *__restrict__ mat,                              \
+      const float *__restrict__ light, const float *__restrict__ spec,       \
+      const RoundArgs a
+#define SHADE_SWEEP_ARGS                                                     \
+  u, state, ef, mf, k2, n, sweep, p_rows, resident_rows, prim, p_pad, mat,   \
+      light, spec, a
+#define SHADE_PARAMS                                                         \
+  const float *__restrict__ u, const float *__restrict__ state,              \
+      const float *__restrict__ tp, const float *__restrict__ ef,            \
+      const float *__restrict__ tf, const float *__restrict__ mf,            \
+      float *__restrict__ k2, int n, const float *__restrict__ prim,         \
+      int p_pad, const float *__restrict__ mat,                              \
+      const float *__restrict__ light, const float *__restrict__ spec,       \
+      const RoundArgs a
+#define SHADE_ARGS \
+  u, state, tp, ef, tf, mf, k2, n, prim, p_pad, mat, light, spec, a
+
+template <int C, bool MEDIUM>
+__global__ void __launch_bounds__(BLOCK) shade_sweep_kernel(
+    SHADE_SWEEP_PARAMS) {
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  shade_sweep_body<C, MEDIUM>(SHADE_SWEEP_ARGS, walk_rows, walk_bars);
+}
+
+template <int C, bool MEDIUM>
+__global__ void __launch_bounds__(BLOCK) shade_kernel(SHADE_PARAMS) {
+  shade_body<C, MEDIUM>(SHADE_ARGS);
+}
+
+// The medium instantiations at C = 4 are held to MEDIUM_C4_BLOCKS blocks an
+// SM (128 registers a thread): on an NVIDIA H100 80GB HBM3 (700 W), on the
+// fog box's third round at 1080 x 1080, K2 took 0.81 ms capped against
+// 1.17-1.22 at the three blocks of its uncapped 149-160 registers, K12 0.97
+// against 1.02-1.03, though the cap spills 48-56 bytes a thread. At C = 1
+// the cap (five blocks) gained nothing, and any cap, even of one block,
+// changes the code and the time of the instantiations it is put on, so the
+// others keep the plain bound
+constexpr int MEDIUM_C4_BLOCKS = 4;
+
+__global__ void __launch_bounds__(BLOCK, MEDIUM_C4_BLOCKS)
+    shade_sweep_kernel_c4_medium(SHADE_SWEEP_PARAMS) {
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  shade_sweep_body<4, true>(SHADE_SWEEP_ARGS, walk_rows, walk_bars);
+}
+
+__global__ void __launch_bounds__(BLOCK, MEDIUM_C4_BLOCKS)
+    shade_kernel_c4_medium(SHADE_PARAMS) {
+  shade_body<4, true>(SHADE_ARGS);
+}
+
+#undef SHADE_SWEEP_PARAMS
+#undef SHADE_SWEEP_ARGS
+#undef SHADE_PARAMS
+#undef SHADE_ARGS
+
+// the kernel functions of K12 and K2 at <C, MEDIUM>
+template <int C, bool MEDIUM>
+constexpr auto shade_sweep_fn() {
+  if constexpr (C == 4 && MEDIUM)
+    return &shade_sweep_kernel_c4_medium;
+  else
+    return &shade_sweep_kernel<C, MEDIUM>;
+}
+
+template <int C, bool MEDIUM>
+constexpr auto shade_fn() {
+  if constexpr (C == 4 && MEDIUM)
+    return &shade_kernel_c4_medium;
+  else
+    return &shade_kernel<C, MEDIUM>;
 }
 
 // the finalize of one live lane from its K2 rows and its radiance after the
@@ -392,12 +480,17 @@ __global__ void __launch_bounds__(BLOCK) finalize_sweep_kernel(
 // K3: whether anything blocks the ray read in place from rows row0 ..
 // row0 + 5 of src within (T_MIN, src[tmax_row]) -> out [1, n], 1 = blocked.
 // Only lanes whose row live_row is > 0.5 are swept (live_row < 0: all);
-// the others read 0
+// the others read 0. The sweep table as K34's; every thread of the block
+// reaches the walk (open_table's barrier, the walk's warp vote), a lane
+// with no ray to sweep passing want = false
 __global__ void __launch_bounds__(BLOCK) sweep_any_rows_kernel(
     const float* __restrict__ src, int row0, int tmax_row, int live_row,
-    const float* __restrict__ dense, int p_dense, float* __restrict__ out,
-    int n) {
-  __shared__ __align__(16) float prims[TILE_P * pt::PRIM_FLOATS];
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
+    float* __restrict__ out, int n) {
+  extern __shared__ __align__(128) float walk_rows[];
+  __shared__ uint64_t walk_bars[walk::RING_STAGES];
+  walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
+                                   walk_rows, walk_bars);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const size_t N = (size_t)n;
   const bool want =
@@ -408,8 +501,8 @@ __global__ void __launch_bounds__(BLOCK) sweep_any_rows_kernel(
     load_ray(src, N, i, row0, &so, &sd);
     tmax = src[tmax_row * N + i];
   }
-  const bool blocked =
-      tiles::any_hit_tiles(dense, p_dense, prims, want, so, sd, tmax);
+  bool blocked;
+  walk::any_hit<1>(T, &want, &so, &sd, &tmax, &blocked);
   if (i < n) out[i] = blocked ? 1.0f : 0.0f;
 }
 
@@ -469,11 +562,10 @@ struct LaunchShadeSweep {
   template <int C, bool MEDIUM>
   int operator()() const {
     const int smem = walk::shared_bytes(p_rows, resident_rows);
-    int rc = walk::allow_shared((const void*)shade_sweep_kernel<C, MEDIUM>,
-                                 smem);
+    const auto fn = shade_sweep_fn<C, MEDIUM>();
+    int rc = walk::allow_shared((const void*)fn, smem);
     if (rc != 0) return rc;
-    shade_sweep_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
-                                    stream>>>(
+    fn<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
         u, state, ef, mf, k2, n, sweep, p_rows, resident_rows, prim, p_pad,
         mat, light, spec, a);
     return (int)cudaGetLastError();
@@ -491,7 +583,7 @@ struct LaunchShade {
   cudaStream_t stream;
   template <int C, bool MEDIUM>
   int operator()() const {
-    shade_kernel<C, MEDIUM><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+    shade_fn<C, MEDIUM>()<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
         u, state, tp, ef, tf, mf, k2, n, prim, p_pad, mat, light, spec, a);
     return (int)cudaGetLastError();
   }
@@ -538,9 +630,9 @@ struct KernelOf {
   const void** fn;
   template <int C, bool MEDIUM>
   int operator()() const {
-    *fn = which == 0   ? (const void*)shade_sweep_kernel<C, MEDIUM>
+    *fn = which == 0   ? (const void*)shade_sweep_fn<C, MEDIUM>()
           : which == 1 ? (const void*)finalize_sweep_kernel<C, MEDIUM>
-          : which == 2 ? (const void*)shade_kernel<C, MEDIUM>
+          : which == 2 ? (const void*)shade_fn<C, MEDIUM>()
                        : (const void*)finalize_kernel<C, MEDIUM>;
     return 0;
   }
@@ -603,16 +695,20 @@ int sweep_closest_rows_launch(const float* src, int row0, int alive_row,
 }
 
 // K3: src (rays in rows row0 .. row0 + 5, tmax in row tmax_row, the lanes
-// to sweep flagged in row live_row, or live_row < 0 for all), dense
-// [p_dense, 128] -> out [1, n]
+// to sweep flagged in row live_row, or live_row < 0 for all), sweep
+// [p_rows, 16] (as K34's) -> out [1, n]
 int sweep_any_rows_launch(const float* src, int row0, int tmax_row,
-                          int live_row, const float* dense, int p_dense,
-                          float* out, int n, cudaStream_t stream) {
+                          int live_row, const float* sweep, int p_rows,
+                          int resident_rows, float* out, int n,
+                          cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (p_dense > MAX_PRIMS) return (int)cudaErrorInvalidValue;
+  if (!walk_ok(p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
+  const int smem = walk::shared_bytes(p_rows, resident_rows);
+  int rc = walk::allow_shared((const void*)sweep_any_rows_kernel, smem);
+  if (rc != 0) return rc;
   int grid = (n + BLOCK - 1) / BLOCK;
-  sweep_any_rows_kernel<<<grid, BLOCK, 0, stream>>>(
-      src, row0, tmax_row, live_row, dense, p_dense, out, n);
+  sweep_any_rows_kernel<<<grid, BLOCK, smem, stream>>>(
+      src, row0, tmax_row, live_row, sweep, p_rows, resident_rows, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -676,25 +772,27 @@ int two_prog_attrs(int which, int c, int* regs, int* local_bytes) {
   return attrs(fn, regs, local_bytes);
 }
 
-// the shared memory of one block of K12 (which 0) or K34 (1; + 8: the medium
-// instantiation) at C lanes, or of K1 (3; c unread), walking a table of
-// p_rows rows: its static bytes, the dynamic bytes the launcher asks for,
-// and the blocks of it one SM holds at once
+// the shared memory of one block of K12 (which 0), K34 (1) or K2 (2; + 8:
+// the medium instantiation) at C lanes, or of K1 (3) or K3 (5; c unread),
+// walking a table of p_rows rows (K2 walks none): its static bytes, the
+// dynamic bytes the launcher asks for, and the blocks of it one SM holds at
+// once
 int walk_shared_bytes(int which, int c, int p_rows, int resident_rows,
                       int* static_bytes, int* dynamic_bytes,
                       int* blocks_per_sm) {
   const int k = which & 7;
-  if ((k > 1 && k != 3) || !walk_ok(p_rows, resident_rows))
+  if (k == 4 || k > 5 || !walk_ok(p_rows, resident_rows))
     return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)sweep_closest_rows_kernel;
-  if (k != 3) {
+  const void* fn = k == 3 ? (const void*)sweep_closest_rows_kernel
+                          : (const void*)sweep_any_rows_kernel;
+  if (k < 3) {
     RoundArgs a{};
     a.c_lanes = c;
     a.medium = (which & 8) ? 1 : 0;
     int rc = dispatch(a, KernelOf{k, &fn});
     if (rc != 0) return rc;
   }
-  *dynamic_bytes = walk::shared_bytes(p_rows, resident_rows);
+  *dynamic_bytes = k == 2 ? 0 : walk::shared_bytes(p_rows, resident_rows);
   return walk::occupancy(fn, BLOCK, *dynamic_bytes, static_bytes,
                          blocks_per_sm);
 }

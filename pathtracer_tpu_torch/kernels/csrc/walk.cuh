@@ -1,5 +1,5 @@
-// The table walks of the round kernels designed for the H100: K12, K34 and
-// K1 (two_prog_round.cu), the fused round (fused_round.cu), K12-LT and
+// The table walks of the round kernels designed for the H100: K12, K34, K1
+// and K3 (two_prog_round.cu), the fused round (fused_round.cu), K12-LT and
 // K34-LT v2 and v1 (lt_round.cu). A compact baked sweep table in shared
 // memory, brought there by the TMA unit's asynchronous bulk copies, and a
 // walk that computes what depends only on the ray once per ray and what
@@ -10,8 +10,8 @@
 // n[3], bb and cc (zeros for other prims). Every f32 expression below is
 // sweep.cuh:prim_t's with its operands, order and rounding (the library is
 // built with --fmad=false and IEEE divide and sqrt), so a walk returns the
-// bits of prim_t's walks: dense_sweep.cu's and tiles.cuh's (K3's), which
-// stay on prim_t as the independent check of these.
+// bits of prim_t's walks: dense_sweep.cu's, which stays on prim_t as the
+// independent check of these.
 // What is not in the per-prim loop here:
 //   - the triangle test's axis permutation, sheared direction, 1/dz and the
 //     permuted origin are RayTerms of the ray; the prim's vertices are

@@ -6,7 +6,7 @@ The packed primitive table is the JAX package's `[P_pad, 128]` f32 layout
 zero. Rays are `[8, N]` rows: origin (3), direction (3), tmin, tmax.
 `pack_sweep_np` packs the same prims as `[P_pad, 16]` rows with a rect's
 normal and edge norms baked in: the table that the round kernels walk in
-shared memory (`csrc/walk.cuh`), K1 among them.
+shared memory (`csrc/walk.cuh`), K1 and K3 among them.
 
 `sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
 on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
@@ -17,7 +17,8 @@ state and writes `[8, N]` rows (t, prim id); its kernel is in
 `sweep_closest_rows_plain` the packed table.
 `sweep_any_rows` (K3 of the split round) reads each lane's shadow ray and
 its tmax in place from the K2 rows and writes the blocked mask; its kernel
-is in the same file, its twin `sweep_any_rows_plain`. The closest hit is the
+is in the same file and walks the sweep table too, its twin
+`sweep_any_rows_plain` the packed table. The closest hit is the
 minimum t, ties to the minimum prim id, exactly as the JAX sweep reduces its
 chunks.
 """
@@ -336,6 +337,12 @@ def _check(rays, tab, rows=8):
         raise ValueError(f"unsupported device {rays.device}")
 
 
+# why a CUDA tensor's rows sweep (K1, K3) is refused without the sweep table
+_NO_SWEEP = ("the CUDA kernel walks the sweep table: pass sweep= "
+             "(MegaScene.sweep_tab, baked by bake_mega_scene, or "
+             "pack_sweep_np of the prims)")
+
+
 def check_sweep(sweep, tab):
     """The compact sweep table packed beside the dense table `tab`: f32,
     contiguous, [tab rows, SWEEP_COLS], on tab's device."""
@@ -397,9 +404,7 @@ def sweep_closest_rows(src, tab, row0: int, alive_row: int, sweep=None):
     if src.device.type == "cpu":
         return sweep_closest_rows_plain(src, tab, row0, alive_row)
     if sweep is None:
-        raise ValueError("the CUDA kernel walks the sweep table: pass "
-                         "sweep= (MegaScene.sweep_tab, baked by "
-                         "bake_mega_scene, or pack_sweep_np of the prims)")
+        raise ValueError(_NO_SWEEP)
     from pathtracer_tpu_torch.kernels import _build
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
@@ -419,11 +424,13 @@ def sweep_closest_rows(src, tab, row0: int, alive_row: int, sweep=None):
 
 
 def sweep_any_rows(src, tab, row0: int, tmax_row: int,
-                   live_row: int | None = None):
+                   live_row: int | None = None, sweep=None):
     """K3: the any-hit sweep of the rays read in place from rows of src
     (the K2 rows: one NEE sample's shadow ray at row0 .. row0 + 5, its tmax
     at tmax_row) -> [1, N] f32, 1 = blocked: the CUDA kernel on a CUDA
-    tensor, the plain twin on a CPU tensor.
+    tensor, the plain twin on a CPU tensor. The kernel walks `sweep`, the
+    compact table packed beside `tab`, as K1 does (see
+    `sweep_closest_rows`); the twin reads `tab`.
 
     The Pallas kernel writes an [8, N] block whose rows 1-7 are zero, an
     alignment device of its compiler; the port writes row 0 alone. The
@@ -438,9 +445,14 @@ def sweep_any_rows(src, tab, row0: int, tmax_row: int,
     if not all(0 <= r < src.shape[0] for r in rows):
         raise ValueError(f"rows {row0}..{row0 + 5}, {tmax_row} and "
                          f"{live_row} are not all in src [{src.shape[0]}, N]")
+    if sweep is not None:
+        check_sweep(sweep, tab)
     if src.device.type == "cpu":
         return sweep_any_rows_plain(src, tab, row0, tmax_row, live_row)
+    if sweep is None:
+        raise ValueError(_NO_SWEEP)
     from pathtracer_tpu_torch.kernels import _build
+    from pathtracer_tpu_torch.kernels import megakernel as mk
 
     out = torch.empty((1, src.shape[1]), dtype=torch.float32,
                       device=src.device)
@@ -448,8 +460,9 @@ def sweep_any_rows(src, tab, row0: int, tmax_row: int,
     rc = _build.library().sweep_any_rows_launch(
         ctypes.c_void_p(src.data_ptr()), row0, tmax_row,
         -1 if live_row is None else live_row,
-        ctypes.c_void_p(tab.data_ptr()), tab.shape[0],
-        ctypes.c_void_p(out.data_ptr()), src.shape[1], ctypes.c_void_p(stream))
+        ctypes.c_void_p(sweep.data_ptr()), sweep.shape[0],
+        mk.SWEEP_RESIDENT_ROWS, ctypes.c_void_p(out.data_ptr()),
+        src.shape[1], ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"sweep_any_rows: CUDA error {rc} "
                            f"({_build.error_string(rc)})")

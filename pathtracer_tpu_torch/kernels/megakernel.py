@@ -28,9 +28,9 @@ counter rows. A round takes one of three routes, as the JAX package's
   normal and edge norms baked in) from shared memory (`csrc/walk.cuh`):
   whole where it has at most `SWEEP_RESIDENT_ROWS` rows, else through a
   ring of tiles. The fused round walks it too (always whole: at most 128
-  rows), and so do K1 and the light tracer's K12-LT and K34-LT
-  (`kernels/lt_mega.py`), at the same budget; K3 (the split round's) and
-  every twin read `dense_tab`.
+  rows), and so do K1, K3 and the light tracer's K12-LT and K34-LT
+  (`kernels/lt_mega.py`), at the same budget; every twin reads
+  `dense_tab`.
 
 `stepper="split"` runs every scene of the gate through the split round
 instead (`split_round`, the JAX package's five-program pipeline): K1 ->
@@ -163,8 +163,8 @@ NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
 
 MEGA_MAX_PRIMS = 8192  # the megakernel gate
 # The kernels that walk the sweep table from dynamic shared memory (K12,
-# K34, K1, K12-LT, K34-LT) keep a table of at most this many rows whole in
-# a block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
+# K34, K1, K3, K12-LT, K34-LT) keep a table of at most this many rows whole
+# in a block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
 # costs none of the six 128-thread blocks an SM holds of K12 and K34 (the
 # ring takes 24 KB). A larger table goes through the ring of csrc/walk.cuh:
 # on the card a resident table that cut the blocks to two ran 1.6-1.8x
@@ -2269,8 +2269,8 @@ def split_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     rows sweep of each NEE sample's shadow ray, read in place from the K2
     rows) and K4 on the K34 block (stream 1). It takes every scene of the
     gate and writes what the scene's default round writes, bit for bit."""
-    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE,
-                            _sweep_tab(scene))
+    sweep = _sweep_tab(scene)
+    tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE, sweep)
     u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
     tf = (tex_feed(scene.tex, state, tp, a.c_lanes)
           if scene.tex is not None else None)
@@ -2279,7 +2279,7 @@ def split_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     for si in range(a.light_samples):
         row0 = O_NEE + NEE_ROWS * si
         blks.append(sweep_any_rows(k2, scene.dense_tab, row0, row0 + 6,
-                                   live_row=row0 + 7))
+                                   live_row=row0 + 7, sweep=sweep))
     u34 = uniforms.round(it, NU4, state.shape[1], state.device, stream=1)
     return finalize(u34, state, k2, blks, scene, a), k2
 

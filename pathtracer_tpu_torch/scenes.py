@@ -537,6 +537,25 @@ def nested_media(b, spectral):
     return b
 
 
+def _fog_and_haze(b, spectral, fog_centre, fog_radius, haze_centre,
+                  haze_radius):
+    """`fog_cornell`'s two media, each in a ball behind a near-index-matched
+    boundary: the forward-scattering HG fog (g 0.6, σ_a 0.3, σ_s = 1.5 +
+    6e5 / λ²) and the Rayleigh haze (σ_s ∝ λ⁻⁴)."""
+    fog = b.add_medium_hg(
+        b.add_curve(spectral.FlatCurve(0.6), name="fog_g"),
+        b.add_curve(spectral.CauchyCurve(1.5, 600000.0), name="fog_ss"),
+        b.add_curve(spectral.FlatCurve(0.3), name="fog_sa"), name="fog")
+    haze = b.add_medium_rayleigh(
+        b.add_curve(spectral.FlatCurve(1.5), name="haze_ior"), 1.2e7,
+        name="haze")
+    b.add_sphere(fog_centre, fog_radius,
+                 _boundary(b, spectral, fog, "fog_shell"))
+    b.add_sphere(haze_centre, haze_radius,
+                 _boundary(b, spectral, haze, "haze_shell"))
+    return b
+
+
 def fog_cornell(b, spectral):
     """The Cornell box holding two overlapping balls of participating media
     behind near-index-matched boundaries: a forward-scattering HG fog
@@ -547,14 +566,17 @@ def fog_cornell(b, spectral):
     z = 0.7 and 0.85, where the tracked stack is two deep. It stands in for
     a Cornell box with media whose scene file is not in the repository."""
     cornell_box(b, spectral)
-    fog = b.add_medium_hg(
-        b.add_curve(spectral.FlatCurve(0.6), name="fog_g"),
-        b.add_curve(spectral.CauchyCurve(1.5, 600000.0), name="fog_ss"),
-        b.add_curve(spectral.FlatCurve(0.3), name="fog_sa"), name="fog")
-    haze = b.add_medium_rayleigh(
-        b.add_curve(spectral.FlatCurve(1.5), name="haze_ior"), 1.2e7,
-        name="haze")
-    b.add_sphere([0.5, 0.5, 0.55], 0.3, _boundary(b, spectral, fog, "fog_shell"))
-    b.add_sphere([0.5, 0.5, 1.0], 0.3,
-                 _boundary(b, spectral, haze, "haze_shell"))
-    return b
+    return _fog_and_haze(b, spectral, [0.5, 0.5, 0.55], 0.3, [0.5, 0.5, 1.0],
+                         0.3)
+
+
+def textured_fog(b, spectral):
+    """`textured_cornell` holding `fog_cornell`'s two media, scaled to its
+    [-1, 1]^3 box: the HG fog in a ball of radius 0.5 left of the middle
+    (clear of the textured sphere, icosahedron and disk) and the Rayleigh
+    haze in a ball of radius 0.55 around the whole ceiling light,
+    overlapping between z = 0.45 and 0.7. Under medium-aware settings the texture-feed
+    round's K2 then takes the texture feed and the medium feed together."""
+    textured_cornell(b, spectral)
+    return _fog_and_haze(b, spectral, [-0.2, 0.0, 0.2], 0.5, [0.0, 0.0, 1.0],
+                         0.55)

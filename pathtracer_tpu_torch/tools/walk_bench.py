@@ -1,28 +1,39 @@
 """Times of K12 (`shade_sweep`) and K34 (`finalize_sweep`) on the card, on a
 first round's inputs from one camera spawn at 1080 x 1080 (the mesh at
 256 x 256), by sweep-table size and residency budget; with `--rounds`, of
-the fused round, K1 and the light tracer's kernels too.
+the fused round, K1, K3, the medium instantiations of K2 and K12 and the
+light tracer's kernels too.
 
     python -m pathtracer_tpu_torch.tools.walk_bench
     python -m pathtracer_tpu_torch.tools.walk_bench --cases none \
-        --rounds fused,k1,lt
+        --rounds fused,k1,k3,k2m,lt
 
 Cases: the gem (352 table rows), a finer gem (1,312 rows: 82 KB, resident
 only with the opt-in above 48 KB), the mesh (5,152 rows, always the ring)
 and the medium-aware fog box (32 rows). Each case runs at each residency
-budget of `--budgets` that changes its staging (0 forces the ring). K1 and K3
-(which keeps the older walk of the [P_pad, 128] table) are timed beside them
-on the same rays. Prints one JSON line per case and budget, each with the
-card's name and power limit; CUDA events around `--reps` launches after a
-warm-up.
+budget of `--budgets` that changes its staging (0 forces the ring). K1 and
+K3 are timed beside them on the same rays. Prints one JSON line per case
+and budget, each with the card's name and power limit; CUDA events around
+`--reps` launches after a warm-up.
 
 `--rounds fused`: the fused round on the chip scene (1080 x 1080, a first
 round's inputs, C = 1 and 4); `--rounds k1`: K1 on the textured box and the
 gem (1080 x 1080, a first round's inputs), the table resident and through
-the ring; `--rounds lt`: K12-LT and K34-LT on a second round's inputs at
-2^20 lanes (chip_lens v2 at 1 and 2 camera samples, the HDR blob v1), as
-chip_smoke.py times them. With the registers and spill bytes of each
-kernel, and where the tree reports them its shared bytes and blocks per SM.
+the ring; `--rounds k3`: K3 on each NEE sample of the gem's first-round K2
+rows and of the fog box's third-round rows (1080 x 1080), resident and
+through the ring, with each mask's digest and the kernel's device time from
+torch.profiler (the fog box's kernel is shorter than the host's time a
+launch); `--rounds k2m`: on the fog box's third-round inputs (1080 x 1080,
+C = 1 and 4) the medium instantiations of K2 and K12, and their surface
+instantiations on the same lanes, with the digest of each kernel's rows and
+the share of scattered lanes; `--rounds lt`: K12-LT and K34-LT on a second
+round's inputs at 2^20 lanes (chip_lens v2 at 1 and 2 camera samples, the
+HDR blob v1), as chip_smoke.py times them. With the registers and spill
+bytes of each kernel, and where the tree reports them its shared bytes and
+blocks per SM. The k3 and k2m rounds chain their rounds through the plain
+twins, so that every tree times its kernels on the same inputs: `--against
+FILE` reads the lines another tree printed (a parent's) and says of each
+digest whether the rows are equal bit for bit.
 
 The script also runs on a tree from before a kernel's move onto the
 shared-memory walk (copy it there): it then times that tree's kernel, under
@@ -32,6 +43,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
+import hashlib
 import inspect
 import json
 import subprocess
@@ -66,6 +79,24 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps, name):
+    """Mean device milliseconds of the kernel launches whose names contain
+    `name` in `reps` calls of `fn` (torch.profiler): a kernel shorter than
+    its wrapper's host time is timed without the host's gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name)
+    return us / reps / 1e3
 
 
 def blocks_per_sm(which, c, rows, budget, fn_name="walk_shared_bytes"):
@@ -107,6 +138,167 @@ def k1(state, scene):
     kw = dict(sweep=scene.sweep_tab) if k1_on_walk() else {}
     return dense.sweep_closest_rows(state, scene.dense_tab, mk.S_O,
                                     mk.S_ALIVE, **kw)
+
+
+def k3_on_walk():
+    """Whether this tree's K3 walks the sweep table (takes `sweep=`)."""
+    return "sweep" in inspect.signature(dense.sweep_any_rows).parameters
+
+
+def k3(k2, scene, si):
+    """K3 on NEE sample si of a K2 block, on the table this tree's kernel
+    walks."""
+    row0 = mk.O_NEE + mk.NEE_ROWS * si
+    kw = dict(sweep=scene.sweep_tab) if k3_on_walk() else {}
+    return dense.sweep_any_rows(k2, scene.dense_tab, row0, row0 + 6,
+                                live_row=row0 + 7, **kw)
+
+
+WIDTH = 1080  # the film width of the k3 and k2m rounds' lanes
+# case -> a line another tree printed (--against)
+AGAINST: dict = {}
+
+
+def emit(rec):
+    """Print one line of the k3 or k2m round; with --against, say of each
+    digest whether it equals the other tree's for the same case."""
+    other = AGAINST.get(rec["case"])
+    if other is not None:
+        for key in ("mask", "rows"):
+            if key in rec and key in other:
+                rec[f"{key}_equal_to_against"] = rec[key] == other[key]
+    print(json.dumps(rec), flush=True)
+
+
+def digest(x):
+    """sha256 of a tensor's bytes (its bits), for comparing trees."""
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def occupancy(which, c, regs, rows=32):
+    """Blocks an SM holds of K12 (0), K2 (2) or K3 (5) (+ 8 medium) at C
+    lanes, from the tree's own report where it makes one, else from the
+    registers alone (128-thread blocks, 65,536 registers an SM, allocated
+    8 a thread at a time)."""
+    try:
+        return blocks_per_sm(which, c, rows, mk.SWEEP_RESIDENT_ROWS)[1]
+    except RuntimeError:
+        return 65536 // (-(-regs // 8) * 8 * 128)
+
+
+def fog_rounds(dev, c, rounds=2):
+    """The fog box under medium-aware settings at C lanes: (world, camera,
+    settings, scene, round args, state) after `rounds` rounds chained
+    through the plain twins from one camera spawn (the inputs of round
+    rounds + 1, the same bits in every tree)."""
+    world = scenes.fog_cornell(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    s = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
+                   russian_roulette=True, hwss=c == 4, medium_aware=True)
+    scene = mk.build_mega_scene(world, camera, dev, s)
+    a = mk.RoundArgs.make(scene.consts, s, WIDTH, WIDTH)
+    n = WIDTH * WIDTH
+    n_pad = -(-n // mk.TILE) * mk.TILE
+    gen = torch.Generator(device=dev).manual_seed(71 + c)
+    state, _ = mk.mega_init(
+        camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+        n_pad, 16)
+    tabs = mk._tables(scene)
+    for _ in range(rounds):
+        u12 = torch.rand((mk.n_u_rows(2, True), n_pad), generator=gen,
+                         device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        mf = mk.med_feed(scene.med, state, u12, 2, c)
+        k2 = mk.shade_sweep_plain(u12, state, a=a, mf=mf, **tabs)
+        state = mk.finalize_sweep_plain(u34, state, k2, scene.dense_tab,
+                                        a)[:mk.NS].contiguous()
+    return world, camera, s, scene, a, state, gen
+
+
+def bench_k3(dev, smi, reps):
+    """K3 on each NEE sample of the gem's first-round K2 rows (the twin's,
+    from one camera spawn) and of the fog box's third-round K2 rows, at
+    1080 x 1080, resident and through the ring."""
+    n = WIDTH * WIDTH
+    n_pad = -(-n // mk.TILE) * mk.TILE
+    regs, local = attrs("two_prog_attrs", 5, 1)
+    world = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    s = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
+                   russian_roulette=True)
+    gem = mk.build_mega_scene(world, camera, dev, s)
+    a = mk.RoundArgs.make(gem.consts, s, WIDTH, WIDTH)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    state, _ = mk.mega_init(
+        camera, torch.rand((n_pad, 5), generator=gen, device=dev), a, n,
+        n_pad, 8)
+    u12 = torch.rand((mk.n_u_rows(2), n_pad), generator=gen, device=dev)
+    gem_k2 = mk.shade_sweep_plain(u12, state, a=a, **mk._tables(gem))
+    _, _, _, fog, a, state, gen = fog_rounds(dev, 1)
+    u12 = torch.rand((mk.n_u_rows(2, True), n_pad), generator=gen,
+                     device=dev)
+    mf = mk.med_feed(fog.med, state, u12, 2, 1)
+    fog_k2 = mk.shade_sweep_plain(u12, state, a=a, mf=mf, **mk._tables(fog))
+    budget0 = mk.SWEEP_RESIDENT_ROWS
+    for name, scene, k2 in (("gem", gem, gem_k2), ("fog", fog, fog_k2)):
+        rows = int(scene.sweep_tab.shape[0])
+        stagings = ((("resident", budget0), ("ring", rows - 1))
+                    if k3_on_walk() else (("tiles", None),))
+        for staging, budget in stagings:
+            if budget is not None:
+                mk.SWEEP_RESIDENT_ROWS = budget
+            for si in range(2):
+                worth = k2[mk.O_NEE + mk.NEE_ROWS * si + 7] > 0.5
+                blk = k3(k2, scene, si)
+                rec = dict(case=f"k3_{name}_sample{si}", rows=rows,
+                           lanes=n_pad, card=smi, walk=staging,
+                           budget_rows=budget, worth=int(worth.sum()),
+                           blocked=int(blk.sum()), mask=digest(blk),
+                           k3_ms=cuda_ms(lambda: k3(k2, scene, si), reps),
+                           k3_device_ms=device_ms(
+                               lambda: k3(k2, scene, si), reps,
+                               "sweep_any_rows_kernel"),
+                           regs=regs, local_bytes=local)
+                if budget is not None:
+                    rec["shared_bytes"], rec["blocks_per_sm"] = \
+                        blocks_per_sm(5, 1, rows, budget)
+                emit(rec)
+            mk.SWEEP_RESIDENT_ROWS = budget0
+
+
+def bench_k2m(dev, smi, reps):
+    """The medium instantiations of K2 and K12 on the fog box's third-round
+    inputs at 1080 x 1080 (C = 1 and 4), and their surface instantiations
+    on the same lanes (the scene baked without medium-aware settings)."""
+    for c in (1, 4):
+        world, camera, s, scene, a, state, gen = fog_rounds(dev, c)
+        n_pad = state.shape[1]
+        u12 = torch.rand((mk.n_u_rows(2, True), n_pad), generator=gen,
+                         device=dev)
+        mf = mk.med_feed(scene.med, state, u12, 2, c)
+        tp = k1(state, scene)
+        s_surf = dataclasses.replace(s, medium_aware=False)
+        surf = mk.build_mega_scene(world, camera, dev, s_surf)
+        a_surf = mk.RoundArgs.make(surf.consts, s_surf, WIDTH, WIDTH)
+        runs = dict(
+            k2_medium=(lambda: mk.shade(u12, state, tp, scene, a, None, None,
+                                        mf), 2 + 8),
+            k12_medium=(lambda: mk.shade_sweep(u12, state, scene, a, None,
+                                               mf), 0 + 8),
+            k2_surface=(lambda: mk.shade(u12, state, tp, surf, a_surf), 2),
+            k12_surface=(lambda: mk.shade_sweep(u12, state, surf, a_surf),
+                         0))
+        live = state[mk.S_ALIVE] > 0.5
+        for name, (fn, which) in runs.items():
+            k2 = fn()
+            regs, local = attrs("two_prog_attrs", which, c)
+            rec = dict(case=f"{name}_fog_C{c}", lanes=n_pad, c_lanes=c,
+                       card=smi, live=int(live.sum()),
+                       scattered=int((k2[mk.O_SCAT] > 0.5).sum()),
+                       rows=digest(k2), ms=cuda_ms(fn, reps), regs=regs,
+                       local_bytes=local,
+                       blocks_per_sm=occupancy(which, c, regs))
+            emit(rec)
 
 
 def bench_fused(dev, smi, reps):
@@ -231,7 +423,10 @@ def main():
     ap.add_argument("--cases", default="gem,gem_fine,mesh,fog",
                     help="K12/K34 cases, comma-separated, or none")
     ap.add_argument("--rounds", default="",
-                    help="fused, k1 and/or lt, comma-separated")
+                    help="fused, k1, k3, k2m and/or lt, comma-separated")
+    ap.add_argument("--against", default=None,
+                    help="a file of the lines another tree printed: compare "
+                    "the digests of the k3 and k2m rounds with its own")
     ap.add_argument("--budgets", default="576,0,1408")
     ap.add_argument("--c-lanes", type=int, default=1)
     ap.add_argument("--light-samples", type=int, default=2)
@@ -246,10 +441,16 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     c, ls = args.c_lanes, args.light_samples
+    if args.against:
+        with open(args.against) as f:
+            for line in f:
+                if line.startswith("{"):
+                    rec = json.loads(line)
+                    AGAINST[rec.get("case")] = rec
     for name in args.rounds.split(","):
         if name:
-            dict(fused=bench_fused, k1=bench_k1, lt=bench_lt)[name](
-                dev, smi, args.reps)
+            dict(fused=bench_fused, k1=bench_k1, k3=bench_k3, k2m=bench_k2m,
+                 lt=bench_lt)[name](dev, smi, args.reps)
     for name in args.cases.split(","):
         if name == "none":
             continue
@@ -300,19 +501,17 @@ def main():
                     rec[f"{key}_shared_bytes"] = dyn
                     rec[f"{key}_blocks_per_sm"] = blocks
             print(json.dumps(rec), flush=True)
-        # on the same rays: K1 (at the default budget), and K3, on the
-        # older walk, on each NEE sample
+        # on the same rays: K1 (at the default budget), and K3 on each NEE
+        # sample
         if new_walk:
             mk.SWEEP_RESIDENT_ROWS = budgets[0]
         rec = dict(case=name, rows=rows, card=smi,
                    k1_walk="sweep_tab" if k1_on_walk() else "tiles",
                    k1_ms=cuda_ms(lambda: k1(state, scene), args.reps))
+        rec["k3_walk"] = "sweep_tab" if k3_on_walk() else "tiles"
         for si in range(ls):
-            row0 = mk.O_NEE + mk.NEE_ROWS * si
-            rec[f"k3_sample{si}_ms"] = cuda_ms(
-                lambda: dense.sweep_any_rows(k2, scene.dense_tab, row0,
-                                             row0 + 6, live_row=row0 + 7),
-                args.reps)
+            rec[f"k3_sample{si}_ms"] = cuda_ms(lambda: k3(k2, scene, si),
+                                               args.reps)
         print(json.dumps(rec), flush=True)
 
 

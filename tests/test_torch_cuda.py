@@ -22,13 +22,12 @@ blob and the Sun scene, and for K2 (shade) and K34 of the texture-feed
 round on the textured Cornell box, each chained over three rounds; and for the
 medium instantiations of K12, K2, K34 and K4 and the split round's K3
 (sweep_any_rows: mask equal) and K4 (finalize) on the fog and nested media
-scenes. Every round kernel but K3 walks the compact sweep table from
-shared memory (csrc/walk.cuh). K12 and K34 are held to their twins with the
-table resident and through the ring of tiles (a table one row over the
+scenes. Every round kernel that sweeps walks the compact sweep table from
+shared memory (csrc/walk.cuh). K12, K34 and K3 are held to their twins with
+the table resident and through the ring of tiles (a table one row over the
 residency budget, and the 41 tiles of the mesh), the two bit for bit equal
-to each other, at 1, 2 and 3 NEE samples; and the split round, whose K3
-keeps the older walk of the [P_pad, 128] table, renders the film of the
-two-program round. The polygon-aperture respawn and the
+to each other, at 1, 2 and 3 NEE samples; and the split round renders the
+film of the two-program round. The polygon-aperture respawn and the
 direct-only cut, which no recipe reaches, have a case each (fused round,
 K12, K34)."""
 
@@ -223,9 +222,10 @@ def test_walk_resident_and_ring_match_plain(dev, monkeypatch, recipe, cam,
     sweep table resident in shared memory (where it fits) and through the
     ring (the budget set one row under the table, so the gem's 352 rows
     cycle three tiles through the three stages; the mesh's 5,152 rows 41
-    tiles); the ring's rows equal the resident table's bit for bit. With no
-    light samples K34 walks nothing, and must leave no copy of the table in
-    flight."""
+    tiles); the ring's rows equal the resident table's bit for bit. K3 on
+    each NEE sample of K12's rows, resident and through the ring too, its
+    mask equal to the twin's on every lane. With no light samples K34 walks
+    nothing, and must leave no copy of the table in flight."""
     world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
     cam = make_projective_camera(**getattr(scenes, cam), device=dev)
     s = PTSettings(max_bounces=12, light_samples=ls, hwss=c_lanes == 4,
@@ -251,14 +251,24 @@ def test_walk_resident_and_ring_match_plain(dev, monkeypatch, recipe, cam,
                          device=dev)
         u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
         mf = mk.med_feed(scene.med, sk, u12, ls, c_lanes) if medium else None
-        k2s, outs = [], []
+        k2s, outs, blks = [], [], []
         for budget in budgets:
             monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
             k2s.append(mk.shade_sweep(u12, sk, scene, a, None, mf))
             outs.append(mk.finalize_sweep(u34, sk, k2s[0], scene, a))
+            blks.append([dense.sweep_any_rows(
+                k2s[0], scene.dense_tab, mk.O_NEE + mk.NEE_ROWS * si,
+                mk.O_NEE + mk.NEE_ROWS * si + 6,
+                live_row=mk.O_NEE + mk.NEE_ROWS * si + 7,
+                sweep=scene.sweep_tab) for si in range(ls)])
         torch.cuda.synchronize()
         assert all(torch.equal(k2s[0], x) for x in k2s[1:])
         assert all(torch.equal(outs[0], x) for x in outs[1:])
+        for si in range(ls):
+            row0 = mk.O_NEE + mk.NEE_ROWS * si
+            twin = dense.sweep_any_rows_plain(k2s[0], scene.dense_tab, row0,
+                                              row0 + 6, row0 + 7)
+            assert all(torch.equal(b[si], twin) for b in blks)
         k2p = mk.shade_sweep_plain(u12, sk, a=a, mf=mf, **mk._tables(scene))
         frac, close = match_rows(k2s[0], k2p, k2_disc)
         assert frac >= 0.9999 and close
@@ -322,11 +332,10 @@ def test_round_options_kernels_match_plain(dev, case):
 
 @pytest.mark.parametrize("budget", ["resident", "ring"])
 def test_split_film_equals_two_prog_film_on_the_gem(dev, monkeypatch, budget):
-    """The split round (K1 on the shared-memory walk, K3 on the older walk
-    of the [P_pad, 128] table) renders, from the same uniforms, the film of
-    the two-program round (K12 and K34 on the shared-memory walk): every
-    closest hit and every shadow verdict of a render agree between the
-    routes, K3's against K34's from the two walks."""
+    """The split round (K1 and K3) renders, from the same uniforms, the
+    film of the two-program round (K12 and K34): every closest hit and every
+    shadow verdict of a render agree between the routes, K3's one ray a walk
+    against K34's two."""
     from pathtracer_tpu_torch.renderer.persistent import render_regen
 
     world = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
@@ -390,15 +399,21 @@ def test_rows_sweep_kernel_matches_plain(dev, monkeypatch, table, budget):
 
 
 @pytest.mark.parametrize("c_lanes", [1, 4])
-def test_texfeed_kernels_match_plain(dev, c_lanes):
+@pytest.mark.parametrize("recipe", ["textured_cornell", "textured_fog"])
+def test_texfeed_kernels_match_plain(dev, recipe, c_lanes):
     """K1, K2 and K34 of the texture-feed round against their twins over
     three chained rounds of the textured Cornell box, each fed by the
-    texture feed of its own hit rows."""
-    world = scenes.textured_cornell(SceneBuilder(), spectral).build(dev)
+    texture feed of its own hit rows; `textured_fog` under medium-aware
+    settings, K2's and K34's medium instantiations fed the medium feed
+    too (its lanes scatter from the second round on)."""
+    medium = recipe == "textured_fog"
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
     cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device=dev)
-    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4)
-    scene = mk.build_mega_scene(world, cam, dev)
+    s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4,
+                   medium_aware=medium)
+    scene = mk.build_mega_scene(world, cam, dev, s)
     assert scene.tex is not None and not mk.fused_ok(scene)
+    assert (scene.med is not None) == medium
     a = mk.RoundArgs.make(scene.consts, s, 128, 128)
     n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -406,10 +421,13 @@ def test_texfeed_kernels_match_plain(dev, c_lanes):
                                             device=dev), a, 128 * 128,
                             n_pad, 4)
     sk = sp = state
-    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.O4_BOUNCE_CT,
-            mk.O4_CAMERA_CT]
+    disc = [mk.S_ALIVE, mk.S_BOUNCE, mk.S_DONE, mk.S_MSTK0, mk.S_MSTK1,
+            mk.O4_BOUNCE_CT, mk.O4_CAMERA_CT]
+    k2_disc = k2_discrete(2) + [mk.O_SCAT, mk.O_MSTK, mk.O_MSTK + 1]
+    scattered = 0
     for _ in range(3):
-        u12 = torch.rand((mk.n_u_rows(2), n_pad), generator=gen, device=dev)
+        u12 = torch.rand((mk.n_u_rows(2, medium), n_pad), generator=gen,
+                         device=dev)
         u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
         launches = (dense.ROWS_LAUNCHES, mk.K2_LAUNCHES)
         tpk = dense.sweep_closest_rows(sk, scene.dense_tab, mk.S_O,
@@ -423,39 +441,55 @@ def test_texfeed_kernels_match_plain(dev, c_lanes):
         assert torch.allclose(tpk[0][hit], tpp[0][hit], rtol=1e-5, atol=0.0)
         tfk = mk.tex_feed(scene.tex, sk, tpk, c_lanes)
         tfp = mk.tex_feed(scene.tex, sp, tpp, c_lanes)
-        k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk)
+        mfk = mk.med_feed(scene.med, sk, u12, 2, c_lanes) if medium else None
+        mfp = mk.med_feed(scene.med, sp, u12, 2, c_lanes) if medium else None
+        k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk, mf=mfk)
         k2p = mk.shade_plain(u12, sp, tpp, scene.prim_tab, scene.mat_tab,
-                             scene.light_tab, scene.spec_tab, a, None, tfp)
+                             scene.light_tab, scene.spec_tab, a, None, tfp,
+                             mfp)
         assert (dense.ROWS_LAUNCHES, mk.K2_LAUNCHES) == (launches[0] + 1,
                                                          launches[1] + 1)
-        frac, close = match_rows(k2k, k2p, k2_discrete(2))
+        frac, close = match_rows(k2k, k2p, k2_disc)
+        assert frac >= 0.9999 and close
+        # K2 on the kernels' own inputs against its twin on the same inputs
+        frac, close = match_rows(k2k, mk.shade_plain(
+            u12, sk, tpk, scene.prim_tab, scene.mat_tab, scene.light_tab,
+            scene.spec_tab, a, None, tfk, mfk), k2_disc)
         assert frac >= 0.9999 and close
         ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
         op = mk.finalize_sweep_plain(u34, sp, k2p, scene.dense_tab, a)
         frac, close = match_rows(ok, op, disc)
         assert frac >= 0.9999 and close
+        scattered += int(k2k[mk.O_SCAT].sum())
         sk, sp = ok[:mk.NS], op[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()
+    assert (scattered > 0) == medium
 
 
-@pytest.mark.parametrize("recipe,cam,c_lanes,medium", [
-    ("fog_cornell", "CORNELL_CAMERA", 1, True),
-    ("fog_cornell", "CORNELL_CAMERA", 4, True),
-    ("nested_media", "MEDIUM_CAMERA", 1, True),
-    ("gem_cornell", "CORNELL_CAMERA", 4, False)])
-def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
-                                              medium):
+@pytest.mark.parametrize("recipe,cam,c_lanes,medium,budget", [
+    ("fog_cornell", "CORNELL_CAMERA", 1, True, "resident"),
+    ("fog_cornell", "CORNELL_CAMERA", 4, True, "resident"),
+    ("fog_cornell", "CORNELL_CAMERA", 1, True, "ring"),
+    ("nested_media", "MEDIUM_CAMERA", 1, True, "resident"),
+    ("gem_cornell", "CORNELL_CAMERA", 4, False, "resident"),
+    ("gem_cornell", "CORNELL_CAMERA", 1, False, "ring")])
+def test_split_and_medium_kernels_match_plain(dev, monkeypatch, recipe, cam,
+                                              c_lanes, medium, budget):
     """Three chained rounds, medium-aware or not: K12 and K34 (their medium
     instantiations where `medium`) and the split round's K1, K2, K3 and K4
     against their twins; K3's mask equal to its twin's on every lane; and
     the split round's K2 rows and out rows equal to K12's and K34's bit for
-    bit."""
+    bit. The walking kernels take the sweep table resident, or through the
+    ring with the budget one row under it."""
     world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
     cam = make_projective_camera(**getattr(scenes, cam), device=dev)
     s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4,
                    medium_aware=medium)
     scene = mk.build_mega_scene(world, cam, dev, s)
     assert (scene.med is not None) == medium
+    if budget == "ring":
+        monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS",
+                            scene.sweep_tab.shape[0] - 1)
     a = mk.RoundArgs.make(scene.consts, s, 128, 128)
     n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -494,7 +528,8 @@ def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
         for si in range(2):
             row0 = mk.O_NEE + mk.NEE_ROWS * si
             blk = dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6,
-                                       live_row=row0 + 7)
+                                       live_row=row0 + 7,
+                                       sweep=scene.sweep_tab)
             assert torch.equal(blk, dense.sweep_any_rows_plain(
                 k2s, scene.dense_tab, row0, row0 + 6, row0 + 7))
             assert not blk[0][k2s[row0 + 7] <= 0.5].any()
@@ -511,11 +546,15 @@ def test_split_and_medium_kernels_match_plain(dev, recipe, cam, c_lanes,
         sk = ok[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()
     assert (scattered > 0) == (recipe == "fog_cornell")
-    # every lane swept when no worth row is named
+    # every lane swept when no worth row is named; and no walk without the
+    # sweep table
     row0 = mk.O_NEE
     assert torch.equal(
-        dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6),
+        dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6,
+                             sweep=scene.sweep_tab),
         dense.sweep_any_rows_plain(k2s, scene.dense_tab, row0, row0 + 6))
+    with pytest.raises(ValueError, match="sweep"):
+        dense.sweep_any_rows(k2s, scene.dense_tab, row0, row0 + 6)
 
 
 def lt_budgets(scene):

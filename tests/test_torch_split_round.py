@@ -6,8 +6,9 @@ must write the out rows and K2 rows that `two_prog_round` (or
 `texfeed_round` for uv-textured scenes) writes from the same state and
 uniforms, bit for bit, on the Cornell box, the gem, the textured Cornell
 box (also under medium-aware settings: K2 then takes the texture and the
-medium feed together), a textured sphere under the Sun and the medium-aware
-`fog_cornell`; and a render with
+medium feed together, with no medium in the box and with `textured_fog`'s
+two), a textured sphere under the Sun and the medium-aware `fog_cornell`;
+and a render with
 `stepper="split"` must equal the default render from the same seed, film
 and counters (the JAX package's test_mega_2prog_bitidentical_3prog, one
 step further). Exact because K2 shares `_shade` with K12, K3's twin is the
@@ -47,7 +48,8 @@ torch.set_num_threads(2)
 # (recipe, C, medium-aware)
 CASES = [("cornell", 1, False), ("gem", 4, False), ("textured", 1, False),
          ("fog_cornell", 4, True), ("fog_cornell", 1, True),
-         ("textured_sun", 4, False), ("textured", 1, True)]
+         ("textured_sun", 4, False), ("textured", 1, True),
+         ("textured_fog", 4, True), ("textured_fog", 1, True)]
 IDS = [f"{r}-C{c}" + ("-medium" if m else "") for r, c, m in CASES]
 
 
@@ -153,6 +155,10 @@ def test_k3_k4_wrappers_on_cpu():
     # an 8-row block, as the Pallas K3 writes, is read at row 0
     wide = [torch.cat([b, torch.ones((7, n_pad))]) for b in blks]
     assert torch.equal(tm.finalize(u34, state, k2, wide, scene, a), o4)
+    # the sweep table the kernel walks changes nothing on the CPU route
+    assert torch.equal(tdense.sweep_any_rows(
+        k2, scene.dense_tab, tm.O_NEE, tm.O_NEE + 6, live_row=tm.O_NEE + 7,
+        sweep=scene.sweep_tab), blks[0])
     # every lane swept without a worth row: a superset of the masked sweep
     full = tdense.sweep_any_rows(k2, scene.dense_tab, tm.O_NEE, tm.O_NEE + 6)
     assert (full >= blks[0]).all()

@@ -150,11 +150,30 @@ def lt_scenes():
 
 
 @pytest.mark.parametrize("how", ["stale", "cols", "dtype", "strided"])
-@pytest.mark.parametrize("wrapper", ["k1", "lt_v2", "lt_v1"])
+@pytest.mark.parametrize("wrapper", ["k1", "k3", "lt_v2", "lt_v1"])
 def test_wrappers_refuse_a_bad_sweep_tab(lt_scenes, wrapper, how):
-    """K1 (`dense.sweep_closest_rows`) and K34-LT v2 and v1 check the sweep
-    table they would walk before the device branch: on CPU tensors, where
-    the twins read the dense table, a stale or mis-shaped one is refused."""
+    """K1 (`dense.sweep_closest_rows`), K3 (`dense.sweep_any_rows`) and
+    K34-LT v2 and v1 check the sweep table they would walk before the device
+    branch: on CPU tensors, where the twins read the dense table, a stale or
+    mis-shaped one is refused, and the baked one gives the twin's rows."""
+    if wrapper == "k3":
+        scene = lt_scenes[True].tabs
+        gen = torch.Generator().manual_seed(9)
+        k2 = torch.rand((mk.k2_rows(1), 64), generator=gen)
+        k2[mk.O_NEE + 3:mk.O_NEE + 6] -= 0.5
+        k2[mk.O_NEE + 6] *= 4.0
+        rows = (mk.O_NEE, mk.O_NEE + 6, mk.O_NEE + 7)
+        bad = bad_sweep(scene.sweep_tab, how)
+        with pytest.raises((ValueError, TypeError), match="sweep_tab"):
+            dense.sweep_any_rows(k2, scene.dense_tab, *rows, sweep=bad)
+        calls = dense.ANY_ROWS_PLAIN_CALLS
+        out = dense.sweep_any_rows(k2, scene.dense_tab, *rows,
+                                   sweep=scene.sweep_tab)
+        assert dense.ANY_ROWS_PLAIN_CALLS == calls + 1
+        assert torch.equal(out, dense.sweep_any_rows_plain(
+            k2, scene.dense_tab, *rows))
+        assert out.any() and not out[0][k2[rows[2]] <= 0.5].any()
+        return
     if wrapper == "k1":
         scene = lt_scenes[True].tabs
         state = torch.zeros((mk.NS, 64))

@@ -115,14 +115,15 @@ def test_gate_takes_textures_where_jax_does():
 
 
 @pytest.fixture(scope="module", params=[("textured", 1), ("textured", 4),
-                                        ("textured_sun", 1)],
-                ids=["C1", "C4", "sun_C1"])
+                                        ("textured_sun", 1),
+                                        ("textured_fog", 4)],
+                ids=["C1", "C4", "sun_C1", "fog_C4"])
 def rounds(request):
     tile, sub = jm.TILE, jm.SUB
     jm.TILE, jm.SUB = 1024, 8
     try:
         recipe, c = request.param
-        yield chained_texfeed(recipe, c)
+        yield chained_texfeed(recipe, c, medium=recipe == "textured_fog")
     finally:
         jm.TILE, jm.SUB = tile, sub
 
@@ -159,8 +160,7 @@ def test_tex_feed_matches_jax(rounds, r, lut, monkeypatch):
     if not lut:
         monkeypatch.setattr(jm, "TEX_LUT_MAX_TEXELS", 0)
         monkeypatch.setattr(tm, "TEX_LUT_MAX_TEXELS", 0)
-        recipe = "textured_sun" if x["scene"].env is not None else "textured"
-        ref, got = _bakes(recipe)
+        ref, got = _bakes(x["recipe"])
         feed = got.tex
         assert feed.lut is None
         jtf = np.asarray(jm._tex_feed(ref.tex_args, x["jin"], x["jtp"], c))
@@ -176,18 +176,26 @@ def test_tex_feed_matches_jax(rounds, r, lut, monkeypatch):
 @pytest.mark.parametrize("r", [0, 1], ids=["round1", "round2"])
 def test_k2_matches_jax(rounds, r):
     """shade_plain on the JAX state, hit rows and feed rows, and K2 of the
-    port's own chain, against the JAX _k2_call."""
+    port's own chain, against the JAX _k2_call. Under medium-aware settings
+    (`textured_fog`) K2 takes the medium feed beside the texture feed, and
+    the sampled pdf is held as test_torch_medium_round.py holds it."""
     x = rounds[r]
     scene, a = x["scene"], x["a"]
     state = torch.as_tensor(x["jin"])
     u12 = x["u12"]
     ef = (tm.env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
           if scene.env is not None else None)
+    mf = (tm.med_feed(scene.med, state, u12, a.light_samples, a.c_lanes)
+          if scene.med is not None else None)
     k2 = tm.shade_plain(u12, state, torch.as_tensor(x["jtp"]),
                         scene.prim_tab, scene.mat_tab, scene.light_tab,
-                        scene.spec_tab, a, ef, torch.as_tensor(x["jtf"]))
+                        scene.spec_tab, a, ef, torch.as_tensor(x["jtf"]), mf)
     ls = NEE_SETTINGS["light_samples"]
-    check_k2(x["jk2"], k2.numpy(), x["alive"], ls)
-    check_k2(x["jk2"], x["k2"], x["alive"], ls)
-    # the textured surfaces are shaded with the fed reflectance
+    fpdf_rtol = 5e-3 if a.medium else 1e-4
+    check_k2(x["jk2"], k2.numpy(), x["alive"], ls, fpdf_rtol)
+    check_k2(x["jk2"], x["k2"], x["alive"], ls, fpdf_rtol)
+    # the textured surfaces are shaded with the fed reflectance; the camera
+    # spawns in vacuum, so lanes scatter from the second round on
     assert x["k2"][tm.O_AT_SURF].sum() > 0
+    if a.medium and r == 1:
+        assert x["k2"][tm.O_SCAT].sum() > 0

@@ -77,6 +77,7 @@ RECIPES = {
     "sun": (scenes.sun_sphere, scenes.SPHERE_CAMERA),
     "textured": (scenes.textured_cornell, scenes.TEXTURED_CAMERA),
     "textured_sun": (scenes.textured_sun, scenes.SPHERE_CAMERA),
+    "textured_fog": (scenes.textured_fog, scenes.TEXTURED_CAMERA),
     "chip_lens": (scenes.chip_lens, scenes.CHIP_LENS_CAMERA),
     "spike_box": (scenes.spike_box, scenes.SPIKE_CAMERA),
     "absorbing_sphere": (scenes.absorbing_sphere, scenes.MEDIUM_CAMERA),
@@ -328,31 +329,35 @@ def jax_rows_sweep(state, dense_tab, consts):
         chunk_types=consts.get("ct8"))
 
 
-def chained_texfeed(recipe, c_lanes, rounds=2, width=32, spp=4):
+def chained_texfeed(recipe, c_lanes, rounds=2, width=32, spp=4,
+                    medium=False):
     """`rounds` texture-feed rounds of the JAX package (K1
     `sweep_closest_rows`, `_tex_feed`, `_k2_call`, `_k34_call`; interpret
     mode) and of the port's plain twins (`sweep_closest_rows`, `tex_feed`,
-    `shade`, `finalize_sweep`, after `env_feed` for a Sun environment), each
-    chained on its own state from the JAX initial state, with the uniform
-    blocks the JAX calls draw. Returns per round a dict: the jax state going
-    in (jin) and its K12 uniform block (u12), jax/port hit rows (tp),
-    texture-feed rows (tf) and K2 rows, the alive mask going in, the jax
-    state, the port out (with the K2 counter rows, as check_round reads
-    them) and the jax counter delta, and the port scene and round args."""
+    `shade`, `finalize_sweep`, after `env_feed` for a Sun environment and
+    `med_feed` under medium-aware settings), each chained on its own state
+    from the JAX initial state, with the uniform blocks the JAX calls draw.
+    Returns per round a dict: the jax state going in (jin) and its K12
+    uniform block (u12), jax/port hit rows (tp), texture-feed rows (tf) and
+    K2 rows, the alive mask going in, the jax state, the port out (with the
+    K2 counter rows, as check_round reads them) and the jax counter delta,
+    and the port scene and round args."""
     jw, tw, jc, tc = both_worlds(recipe)
-    js, ts = both_settings(**NEE_SETTINGS, hwss=c_lanes == 4)
+    js, ts = both_settings(**NEE_SETTINGS, hwss=c_lanes == 4,
+                           medium_aware=medium)
     n = width * width
     n_pad = -(-n // tm.TILE) * tm.TILE
     jscene = jm.build_mega_scene(jw, jc, js)
     st_t = jax_settings_t(js, c_lanes, width, width, n)
     ct_t = jm._freeze(jscene.consts)
     tabs = (jscene.prim_tab, jscene.dense_tab, jscene.mat_tab,
-            jscene.light_tab, jscene.spec_tab, jscene.env_args, None, None)
+            jscene.light_tab, jscene.spec_tab, jscene.env_args,
+            jscene.med_args, None)
     key = jax.random.PRNGKey(3)
     k_iter = sampling.fold(key, 2)
     state, counters = jm._mega_init(jc, key, st_t, n, n_pad,
                                     jnp.float32(spp))
-    tscene = tm.build_mega_scene(tw, tc)
+    tscene = tm.build_mega_scene(tw, tc, settings=ts)
     a = tm.RoundArgs.make(tscene.consts, ts, width, width)
     tstate = torch.as_tensor(np.array(state))
     replay = JaxReplay(key)
@@ -371,11 +376,14 @@ def chained_texfeed(recipe, c_lanes, rounds=2, width=32, spp=4):
                                            True)
         tp = tdense.sweep_closest_rows(tstate, tscene.dense_tab, tm.S_O,
                                        tm.S_ALIVE)
-        u12 = replay.round(r, tm.n_u_rows(a.light_samples), n_pad, "cpu", 0)
+        u12 = replay.round(r, tm.n_u_rows(a.light_samples, a.medium), n_pad,
+                           "cpu", 0)
         ef = (tm.env_feed(tscene.env, tstate, u12, a.light_samples, c_lanes)
               if tscene.env is not None else None)
+        mf = (tm.med_feed(tscene.med, tstate, u12, a.light_samples, c_lanes)
+              if tscene.med is not None else None)
         tf = tm.tex_feed(tscene.tex, tstate, tp, c_lanes)
-        k2 = tm.shade(u12, tstate, tp, tscene, a, ef, tf)
+        k2 = tm.shade(u12, tstate, tp, tscene, a, ef, tf, mf)
         out = tm.finalize_sweep(replay.round(r, tm.NU4, n_pad, "cpu", 1),
                                 tstate, k2, tscene, a)
         tstate = out[:tm.NS]
@@ -383,7 +391,7 @@ def chained_texfeed(recipe, c_lanes, rounds=2, width=32, spp=4):
         out[tm.O4_SHADOW_CT] = k2[tm.O_SHADOW_CT].numpy()
         out[tm.O4_ENV_CT] = k2[tm.O_ENV_CT].numpy()
         out_rounds.append(dict(
-            jin=jin, u12=u12, scene=tscene, a=a,
+            recipe=recipe, jin=jin, u12=u12, scene=tscene, a=a,
             jtp=np.array(jtp), tp=tp.numpy(), jtf=np.array(jtf),
             tf=tf.numpy(), jk2=np.asarray(jk2), k2=k2.numpy(), alive=alive,
             state=np.asarray(state), out=out,
