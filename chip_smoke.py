@@ -11,7 +11,16 @@ multi-chunk gem stand-in at 1080x1080, 8 spp, the 5,120-triangle mesh at
 1080x1080, 2 spp, and the HDR blob environment at 512x512, 16 spp; and the
 texture-feed round (K1 `sweep_closest_rows`, the torch texture feed, K2
 `shade`, K34) on the uv-textured Cornell box at 1080x1080, 16 spp, whose
-checker wall must come out resolved. Films go to `output/`. Then the
+checker wall must come out resolved. Then the regen integrator without
+kernels (`integrator/pt_regen.py`), whose closest-hit and shadow queries
+launch `dense_sweep.cu`'s two kernels: the gem at 1080x1080, 8 spp with
+`use_megakernel=False` (its film within rtol 0.03 of the two-program
+film, its counters within 0.08), `light_grid_cornell` (25 lights, outside
+the megakernel's gate) at 1080x1080, 16 spp through the default route
+(its film within 0.02 of `cornell_box`'s through the megakernel) and the
+fog box at 512x512, 4 spp, medium-aware (within 0.05 of the medium
+route's), with both sweep kernels held to their twins on the gem render's
+own first camera and shadow rays. Films go to `output/`. Then the
 dispersive hero-wavelength furnace and the HDR furnace must come out
 uniform. Last, the light tracer: three chained rounds of K12-LT and K34-LT
 (v2: in-kernel spawn, on the chip scene with its lens proxy at 1 and 2
@@ -925,6 +934,17 @@ def phase_texfeed(torch, dev, width):
     return res
 
 
+def device_spans(torch, prof):
+    """(start ns, end ns, name) of every device activity (kernels, copies)
+    of a finished torch.profiler run, read from the profiler's kineto
+    results: building its Python event tree takes minutes for the millions
+    of host ops of a torch-chain render."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
+
+
 def device_kernels(torch, fn, with_ms=False):
     """The device kernels (and copies) one call of `fn` launches, from
     torch.profiler; `with_ms`: and their device time in ms."""
@@ -935,31 +955,32 @@ def device_kernels(torch, fn, with_ms=False):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = device_spans(torch, prof)
     if with_ms:
-        return len(spans), sum(t.end - t.start for t in spans) / 1e3
+        return len(spans), sum(t1 - t0 for t0, t1, _ in spans) / 1e6
     return len(spans)
 
 
-def busy_profile(torch, fn, prefixes=()):
+def busy_profile(torch, fn, prefixes=(), host_ops=True):
     """One call of `fn` (which must end by waiting for the card) under
     torch.profiler -> the profiled wall, the device time, the device's busy
     time (the union of the kernel intervals) and share, the device kernels,
     the eight kernels with the most device time, and the device time of the
-    kernels whose names contain one of `prefixes`."""
+    kernels whose names contain one of `prefixes`. `host_ops` False traces
+    the device alone: tracing every host op of a render of millions of
+    small launches slows its wall by more than half."""
     from torch.profiler import ProfilerActivity, profile as profiler
 
-    with profiler(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profiler(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted(device_spans(torch, prof))
     busy, end, by_name = 0.0, float("-inf"), {}
     for t0_, t1_, name in spans:
+        t0_, t1_ = t0_ / 1e3, t1_ / 1e3
         busy += max(0.0, t1_ - max(t0_, end))
         end = max(end, t1_)
         by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
@@ -979,7 +1000,8 @@ def busy_profile(torch, fn, prefixes=()):
 def reset_counts(mk, dense, lt=None):
     mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
     mk.K2_LAUNCHES = mk.K4_LAUNCHES = mk.PLAIN_CALLS = 0
-    dense.LAUNCHES = dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
+    dense.CLOSEST_LAUNCHES = dense.ANY_LAUNCHES = 0
+    dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
     dense.ANY_ROWS_LAUNCHES = dense.ANY_ROWS_PLAIN_CALLS = 0
     if lt is not None:
         lt.SHADE_LAUNCHES = lt.FINALIZE_SPAWN_LAUNCHES = 0
@@ -1069,7 +1091,203 @@ def phase_render_two_prog(torch, dev, recipe, cam, width, spp, max_bounces,
          mean_y=mean_y, peak_gb=peak_gb,
          launches=counts, exr=os.path.relpath(exr, ROOT),
          png=os.path.relpath(png, ROOT), **extra)
-    return dict(counts, rounds=rounds)
+    return dict(counts, rounds=rounds,
+                film_mean=film_h.double().mean(dim=(0, 1)).tolist(),
+                counters=profile_counts(profile))
+
+
+def profile_counts(profile):
+    return [profile.camera_rays, profile.bounce_rays, profile.shadow_rays,
+            profile.light_rays, profile.env_hits]
+
+
+def close_rel(a, b, rtol):
+    """Whether every element of a is within rtol of b's (b's zeros exact)."""
+    return all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b))
+
+
+def regen_rays(torch, world, camera, settings, width, spp, seed):
+    """The ray rows that one round of pt_trace_regen hands the dense sweep
+    kernels: the first closest-hit query's (the camera rays) and the first
+    shadow query's (the first NEE sample's), each with its table."""
+    from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
+
+    got = {}
+    real = dense.sweep_closest, dense.sweep_any
+
+    def grab(name, fn):
+        def wrapped(rays, tab):
+            got.setdefault(name, (rays.clone(), tab))
+            return fn(rays, tab)
+        return wrapped
+
+    dense.sweep_closest = grab("closest", real[0])
+    dense.sweep_any = grab("any", real[1])
+    try:
+        gen = torch.Generator(device=world.prims.pa.device).manual_seed(seed)
+        pt_trace_regen(world, camera, settings, width, width, spp,
+                       TorchUniforms(gen), max_rounds=1)
+    finally:
+        dense.sweep_closest, dense.sweep_any = real
+    return got
+
+
+def dense_vs_plain(torch, rays, tab, closest):
+    """A dense sweep kernel against its plain twin on the same rays: the
+    ids (closest) or the masks (any) must be equal and t within rtol 1e-5
+    (the sweep phase's check) -> the record with ms, plain ms and bound."""
+    from pathtracer_tpu_torch.kernels import dense
+
+    n = int(rays.shape[1])
+    fn = dense.sweep_closest if closest else dense.sweep_any
+    twin = dense.sweep_closest_plain if closest else dense.sweep_any_plain
+    k, p = fn(rays, tab), twin(rays, tab)
+    torch.cuda.synchronize()
+    if closest:
+        hit = p[1] >= 0
+        check(torch.equal(k[1], p[1]), "dense_sweep_closest: prim ids "
+              f"differ from the twin on {int((k[1] != p[1]).sum())} rays")
+        check(torch.allclose(k[0][hit], p[0][hit], rtol=1e-5, atol=0.0),
+              "dense_sweep_closest: t differs beyond rtol 1e-5")
+        err = float((k[0][hit] - p[0][hit]).abs().max()) if hit.any() \
+            else 0.0
+        b = bound(n * sweep_ops(tab), F32 * (10 * n + dense_floats(tab)))
+        frac = float(hit.float().mean())
+    else:
+        check(torch.equal(k, p), "dense_sweep_any: masks differ from the "
+              f"twin on {int((k != p).sum())} rays")
+        err = float((k - p).abs().max())
+        blocked = int(k.sum())
+        # an unblocked ray tests every prim, a blocked one at least the
+        # cheapest single test
+        b = bound((n - blocked) * sweep_ops(tab) + blocked * min(PRIM_OPS),
+                  F32 * (9 * n + dense_floats(tab)))
+        frac = blocked / n
+    ms = cuda_ms(torch, lambda: fn(rays, tab), 10)
+    plain_ms = cuda_ms(torch, lambda: twin(rays, tab), 2)
+    return dict(rays=n, prims=int(tab.shape[0]), max_abs_err=err,
+                hit_or_blocked_frac=frac, ms=ms, plain_ms=plain_ms,
+                bound=b)
+
+
+def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
+                       fog_width, fog_spp):
+    """The regen integrator without kernels (integrator/pt_regen.py) through
+    render_regen: the gem (use_megakernel=False; its film held to the
+    megakernel film of the same size and spp), light_grid_cornell(n=5)
+    (outside the gate: the default route must take it; its film held to
+    cornell_box's through the megakernel, the same radiance field) and the
+    fog box under medium-aware settings (held to the medium route's film).
+    Every closest-hit query launches dense_sweep_closest and every shadow
+    query dense_sweep_any, once a round and once a round per light sample;
+    the two kernels are held to their twins on the gem render's own first
+    camera rays and first shadow rays."""
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    def render(world, camera, settings, w, spp, seed, use=None, stats=None):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return render_regen(world, camera, settings, w, w, spp, generator=g,
+                            device=dev, stats=stats, use_megakernel=use)
+
+    def regen_case(name, world, camera, settings, w, spp, use):
+        reset_counts(mk, dense)
+        stats = {}
+        film, profile, elapsed = render(world, camera, settings, w, spp,
+                                        2026, use, stats)
+        ls = settings.light_samples
+        counts = dict(dense_sweep_closest=dense.CLOSEST_LAUNCHES,
+                      dense_sweep_any=dense.ANY_LAUNCHES,
+                      round_kernels=(mk.FUSED_LAUNCHES + mk.SHADE_LAUNCHES
+                                     + mk.K2_LAUNCHES + dense.ROWS_LAUNCHES),
+                      plain_calls=(mk.PLAIN_CALLS + dense.ROWS_PLAIN_CALLS
+                                   + dense.ANY_ROWS_PLAIN_CALLS))
+        rounds = stats["rounds"]
+        check(stats["route"] == "regen", f"{name}: route {stats['route']}")
+        check(counts["dense_sweep_closest"] == rounds > 0
+              and counts["dense_sweep_any"] == ls * rounds
+              and counts["round_kernels"] == counts["plain_calls"] == 0,
+              f"{name}: launches {counts} for {rounds} rounds")
+        film_h = film.cpu()
+        check(bool(torch.isfinite(film_h).all()), f"{name}: non-finite film")
+        check(float(film_h[..., 1].mean()) > 0.0, f"{name}: film is black")
+        exr, png = output_film(film_h, f"{name}_regen_{w}", Reinhard0(),
+                               output_dir=os.path.join(ROOT, "output"))
+        rec = dict(width=w, spp=spp, rounds=rounds, launches=counts,
+                   wall_s=elapsed,
+                   mrays_per_s=profile.total_rays / elapsed / 1e6,
+                   counters=profile_counts(profile),
+                   film_mean=film_h.double().mean(dim=(0, 1)).tolist(),
+                   png=os.path.relpath(png, ROOT))
+        if w == width:
+            _, warm, warm_s = render(world, camera, settings, w, spp, 2027,
+                                     use)
+            rec.update(warm_wall_s=warm_s,
+                       warm_mrays_per_s=warm.total_rays / warm_s / 1e6,
+                       **busy_profile(torch, lambda: render(
+                           world, camera, settings, w, spp, 2028, use),
+                           prefixes=("sweep_kernel<",), host_ops=False))
+            rec["sweep_share_of_device_ms"] = (rec["round_kernels_ms"]
+                                               / rec["device_ms"])
+        return rec
+
+    res = {}
+    # the gem: against its megakernel film
+    world, camera, settings, _ = _scene(torch, dev, "gem_cornell",
+                                        "CORNELL_CAMERA", 1, 12)
+    rays = regen_rays(torch, world, camera, settings, width, gem_spp, 2026)
+    res["kernels_on_regen_rays"] = {
+        "dense_sweep_closest": dense_vs_plain(torch, *rays["closest"], True),
+        "dense_sweep_any": dense_vs_plain(torch, *rays["any"], False)}
+    gem = regen_case("gem_cornell", world, camera, settings, width, gem_spp,
+                     False)
+    check(close_rel(gem["film_mean"], gem_mega["film_mean"], 0.03),
+          f"gem: regen film mean {gem['film_mean']} not within 0.03 of the "
+          f"megakernel's {gem_mega['film_mean']}")
+    check(close_rel(gem["counters"], gem_mega["counters"], 0.08),
+          f"gem: regen counters {gem['counters']} not within 0.08 of the "
+          f"megakernel's {gem_mega['counters']}")
+    res["gem_cornell"] = dict(gem, megakernel_film_mean=gem_mega["film_mean"])
+    # the light grid (25 lights: outside the gate) against cornell_box
+    grid = scenes.light_grid_cornell(SceneBuilder(), spectral, 5).build(dev)
+    check(not mk.mega_available(grid, camera, settings),
+          "light_grid_cornell(n=5) is inside the megakernel's gate")
+    res["light_grid_cornell"] = regen_case("light_grid_cornell", grid, camera,
+                                           settings, width, grid_spp, None)
+    box = scenes.cornell_box(SceneBuilder(), spectral).build(dev)
+    stats = {}
+    film, _, _ = render(box, camera, settings, width, grid_spp, 2029,
+                        None, stats)
+    check(stats["route"] == "megakernel", "cornell_box left the megakernel")
+    box_mean = film.double().mean(dim=(0, 1)).tolist()
+    check(close_rel(res["light_grid_cornell"]["film_mean"], box_mean, 0.02),
+          f"light grid: film mean {res['light_grid_cornell']['film_mean']} "
+          f"not within 0.02 of cornell_box's {box_mean}")
+    res["light_grid_cornell"]["cornell_box_megakernel_film_mean"] = box_mean
+    # the fog box, medium-aware, against the medium route
+    world, camera, settings = _medium_scene(torch, dev, "fog_cornell",
+                                            "CORNELL_CAMERA", 1)[:3]
+    fog = regen_case("fog_cornell", world, camera, settings, fog_width,
+                     fog_spp, False)
+    stats = {}
+    film, _, _ = render(world, camera, settings, fog_width, fog_spp, 2029,
+                        None, stats)
+    check(stats["route"] == "megakernel", "fog_cornell left the megakernel")
+    fog_mean = film.double().mean(dim=(0, 1)).tolist()
+    check(close_rel(fog["film_mean"], fog_mean, 0.05),
+          f"fog: regen film mean {fog['film_mean']} not within 0.05 of the "
+          f"medium route's {fog_mean}")
+    res["fog_cornell"] = dict(fog, medium_route_film_mean=fog_mean)
+    emit("render_regen", **res)
+    return res
 
 
 def phase_render_textured(torch, dev, width, spp):
@@ -2036,6 +2254,7 @@ def main():
     phase_render_two_prog(torch, dev, "hdri_blob", "SPHERE_CAMERA", 512, 16,
                           12)
     textured = phase_render_textured(torch, dev, WIDTH, SPP)
+    regen = phase_render_regen(torch, dev, gem, WIDTH, 8, SPP, 512, 4)
     phase_furnace(torch, dev)
     phase_hdr_furnace(torch, dev)
     ltr = phase_lt_round(torch, dev, LT_CASES)
@@ -2092,6 +2311,20 @@ def main():
                     library_ms=None)
 
     src = "pathtracer_tpu_torch/kernels/csrc/"
+
+    def dense_record(which, line, regen, sweep):
+        name = f"dense_sweep_{which}"
+        on_rays = regen["kernels_on_regen_rays"][name]
+        err = max([on_rays["max_abs_err"]] + [
+            s["max_abs_err_t"] if which == "closest" else 0.0
+            for s in sweep.values()])
+        return dict(
+            name=name, route="cuda", source=src + "dense_sweep.cu",
+            replaces="pathtracer_tpu/kernels/" + line,
+            launches=regen["gem_cornell"]["launches"][name],
+            light_grid_launches=regen["light_grid_cornell"]["launches"][name],
+            max_abs_err=err, **timed(on_rays))
+
     kernels = {"kernels": [
         dict(name="fused_round", route="cuda", source=src + "fused_round.cu",
              replaces="pathtracer_tpu/kernels/megakernel.py:3218",
@@ -2144,23 +2377,12 @@ def main():
         dict(name="lt_finalize", route="cuda", source=src + "lt_round.cu",
              replaces="pathtracer_tpu/kernels/lt_mega.py:1005",
              launches=lt_hdri["lt_finalize"],
-             max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_"))],
-        # the sweep device code (sweep.cuh) runs on its own only in this
-        # check, launched by dense_sweep.cu: every round kernel inlines
-        # walk.cuh's walk of the compact sweep table, which returns the same
-        # bits
-        "inlined": [dict(
-            name="dense_sweep", route="cuda", source=src + "dense_sweep.cu",
-            replaces="pathtracer_tpu/kernels/dense.py:608",
-            inlined_in=[],
-            walk_cuh_inlined_in=["shade_sweep", "finalize_sweep",
-                                 "sweep_closest_rows", "sweep_any_rows",
-                                 "fused_round", "lt_shade",
-                                 "lt_finalize_spawn", "lt_finalize"],
-            max_abs_err=max(s["max_abs_err_t"] for s in sweep.values()),
-            **timed(dict(ms=sweep["chip"]["closest_ms"],
-                         plain_ms=sweep["chip"]["closest_plain_ms"],
-                         **sweep["chip"]["closest_bound"])))]}
+             max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_")),
+        # the regen integrator's closest-hit and shadow queries: launches on
+        # the gem and light-grid renders, agreement over the sweep phase and
+        # the gem render's own rays, time and bound on those rays
+        dense_record("closest", "dense.py:608", regen, sweep),
+        dense_record("any", "dense.py:624", regen, sweep)]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ projective thin-lens camera and a constant, Sun or HDR environment,
 rendered by `renderer.persistent.render_regen` through the fused round or
 the two-program round, and light tracing of the same scenes by
 `renderer.splatted.render_splatted` through the LT round
-(`kernels/lt_mega.py`). On a CUDA tensor every kernel of those paths is a
+(`kernels/lt_mega.py`). `render_regen` takes every other identity-transform
+scene through the regen integrator without kernels
+(`integrator/pt_regen.py`), whose closest-hit and shadow queries are the
+dense sweep kernels (`kernels/csrc/dense_sweep.cu`). On a CUDA tensor every kernel of those paths is a
 hand-written CUDA kernel (`kernels/csrc/`), built with `nvcc` at first use;
 on a CPU tensor each kernel wrapper runs its plain PyTorch twin.
 

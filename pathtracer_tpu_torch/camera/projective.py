@@ -8,13 +8,8 @@ import numpy as np
 import torch
 
 from pathtracer_tpu_torch.camera.aperture import sample_aperture
+from pathtracer_tpu_torch.core.vecmath import normalize
 from pathtracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-
-
-def _normalize(a, eps: float = 1e-20):
-    """core/vecmath.normalize on [..., 3] tensors."""
-    ls = torch.sum(a * a, dim=-1)
-    return a * torch.sqrt(torch.clamp(1.0 / torch.clamp(ls, min=eps), min=0.0))[..., None]
 
 
 @dataclasses.dataclass
@@ -43,7 +38,7 @@ class ProjectiveCamera:
             + ((film_u * 2.0 - 1.0) * self.half_width)[..., None] * self.u
             + ((1.0 - film_v * 2.0) * self.half_height)[..., None] * self.v
         )
-        d = _normalize(focal_pt - o)
+        d = normalize(focal_pt - o)
         return o, d, torch.ones(film_u.shape, dtype=torch.float32,
                                 device=film_u.device)
 

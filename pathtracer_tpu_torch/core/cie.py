@@ -27,6 +27,12 @@ def z_bar(lam):
     return 1.217 * _g(lam, 437.0, 0.0845, 0.0278) + 0.681 * _g(lam, 459.0, 0.0385, 0.0725)
 
 
+def wavelength_to_xyz(lam, energy):
+    """A wavelength and its energy -> XYZ: [...] -> [..., 3]."""
+    return torch.stack([energy * x_bar(lam), energy * y_bar(lam),
+                        energy * z_bar(lam)], dim=-1)
+
+
 # XYZ -> linear RGB 3x3 matrices (rows = R,G,B), D65 white.
 XYZ_TO_REC709 = (
     (3.2404542, -1.5371385, -0.4985314),

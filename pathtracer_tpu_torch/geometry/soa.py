@@ -6,17 +6,28 @@ Primitive encodings (pa/pb/pc are [P,3] payload slots):
   RECT:     pa = center, pb = half-edge u, pc = half-edge v
   DISK:     pa = center, pb = unit normal, pc[0] = radius
 
-The port intersects only through the dense sweep (`kernels/dense.py`); the
-BVH and two-level accelerators are still to be ported (ROADMAP).
-`sample_surface` draws the light tracer's emission points.
+The port intersects only through the dense sweep (`kernels/dense.py`): on
+a CUDA tensor `intersect_dense` / `intersect_any_dense` launch the
+hand-written `dense_sweep_closest` / `dense_sweep_any` kernels
+(`kernels/csrc/dense_sweep.cu`), on a CPU tensor their plain twins; the
+closest hit is the minimum t, ties to the minimum prim id, as the JAX
+sweep reduces its chunks. `_fill_attributes` then recomputes the winning
+prim's hit attributes in torch. Only identity-transform scenes are taken:
+the kernel has no per-prim transform, and the BVH and two-level
+accelerators are still to be ported (ROADMAP §1 items 9 and 13).
+`sample_surface` draws the light and NEE sample points.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
+
+from pathtracer_tpu_torch.core import vecmath
+from pathtracer_tpu_torch.prelude import RAY_TMAX
 
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
@@ -45,6 +56,145 @@ class Primitives:
     @property
     def count(self):
         return self.ptype.shape[0]
+
+
+class HitRecord(NamedTuple):
+    """Wavefront hit record (the JAX package's `HitRecord`)."""
+
+    t: torch.Tensor  # f32[N]
+    point: torch.Tensor  # f32[N,3]
+    normal: torch.Tensor  # f32[N,3] shading normal (unit)
+    geo_normal: torch.Tensor  # f32[N,3]
+    uv: torch.Tensor  # f32[N,2]
+    material_id: torch.Tensor  # i32[N]
+    mat_kind: torch.Tensor  # i32[N]
+    instance_id: torch.Tensor  # i32[N]
+    prim_id: torch.Tensor  # i32[N]
+    hit: torch.Tensor  # bool[N]
+
+
+# why a scene with per-prim transforms is refused
+NO_TRANSFORMS = ("the port intersects identity-transform scenes only: the "
+                 "dense sweep kernel has no per-prim transform, and the BVH "
+                 "and two-level accelerators that take instanced scenes are "
+                 "still to be ported (ROADMAP §1 items 9 and 13)")
+
+
+def dense_table(prims: Primitives) -> torch.Tensor:
+    """The packed `[P_pad, 128]` f32 table the dense sweep reads
+    (`kernels/dense.pack_prims_np`), on the prims' device."""
+    from pathtracer_tpu_torch.kernels.dense import pack_prims_np
+
+    cols = [prims.ptype, prims.valid, prims.pa, prims.pb, prims.pc]
+    tab = pack_prims_np(*[c.detach().cpu().numpy() for c in cols])
+    return torch.as_tensor(tab, device=prims.pa.device)
+
+
+def _ray_rows(o, d, t_min, t_max):
+    """The sweep's `[8, N]` ray rows: origin, direction, tmin, tmax. The
+    kernel bounds-checks its lanes, so N needs no padding."""
+    return torch.cat([o.T, d.T, t_min[None], t_max[None]]).float() \
+        .contiguous()
+
+
+def _check_query(prims, ignore_prim):
+    if ignore_prim is not None:
+        raise NotImplementedError("ignore_prim has no caller and is not "
+                                  "ported")
+    if prims.xf_inv.shape[0] != 1:
+        raise NotImplementedError(NO_TRANSFORMS)
+
+
+def intersect_dense(prims: Primitives, o, d, t_min, t_max, ignore_prim=None,
+                    tab=None) -> HitRecord:
+    """The closest hit over every prim. o, d: f32[N,3]; t_min, t_max:
+    f32[N]; `tab` the packed table of `dense_table(prims)` (packed here
+    when None: pass it to pack once per render)."""
+    from pathtracer_tpu_torch.kernels.dense import sweep_closest
+
+    _check_query(prims, ignore_prim)
+    if tab is None:
+        tab = dense_table(prims)
+    res = sweep_closest(_ray_rows(o, d, t_min, t_max), tab)
+    pid = res[1].long()
+    hit = pid >= 0
+    return _fill_attributes(prims, o, d, res[0], torch.clamp(pid, min=0), hit)
+
+
+def intersect_any_dense(prims: Primitives, o, d, t_min, t_max,
+                        ignore_prim=None, tab=None):
+    """Occlusion: does any prim block (t_min, t_max)? -> bool[N]."""
+    from pathtracer_tpu_torch.kernels.dense import sweep_any
+
+    _check_query(prims, ignore_prim)
+    if tab is None:
+        tab = dense_table(prims)
+    return sweep_any(_ray_rows(o, d, t_min, t_max), tab)[0] > 0.5
+
+
+def _fill_attributes(prims: Primitives, o, d, t, pid, hit) -> HitRecord:
+    """The winning prim's hit attributes (identity transforms: the JAX
+    `_fill_attributes` without its transform branch)."""
+    pa, pb, pc = prims.pa[pid], prims.pb[pid], prims.pc[pid]
+    na, nb, nc = prims.na[pid], prims.nb[pid], prims.nc[pid]
+    ptype = prims.ptype[pid]
+    p_l = o + t[..., None] * d
+
+    # triangle: barycentrics of the hit, interpolated shading normal
+    e1, e2 = pb - pa, pc - pa
+    tri_gn = vecmath.normalize(vecmath.cross(e1, e2))
+    pvec = vecmath.cross(d, e2)
+    det = vecmath.dot(e1, pvec)
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    tvec = o - pa
+    bu = vecmath.dot(tvec, pvec) * inv_det
+    bv = vecmath.dot(d, vecmath.cross(tvec, e1)) * inv_det
+    tri_sn = vecmath.normalize((1.0 - bu - bv)[..., None] * na
+                               + bu[..., None] * nb + bv[..., None] * nc)
+    tri_uv = torch.stack([bu, bv], dim=-1)
+
+    sph_n = vecmath.normalize(p_l - pa)
+    sph_u, sph_v = vecmath.direction_to_uv(sph_n)
+    sph_uv = torch.stack([sph_u, sph_v], dim=-1)
+
+    rect_n = vecmath.normalize(vecmath.cross(pb, pc))
+    rel = p_l - pa
+    rect_uv = torch.stack([
+        0.5 * (vecmath.dot(rel, pb)
+               / torch.clamp(vecmath.dot(pb, pb), min=1e-20) + 1.0),
+        0.5 * (vecmath.dot(rel, pc)
+               / torch.clamp(vecmath.dot(pc, pc), min=1e-20) + 1.0)], dim=-1)
+
+    # a disk's uv is (0, 0), as the reference leaves it
+    disk_n = pb
+    zero_uv = torch.zeros_like(rect_uv)
+
+    is_tri = (ptype == PRIM_TRIANGLE)[..., None]
+    is_sph = (ptype == PRIM_SPHERE)[..., None]
+    is_rec = (ptype == PRIM_RECT)[..., None]
+    normal = torch.where(is_tri, tri_sn, torch.where(
+        is_sph, sph_n, torch.where(is_rec, rect_n, disk_n)))
+    geo_normal = torch.where(is_tri, tri_gn, torch.where(
+        is_sph, sph_n, torch.where(is_rec, rect_n, disk_n)))
+    uv = torch.where(is_tri, tri_uv, torch.where(
+        is_sph, sph_uv, torch.where(is_rec, rect_uv, zero_uv)))
+    miss = torch.full_like(pid, -1, dtype=torch.int32)
+    return HitRecord(
+        t=torch.where(hit, t, RAY_TMAX),
+        point=p_l,
+        normal=normal,
+        geo_normal=geo_normal,
+        uv=uv,
+        material_id=torch.where(hit, prims.material_id[pid], miss),
+        mat_kind=torch.where(hit, prims.mat_kind[pid], miss),
+        instance_id=torch.where(hit, prims.instance_id[pid], miss),
+        prim_id=torch.where(hit, pid.to(torch.int32), miss),
+        hit=hit,
+    )
+
+
+def primitive_area(prims: Primitives, pid):
+    return prims.area[pid.long()]
 
 
 def sample_surface(prims: Primitives, pid, u1, u2):

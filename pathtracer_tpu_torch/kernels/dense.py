@@ -10,7 +10,8 @@ shared memory (`csrc/walk.cuh`), K1 and K3 among them.
 
 `sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
 on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
-`sweep_any_plain`) on CPU tensors. `sweep_closest_rows` (K1 of the
+`sweep_any_plain`) on CPU tensors; they answer `World.intersect` /
+`intersect_any` (`geometry/soa.py`), the regen integrator's queries. `sweep_closest_rows` (K1 of the
 texture-feed round) reads the rays in place from rows of the megakernel
 state and writes `[8, N]` rows (t, prim id); its kernel is in
 `csrc/two_prog_round.cu` and walks the sweep table, its twin
@@ -43,9 +44,10 @@ PBF = 32  # prim rows are padded to a multiple of this block
 _C_N, _C_BB, _C_CC = 11, 14, 15
 SWEEP_COLS = 16
 
-# kernel launches of the CUDA sweep (both entry points); the plain twin
-# never counts
-LAUNCHES = 0
+# kernel launches of the CUDA sweep, closest hit and any hit; the plain
+# twins never count
+CLOSEST_LAUNCHES = 0
+ANY_LAUNCHES = 0
 # launches of the rows sweep's kernel, and calls of its plain twin
 ROWS_LAUNCHES = 0
 ROWS_PLAIN_CALLS = 0
@@ -360,7 +362,6 @@ def check_sweep(sweep, tab):
 def _launch(fn_name, rays, tab, out):
     from pathtracer_tpu_torch.kernels import _build
 
-    global LAUNCHES
     lib = _build.library()
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     rc = getattr(lib, fn_name)(
@@ -370,19 +371,21 @@ def _launch(fn_name, rays, tab, out):
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES += 1
     return out
 
 
 def sweep_closest(rays, tab):
     """Closest hit -> [2, N] (t, prim id or -1): the CUDA kernel on a CUDA
     tensor, the plain twin on a CPU tensor."""
+    global CLOSEST_LAUNCHES
     _check(rays, tab)
     if rays.device.type == "cpu":
         return sweep_closest_plain(rays, tab)
     out = torch.empty((2, rays.shape[1]), dtype=torch.float32,
                       device=rays.device)
-    return _launch("dense_sweep_closest", rays, tab, out)
+    _launch("dense_sweep_closest", rays, tab, out)
+    CLOSEST_LAUNCHES += 1
+    return out
 
 
 def sweep_closest_rows(src, tab, row0: int, alive_row: int, sweep=None):
@@ -473,9 +476,12 @@ def sweep_any_rows(src, tab, row0: int, tmax_row: int,
 def sweep_any(rays, tab):
     """Any hit -> [1, N] f32 0/1: the CUDA kernel on a CUDA tensor, the
     plain twin on a CPU tensor."""
+    global ANY_LAUNCHES
     _check(rays, tab)
     if rays.device.type == "cpu":
         return sweep_any_plain(rays, tab)
     out = torch.empty((1, rays.shape[1]), dtype=torch.float32,
                       device=rays.device)
-    return _launch("dense_sweep_any", rays, tab, out)
+    _launch("dense_sweep_any", rays, tab, out)
+    ANY_LAUNCHES += 1
+    return out

@@ -57,7 +57,9 @@ loop draws uniform blocks per round from a uniform source
 Scope (`mega_available`): projective camera, identity transforms, at most
 8192 prims, 24 materials and 16 lights; multi-texel textures only as a
 lambertian's reflectance or the HDR map; medium-aware settings with at
-most 16 media.
+most 16 media. `renderer/persistent.py:render_regen` renders every other
+scene through the regen integrator without kernels
+(`integrator/pt_regen.py`).
 """
 
 from __future__ import annotations
@@ -202,12 +204,14 @@ PLAIN_CALLS = 0
 
 _NOT_IN_GATE = ("the megakernel takes projective cameras, identity "
                 "transforms, at most 8192 prims, 24 materials and 16 lights "
-                "and spectral curves of 512 knots; other scenes need the "
-                "regen integrator without kernels (ROADMAP §1 item 5)")
+                "and spectral curves of 512 knots; render_regen renders "
+                "other scenes through the regen integrator without kernels "
+                "(integrator/pt_regen.py, ROADMAP §1 item 5)")
 _TOO_MANY_MEDIA = ("medium-aware transport takes at most 16 media: the "
                    "medium feed gathers each medium's curves per lane; "
-                   "larger tables need the regen integrator without kernels "
-                   "(ROADMAP §1 item 5)")
+                   "render_regen renders larger tables through the regen "
+                   "integrator without kernels (integrator/pt_regen.py, "
+                   "ROADMAP §1 item 5)")
 MAX_MEDIA = 16
 _NOT_FUSED = ("the fused round takes at most 4 chunks of 32 prims under a "
               "constant environment without uv textures; other scenes ride "

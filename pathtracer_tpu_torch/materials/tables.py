@@ -1,19 +1,25 @@
 """Material table (counterpart of `materials/tables.py`): SoA parameters
 indexed by material id, and the lights' emission, emission pdf and emission
 spectrum sampling (the JAX `materials/diffuse_light.py` and
-`sharp_light.py` folded in). The BSDF math itself lives in
-`kernels/cmath.py` and the round kernels; the XLA-style masked dispatch is
-not ported."""
+`sharp_light.py` folded in), and the masked BSDF dispatch over the material
+types (`bsdf_eval`, `bsdf_sample`) that the regen integrator without
+kernels calls on `[N, 3]` local directions. The lambertian and GGX math is
+`kernels/cmath.py`'s, the plain twin of the round kernels' device code: it
+agrees with the JAX `materials/ggx.py` and `lambertian.py` to f32
+rounding."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from pathtracer_tpu_torch.core import spectral
-from pathtracer_tpu_torch.kernels.cmath import fdiv
+from pathtracer_tpu_torch.kernels import cmath
+from pathtracer_tpu_torch.kernels.cmath import V3, fdiv
+from pathtracer_tpu_torch.textures.texture import eval_texture
 
 MAT_LAMBERTIAN = 0
 MAT_GGX = 1
@@ -108,3 +114,100 @@ def sample_emission_spectrum(mats: Materials, bank, mat_id, u, bounds):
     """λ drawn from the light's emission SPD -> (lam, power, pdf per nm)."""
     idx = torch.clamp(mats.emit_idx[mat_id.long()], min=0)
     return spectral.sample_power_and_pdf(bank, idx, u, bounds)
+
+
+# ------------------------------------------------------------ BSDF dispatch
+
+
+class MatRec(NamedTuple):
+    """The material parameters of each lane, fetched once per dispatch."""
+
+    mtype: torch.Tensor
+    tex_id: torch.Tensor
+    alpha: torch.Tensor
+    eta_idx: torch.Tensor
+    eta_o_idx: torch.Tensor
+    kappa_idx: torch.Tensor
+    permeability: torch.Tensor
+    metallic: torch.Tensor
+    inner_medium: torch.Tensor
+    outer_medium: torch.Tensor
+    emit_idx: torch.Tensor
+    bounce_idx: torch.Tensor
+    sharpness: torch.Tensor
+    sidedness: torch.Tensor
+
+
+def fetch_material(mats: Materials, mat_id) -> MatRec:
+    i = mat_id.long()
+    return MatRec(*[getattr(mats, f)[i] for f in MatRec._fields])
+
+
+def _fetch_spectral(mats: Materials, bank, mat_id, lam):
+    """(eta_i, eta_o, kappa, bounce) of each lane's material at λ."""
+    i = mat_id.long()
+    return tuple(spectral.evaluate(bank, torch.clamp(idx[i], min=0), lam)
+                 for idx in (mats.eta_idx, mats.eta_o_idx, mats.kappa_idx,
+                             mats.bounce_idx))
+
+
+def _reflectance_from(curve_val, rec: MatRec, bank, tex, lam, uv):
+    """A lambertian's texture value at (λ, uv), else the light's bounce
+    curve value."""
+    tex_val = eval_texture(tex, bank, torch.clamp(rec.tex_id, min=0), lam,
+                           uv[..., 0], uv[..., 1])
+    return torch.where(rec.mtype == MAT_LAMBERTIAN, tex_val, curve_val)
+
+
+def _ggx_from(rec: MatRec, eta_i, eta_o, kappa):
+    alpha = torch.clamp(rec.alpha, min=1e-4)
+    eta_i = torch.clamp(eta_i, min=1e-3)
+    eta_o = torch.clamp(eta_o, min=1e-3)
+    return alpha, eta_i, eta_o, kappa
+
+
+def bsdf_eval(mats: Materials, bank, tex, mat_id, lam, uv, wi, wo, mode):
+    """(f, solid-angle pdf) of each lane's material for local directions
+    wi, wo [N, 3]."""
+    rec = fetch_material(mats, mat_id)
+    s_eta_i, s_eta_o, s_kappa, s_bounce = _fetch_spectral(mats, bank, mat_id,
+                                                          lam)
+    refl = _reflectance_from(s_bounce, rec, bank, tex, lam, uv)
+    wi3, wo3 = V3(*wi.unbind(-1)), V3(*wo.unbind(-1))
+    f_lam, pdf_lam = cmath.eval_lambertian(refl, wi3, wo3)
+    alpha, eta_i, eta_o, kappa = _ggx_from(rec, s_eta_i, s_eta_o, s_kappa)
+    f_ggx, pdf_ggx = cmath.eval_ggx(alpha, eta_i, eta_o, kappa, rec.metallic,
+                                    rec.permeability, wi3, wo3, mode)
+    is_ggx = rec.mtype == MAT_GGX
+    f = torch.where(is_ggx, f_ggx, f_lam)
+    pdf = torch.where(is_ggx, pdf_ggx, pdf_lam)
+    # a passthrough surface scatters nothing here (as in the reference)
+    is_pass = rec.mtype == MAT_PASSTHROUGH
+    return torch.where(is_pass, 0.0, f), torch.where(is_pass, 0.0, pdf)
+
+
+def bsdf_sample(mats: Materials, bank, tex, mat_id, lam, uv, wi, u1, u2,
+                u_lobe, mode):
+    """A sampled local direction and its evaluation -> (wo [N, 3], f, pdf,
+    weight), weight the throughput f·|cos θo| / pdf of the sampled lobe in
+    closed form (stable for near-delta lobes)."""
+    rec = fetch_material(mats, mat_id)
+    s_eta_i, s_eta_o, s_kappa, s_bounce = _fetch_spectral(mats, bank, mat_id,
+                                                          lam)
+    refl = _reflectance_from(s_bounce, rec, bank, tex, lam, uv)
+    wi3 = V3(*wi.unbind(-1))
+    wo_lam, f_lam, pdf_lam = cmath.sample_lambertian(refl, wi3, u1, u2)
+    # cosine sampling: f·cos/pdf is the reflectance, exactly
+    w_lam = torch.clamp(refl, max=1.0)
+    alpha, eta_i, eta_o, kappa = _ggx_from(rec, s_eta_i, s_eta_o, s_kappa)
+    wo_ggx, f_ggx, pdf_ggx, w_ggx = cmath.sample_ggx(
+        alpha, eta_i, eta_o, kappa, rec.metallic, rec.permeability, wi3,
+        u1, u2, u_lobe, mode)
+    is_ggx = rec.mtype == MAT_GGX
+    wo = torch.stack(cmath.where(is_ggx, wo_ggx, wo_lam), dim=-1)
+    f = torch.where(is_ggx, f_ggx, f_lam)
+    pdf = torch.where(is_ggx, pdf_ggx, pdf_lam)
+    weight = torch.where(is_ggx, w_ggx, w_lam)
+    is_pass = rec.mtype == MAT_PASSTHROUGH
+    return (wo, f, torch.where(is_pass, 0.0, pdf),
+            torch.where(is_pass, 0.0, weight))

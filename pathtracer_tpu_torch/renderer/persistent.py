@@ -1,47 +1,56 @@
 """Fixed-pixel sample-regeneration renderer (counterpart of
-`renderer/persistent.py:render_regen`, megakernel branch)."""
+`renderer/persistent.py:render_regen`)."""
 
 from __future__ import annotations
 
 import torch
 
+from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
 from pathtracer_tpu_torch.kernels.megakernel import (
     gate_refusal,
     pt_trace_regen_mega,
 )
 from pathtracer_tpu_torch.renderer.common import timed_render
 
-
 def render_regen(world, camera, settings, width: int, height: int,
                  min_samples: int, generator: torch.Generator | None = None,
                  uniforms=None, device=None, stats: dict | None = None,
-                 stepper: str | None = None):
+                 stepper: str | None = None,
+                 use_megakernel: bool | None = None):
     """Render `min_samples` samples per pixel with one lane per pixel.
     Returns (film [H, W, 3] XYZ, Profile, elapsed seconds); the elapsed time
     ends with the counters' host fetch, which waits for the device.
 
-    Random numbers come from `uniforms` (an object with `init` and `round`,
-    see kernels/megakernel.TorchUniforms) or else from `generator`, which
-    must live on `device`. A `stats` dict, if given, gets the number of
-    bounce rounds run under "rounds".
+    Random numbers come from `uniforms` (an object with `init`, `round` and
+    `lanes`, see kernels/megakernel.TorchUniforms) or else from
+    `generator`, which must live on `device`. A `stats` dict, if given, gets
+    the number of bounce rounds run under "rounds" and the route that ran
+    under "route" ("megakernel" or "regen").
 
-    Scenes in the megakernel's gate render through the fused round, the
-    texture-feed round (uv-textured lambertians) or the two-program round
-    (`kernels/megakernel.py`; medium-aware settings ride its medium
-    branch), or all of them through the split round with
-    `stepper="split"`, on the world's device unless `device` says
-    otherwise; the rest raise `NotImplementedError` naming the ROADMAP item
-    that ports their route (scenes for the regen integrator without
-    kernels)."""
+    `use_megakernel` None takes the megakernel's rounds for a scene in its
+    gate (`kernels/megakernel.py`: the fused, texture-feed or two-program
+    round, or all of them through the split round with `stepper="split"`,
+    which only this route takes) and the regen integrator without kernels
+    (`integrator/pt_regen.py`) for every other scene; False takes the regen
+    integrator for every scene; True raises `NotImplementedError` on a
+    scene outside the gate. The megakernel renders on `device` (default:
+    the world's), the regen integrator on the world's device only."""
     why = gate_refusal(world, camera, settings)
-    if why is not None:
+    if use_megakernel and why is not None:
         raise NotImplementedError(why)
+    mega = why is None and use_megakernel is not False
+    if stats is not None:
+        stats["route"] = "megakernel" if mega else "regen"
 
     def trace(device, uniforms):
-        acc, counters = pt_trace_regen_mega(world, camera, settings, width,
-                                            height, min_samples, uniforms,
-                                            device=device, stats=stats,
-                                            stepper=stepper)
+        if mega:
+            acc, counters = pt_trace_regen_mega(
+                world, camera, settings, width, height, min_samples,
+                uniforms, device=device, stats=stats, stepper=stepper)
+        else:
+            acc, counters = pt_trace_regen(
+                world, camera, settings, width, height, min_samples,
+                uniforms, device=device, stats=stats)
         return (acc / float(min_samples)).reshape(height, width, 3), counters
 
     return timed_render(world, generator, uniforms, device, trace)

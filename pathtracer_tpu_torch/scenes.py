@@ -75,6 +75,25 @@ def cornell_box(b, spectral):
     return b
 
 
+def light_grid_cornell(b, spectral, n=5):
+    """The Cornell box with its ceiling light split into n x n abutting
+    rect lights of the same material that tile the same 0.3 x 0.3 square:
+    the same radiance field as `cornell_box`, from n² luminaires. At n = 5
+    (25 lights) the megakernel's gate refuses it, at n = 4 (16) it takes
+    it."""
+    _cornell_walls(b, spectral)
+    emit = b.add_curve(spectral.BlackbodyCurve(5500.0, 18.0), name="emit")
+    b78 = b.add_curve(spectral.FlatCurve(0.78), name="b78")
+    ml = b.add_diffuse_light(emit, b78, SIDE_REVERSE, name="ml")
+    half = 0.15 / n
+    for i in range(n):
+        for j in range(n):
+            b.add_rect([0.35 + (2 * i + 1) * half, 0.35 + (2 * j + 1) * half,
+                        1.0 - 1e-3], [half, 0, 0], [0, half, 0], ml)
+    _black_env(b, spectral)
+    return b
+
+
 def cornell_sharp(b, spectral):
     """The Cornell walls lit by a sharp (cosine-power) light disk under the
     ceiling, facing down, with a white disk on the floor: sharp-light

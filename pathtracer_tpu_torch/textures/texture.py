@@ -36,11 +36,13 @@ class Textures:
 
 
 def _layer_weight(tex: Textures, li, u, v):
-    """Nearest texel of layer(s) `li` at (u, v)."""
+    """Nearest texel of layer(s) `li` at (u, v). A NaN coordinate (the uv of
+    a ray that hit nothing, which the wavefront integrators evaluate and
+    then discard) reads texel 0 instead of indexing out of bounds."""
     w = tex.layer_w[li].long()
     h = tex.layer_h[li].long()
-    u = torch.clamp(u, 0.0, 1.0 - 1e-6)
-    v = torch.clamp(v, 0.0, 1.0 - 1e-6)
+    u = torch.clamp(torch.nan_to_num(u), 0.0, 1.0 - 1e-6)
+    v = torch.clamp(torch.nan_to_num(v), 0.0, 1.0 - 1e-6)
     x = torch.minimum((u * w.float()).long(), w - 1)
     y = torch.minimum((v * h.float()).long(), h - 1)
     return tex.atlas[tex.layer_offset[li].long() + y * w + x]

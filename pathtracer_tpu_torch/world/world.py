@@ -6,19 +6,31 @@ leaves as numpy arrays under their JAX field names (`prims.pa`,
 `mats.mtype`, `bank.values`, `env.kind`, `lights`, `n_lights`, ...) and
 places them on a device; it takes Constant, Sun and HDR environments. The
 port's own `SceneBuilder.build()` goes through it too. The medium table
-(`mediums.*`) comes across whole. The BVH and the two-level accelerator are
-not part of the port yet (ROADMAP §1 item 9).
+(`mediums.*`) comes across whole.
+
+`intersect` / `intersect_any` answer the closest-hit and shadow queries by
+the dense sweep at every prim count (`geometry/soa.intersect_dense`: the
+CUDA kernels of `kernels/csrc/dense_sweep.cu` on the card). The JAX package
+switches to its BVH above `DENSE_MAX_PRIMS`; the BVH and the two-level
+accelerator are not part of the port yet (ROADMAP §1 items 9 and 13), so
+closest hits agree with the JAX package's up to ties between equal t.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from pathtracer_tpu_torch.core.spectral import CurveBank
-from pathtracer_tpu_torch.geometry.soa import Primitives
+from pathtracer_tpu_torch.geometry.soa import (
+    Primitives,
+    dense_table,
+    intersect_any_dense,
+    intersect_dense,
+)
 from pathtracer_tpu_torch.materials.tables import Materials
 from pathtracer_tpu_torch.mediums.tables import Mediums
 from pathtracer_tpu_torch.textures.texture import Textures
@@ -51,6 +63,24 @@ class World:
     env_sampling_probability: torch.Tensor  # f32
     center: torch.Tensor  # f32[3] scene bound center
     radius: torch.Tensor  # f32 scene bound radius
+
+    @functools.cached_property
+    def dense_tab(self) -> torch.Tensor:
+        """The packed dense sweep table, packed once per World."""
+        return dense_table(self.prims)
+
+    def intersect(self, o, d, t_min, t_max):
+        """The closest hit of rays o, d [N, 3] in (t_min, t_max) [N] ->
+        HitRecord. Raises NotImplementedError on a scene with per-prim
+        transforms."""
+        return intersect_dense(self.prims, o, d, t_min, t_max,
+                               tab=self.dense_tab)
+
+    def intersect_any(self, o, d, t_min, t_max):
+        """Whether anything blocks each ray within (t_min, t_max) ->
+        bool[N]."""
+        return intersect_any_dense(self.prims, o, d, t_min, t_max,
+                                   tab=self.dense_tab)
 
     def pick_random_light(self, u):
         """A uniform light pick per lane -> (prim index, pick pdf)."""

@@ -57,6 +57,11 @@ def test_mega_bake_matches_jax(worlds):
     recipe, (jw, tw, jc, tc) = worlds
     kw = FURNACE_SETTINGS if recipe == "furnace" else NEE_SETTINGS
     js, ts = both_settings(**kw)
+    if recipe == "light_grid":
+        # 25 lights: both gates refuse it (the regen integrator's scene)
+        assert not jax_mk.mega_available(jw, jc, js)
+        assert not torch_mk.mega_available(tw, tc, ts)
+        return
     assert jax_mk.mega_available(jw, jc, js)
     assert torch_mk.mega_available(tw, tc, ts)
     ref = jax_mk.build_mega_scene(jw, jc, js)

@@ -29,7 +29,9 @@ residency budget, and the 41 tiles of the mesh), the two bit for bit equal
 to each other, at 1, 2 and 3 NEE samples; and the split round renders the
 film of the two-program round. The polygon-aperture respawn and the
 direct-only cut, which no recipe reaches, have a case each (fused round,
-K12, K34)."""
+K12, K34). `World.intersect` / `intersect_any` on a CUDA world launch the
+dense sweep kernels and give the CPU twin's hit record, and a regen render
+launches them once a round and once a round per light sample."""
 
 import numpy as np
 import pytest
@@ -75,10 +77,10 @@ def test_sweep_kernel_matches_plain(dev, table):
         p.pc.numpy()), device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     rays = _rays(1 << 16, gen, dev)
-    launches = dense.LAUNCHES
+    launches = dense.CLOSEST_LAUNCHES
     k, pl = dense.sweep_closest(rays, tab), dense.sweep_closest_plain(rays,
                                                                       tab)
-    assert dense.LAUNCHES == launches + 1
+    assert dense.CLOSEST_LAUNCHES == launches + 1
     assert torch.equal(k[1], pl[1])
     hit = k[1] >= 0
     assert torch.allclose(k[0][hit], pl[0][hit], rtol=1e-5, atol=0.0)
@@ -687,3 +689,49 @@ def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
         spawned += float(ok[aux["resp"]].sum())
     assert spawned == n
     assert np.isfinite(sk.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("recipe", ["gem_cornell", "light_grid_cornell"])
+def test_world_intersect_and_regen_launch_dense_sweeps(dev, recipe):
+    """World.intersect / intersect_any on a CUDA world launch the dense
+    sweep kernels and give the CPU twin's hit record (ids and masks equal,
+    attributes within rtol 1e-5); a regen render launches the closest sweep
+    once a round and the any sweep once a round per light sample."""
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+
+    fn = getattr(scenes, recipe)
+    w_cpu = fn(SceneBuilder(), spectral).build("cpu")
+    w_gpu = fn(SceneBuilder(), spectral).build(dev)
+    gen = torch.Generator().manual_seed(3)
+    n = 50_000
+    o = torch.rand((n, 3), generator=gen) * 0.8 + 0.1
+    d = torch.randn((n, 3), generator=gen)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    t0 = torch.full((n,), 1e-6)
+    t1 = torch.where(torch.rand(n, generator=gen) < 0.5, 1e9, 0.7)
+    before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
+    hk = w_gpu.intersect(*[x.to(dev) for x in (o, d, t0, t1)])
+    bk = w_gpu.intersect_any(*[x.to(dev) for x in (o, d, t0, t1)])
+    assert (dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    hp, bp = w_cpu.intersect(o, d, t0, t1), w_cpu.intersect_any(o, d, t0, t1)
+    assert torch.equal(bk.cpu(), bp)
+    for f in ("hit", "prim_id", "material_id", "mat_kind", "instance_id"):
+        assert torch.equal(getattr(hk, f).cpu(), getattr(hp, f)), f
+    hit = hp.hit
+    for f in ("t", "point", "normal", "geo_normal", "uv"):
+        torch.testing.assert_close(getattr(hk, f).cpu()[hit],
+                                   getattr(hp, f)[hit], rtol=1e-5, atol=1e-5)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    settings = PTSettings(max_bounces=6, light_samples=2)
+    before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
+    stats = {}
+    film, profile, _ = render_regen(
+        w_gpu, cam, settings, 64, 64, 2, use_megakernel=False, stats=stats,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    rounds = stats["rounds"]
+    assert stats["route"] == "regen" and rounds > 0
+    assert dense.CLOSEST_LAUNCHES - before[0] == rounds
+    assert dense.ANY_LAUNCHES - before[1] == 2 * rounds
+    assert torch.isfinite(film).all() and float(film[..., 1].mean()) > 0.0
+    assert profile.camera_rays == 64 * 64 * 2

@@ -104,10 +104,10 @@ def test_wrapper_checks_and_counts():
     inputs raise before any kernel could see them."""
     tab = torch.zeros((32, 128))
     rays = torch.zeros((8, 10))
-    before = dense.LAUNCHES
+    before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
     assert dense.sweep_closest(rays, tab).shape == (2, 10)
     assert dense.sweep_any(rays, tab).shape == (1, 10)
-    assert dense.LAUNCHES == before
+    assert (dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES) == before
     with pytest.raises(ValueError):
         dense.sweep_closest(torch.zeros((7, 10)), tab)
     with pytest.raises(ValueError):

@@ -1,8 +1,9 @@
 """The whole slice on the CPU: the port's `render_regen` (plain fused round)
 against the JAX package's `pt_trace_regen_mega` (Pallas interpret mode) on
 the chip scene at 64x64 @ 4 spp, then the HWSS furnace and the film files;
-the routing of scenes between the fused and the two-program round and the
-scenes the port refuses (test_torch_render_gem.py holds a two-program
+the routing of scenes between the fused and the two-program round, and of
+the scenes outside the megakernel's gate to the regen integrator without
+kernels (test_torch_render_gem.py holds a two-program
 render against JAX, test_torch_env.py the HDR furnace).
 
 - Uniforms replayed from JAX: the films must agree — mean within 1e-2
@@ -13,6 +14,7 @@ render against JAX, test_torch_env.py the HDR furnace).
   sample streams (tests/test_kernels_pallas.py:78-119).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -163,35 +165,60 @@ def test_render_routes_by_gate(monkeypatch, recipe, route):
     assert np.isfinite(film.numpy()).all() and profile.camera_rays == 64
 
 
+def _out_of_gate_world(what):
+    """The Cornell box made to fall outside the megakernel's gate: with 17
+    media (under medium-aware settings), with a multi-texel texture no
+    lambertian reflects, or with the 8192-triangle height field and 12
+    random prims of `random_prims` in it."""
+    b = scenes.cornell_box(SceneBuilder(), spectral)
+    if what == "medium":
+        c = b.curve_index("white")
+        for _ in range(16):
+            b.add_medium_hg(c, c, c)
+    elif what == "uv_texture":
+        c = b.curve_index("white")
+        b.add_texture([(np.ones((4, 4), np.float32), c)])
+    else:
+        scenes.random_prims(b, spectral, grid=64, n_each=4)
+    return b.build("cpu")
+
+
 @pytest.mark.parametrize("what", ["medium", "uv_texture", "too_many_prims"])
 def test_render_refuses_with_roadmap_item(what):
     """Medium-aware settings over more than 16 media, a multi-texel texture
     used other than as a lambertian's reflectance or the HDR map, and scenes
-    over 8192 prims (all for the regen integrator without kernels) raise,
-    naming their ROADMAP item; medium-aware settings on a scene the gate
-    takes do not."""
+    over 8192 prims fall outside the megakernel's gate and render through
+    the regen integrator without kernels; `use_megakernel=True` still
+    refuses them, naming the gate. Medium-aware settings on a scene the
+    gate takes stay on the megakernel."""
+    _, ts = both_settings(**NEE_SETTINGS)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
+    if what == "medium":
+        ts = type(ts)(**{**ts.__dict__, "medium_aware": True})
+        world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
+        assert tm.mega_available(world, cam, ts)
+    world = _out_of_gate_world(what)
+    assert not tm.mega_available(world, cam, ts)
+    with pytest.raises(NotImplementedError, match="render_regen renders"):
+        render_regen(world, cam, ts, 8, 8, 1, use_megakernel=True)
+    stats = {}
+    film, profile, _ = render_regen(world, cam, ts, 8, 8, 1, stats=stats,
+                                    generator=torch.Generator().manual_seed(2))
+    assert stats["route"] == "regen" and stats["rounds"] > 0
+    film = film.numpy()
+    assert np.isfinite(film).all() and film[..., 1].mean() > 0.0
+    assert profile.camera_rays == 64
+
+
+def test_render_refuses_transformed_world():
+    """A world with per-prim transforms raises, naming ROADMAP §1 items 9
+    and 13 (the dense sweep kernel has no per-prim transform)."""
     _, ts = both_settings(**NEE_SETTINGS)
     cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
     world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
-    match = {"medium": "ROADMAP §1 item 5", "uv_texture":
-             "ROADMAP §1 item 5", "too_many_prims": "ROADMAP §1 item 5"}
-    if what == "medium":
-        ts = type(ts)(**{**ts.__dict__, "medium_aware": True})
-        assert tm.mega_available(world, cam, ts)
-        b = scenes.cornell_box(SceneBuilder(), spectral)
-        c = b.curve_index("white")
-        for _ in range(16):
-            b.add_medium_hg(c, c, c)
-        world = b.build("cpu")
-    elif what == "uv_texture":
-        b = scenes.cornell_box(SceneBuilder(), spectral)
-        c = b.curve_index("white")
-        b.add_texture([(np.ones((4, 4), np.float32), c)])
-        world = b.build("cpu")
-    else:
-        world = scenes.random_prims(SceneBuilder(), spectral, grid=64,
-                                    n_each=4).build("cpu")
-    assert not tm.mega_available(world, cam, ts)
-    with pytest.raises(NotImplementedError, match=match[what]):
-        render_regen(world, cam, ts, 8, 8, 1)
-
+    world = dataclasses.replace(world, prims=dataclasses.replace(
+        world.prims, xf_inv=world.prims.xf_inv.repeat(2, 1, 1),
+        xf_fwd=world.prims.xf_fwd.repeat(2, 1, 1)))
+    for use in (None, False):
+        with pytest.raises(NotImplementedError, match="items 9 and 13"):
+            render_regen(world, cam, ts, 8, 8, 1, use_megakernel=use)

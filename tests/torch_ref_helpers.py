@@ -85,6 +85,9 @@ RECIPES = {
     "nested_media": (scenes.nested_media, scenes.MEDIUM_CAMERA),
     "fog_cornell": (scenes.fog_cornell, scenes.CORNELL_CAMERA),
     "cornell_hex": (scenes.cornell_box, scenes.HEX_CAMERA),
+    "light_grid": (scenes.light_grid_cornell, scenes.CORNELL_CAMERA),
+    "light_grid4": (lambda b, sp: scenes.light_grid_cornell(b, sp, n=4),
+                    scenes.CORNELL_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -627,3 +630,45 @@ def chained_lt(recipe, lt_kw, spawn_inkernel, rounds=3, lanes=2048,
         out.append(rec)
         jstate, tstate = jo[:tlt.NS_LT], o[:tlt.NS_LT]
     return out
+
+
+# ------------------------------------------------- regen without kernels
+
+
+class RegenReplay:
+    """Uniform source for the port's `pt_trace_regen` that yields exactly
+    the blocks the JAX `pt_trace_regen(key)` draws: the first spawn from
+    fold(key, 1), and at cursor `it` (the carry's rnd_i: the round block,
+    rnd_i + 1: the respawn block) uniform(fold(key, it), (n, cols))."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def init(self, n, device):
+        u = jax.random.uniform(sampling.fold(self.key, 1), (n, 5))
+        return torch.as_tensor(np.array(u), device=device)
+
+    def lanes(self, it, cols, n, device, stream=None):
+        u = jax.random.uniform(sampling.fold(self.key, jnp.int32(it)),
+                               (n, cols))
+        return torch.as_tensor(np.array(u), device=device)
+
+
+def regen_state_to_torch(state):
+    """The JAX pt_trace_regen carry -> the port's RegenState (CPU)."""
+    from pathtracer_tpu_torch.integrator.pt_regen import RegenState
+
+    rnd_i, *rest = state
+    out = [torch.as_tensor(np.array(x)) for x in rest]
+    counters = RegenState._fields.index("counters") - 1
+    out[counters] = out[counters].double()
+    return RegenState(int(rnd_i), *out)
+
+
+def regen_state_to_jax(state):
+    """The port's RegenState -> the JAX pt_trace_regen carry."""
+    rnd_i, *rest = state
+    out = [jnp.asarray(x.cpu().numpy()) for x in rest]
+    counters = len(out) - 2
+    out[counters] = out[counters].astype(jnp.float32)
+    return (jnp.int32(rnd_i), *out)
