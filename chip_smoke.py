@@ -13,14 +13,17 @@ texture-feed round (K1 `sweep_closest_rows`, the torch texture feed, K2
 `shade`, K34) on the uv-textured Cornell box at 1080x1080, 16 spp, whose
 checker wall must come out resolved. Then the regen integrator without
 kernels (`integrator/pt_regen.py`), whose closest-hit and shadow queries
-launch `dense_sweep.cu`'s two kernels: the gem at 1080x1080, 8 spp with
+launch `dense_sweep.cu`'s two kernels (the shadow query with the samples'
+worth as its `live` mask): the gem at 1080x1080, 8 spp with
 `use_megakernel=False` (its film within rtol 0.03 of the two-program
 film, its counters within 0.08), `light_grid_cornell` (25 lights, outside
 the megakernel's gate) at 1080x1080, 16 spp through the default route
 (its film within 0.02 of `cornell_box`'s through the megakernel) and the
 fog box at 512x512, 4 spp, medium-aware (within 0.05 of the medium
-route's), with both sweep kernels held to their twins on the gem render's
-own first camera and shadow rays. Films go to `output/`. Then the
+route's), with both sweep kernels held to their twins bit for bit on the
+gem render's own first camera and shadow rays (every lane, and the
+masked lanes) and a whole gem render's shadow queries timed with and
+without the mask. Films go to `output/`. Then the
 dispersive hero-wavelength furnace and the HDR furnace must come out
 uniform. Last, the light tracer: three chained rounds of K12-LT and K34-LT
 (v2: in-kernel spawn, on the chip scene with its lens proxy at 1 and 2
@@ -47,8 +50,12 @@ its bound (the least time the card could take: the larger of the f32
 operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
 published peaks; the kernels are built without FMA contraction, so a sweep
 of separate multiplies and adds cannot go under twice a bound by
-operations). Every round kernel that sweeps walks the compact sweep table
-from shared memory. K12 and K34 are held to their twins with the table
+operations). Every kernel that sweeps walks the compact sweep table from
+shared memory: the dense sweeps are held to their twins bit for bit on the
+chip table (resident), the 1,120-row random table and a 9,216-row one (the
+ring), the first two also with the budget one row under the table, on rays
+with per-ray bounds and degenerate lanes too. K12 and K34 are held to their
+twins with the table
 resident (the gem, the HDR blob), through the ring of tiles (the mesh's 41
 tiles) and with the budget set one row under the gem's and the fog box's
 tables, and the gem is rendered a second time through the split round (K1
@@ -127,15 +134,11 @@ PEAK_BYTES = 3.35e12  # B/s
 # (RAY_OPS: the triangle test's 1/dz and two shear products; the sphere
 # test's d.d and its reciprocal), and what depends on the prim alone (a
 # rect's unit normal and edge norms: 28 operations) not at all: a bake can
-# hold it. dense_sweep.cu, which keeps csrc/sweep.cuh:prim_t's walk,
-# computes the same function and is held to the same count
+# hold it. Every kernel that sweeps reads the compact sweep table, all 16
+# floats of a row (64 B)
 PRIM_OPS = (41, 23, 35, 29)
 RAY_OPS = (3, 6, 0, 0)
 F32 = 4
-# the floats a sweep must read of a row of the [P_pad, 128] dense table
-# (ptype, valid, pa, pb, pc), as dense_sweep.cu reads it; the kernels on
-# walk.cuh read the compact sweep table, and all 16 floats of its rows
-DENSE_COLS = 11
 
 
 def sweep_ops(tab):
@@ -145,10 +148,6 @@ def sweep_ops(tab):
     count = [int(((ptype == k) & valid).sum()) for k in range(4)]
     return sum(count[k] * PRIM_OPS[k] + (RAY_OPS[k] if count[k] else 0)
                for k in range(4))
-
-
-def dense_floats(tab):
-    return int(tab.shape[0]) * DENSE_COLS
 
 
 def bound(ops, nbytes):
@@ -176,7 +175,8 @@ def shadow_rays(torch, mk, dense, k2, scene, ls):
         tmax = torch.where(worth, k2[b + 6], 0.0)[None]
         rays = torch.cat([k2[b:b + 6], torch.full_like(tmax, 1e-6),
                           tmax]).contiguous()
-        blocked = dense.sweep_any(rays, scene.dense_tab)[0] > 0.5
+        blocked = dense.sweep_any(rays, scene.dense_tab,
+                                  scene.sweep_tab)[0] > 0.5
         out.append((int(worth.sum()), int((worth & ~blocked).sum())))
     return out
 
@@ -402,53 +402,133 @@ def sweep_tables(torch, dev):
     }
 
 
-def phase_sweep(torch, dev, n_rays):
+def big_table(torch, dev):
+    """A random table of all four prim types over the round kernels'
+    8192-row cap (an 800-triangle mesh and 2,800 each of spheres, rects and
+    disks: 9,200 prims, 9,216 rows), which the dense sweeps walk through the
+    ring -> (the [P_pad, 128] dense table, the sweep table)."""
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+
+    w = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
+                            n_each=2800).build(dev)
+    return w.dense_tab, w.sweep_tab
+
+
+def odd_rays(torch, n, gen, dev):
+    """Rays with per-ray bounds and the degenerate lanes the regen
+    integrator and the JAX padding hand the dense sweeps: t_min drawn in
+    (0, 0.3) on a third of the lanes, t_max in (0.05, 1.5); t_min = t_max
+    = 0 with a zero direction; NaN and inf origins; NaN and zero
+    directions; t_min >= t_max."""
+    rays = _rays(torch, n, gen, dev, torch.rand(
+        (1, n), generator=gen, device=dev) * 1.45 + 0.05)
+    pick = torch.rand(n, generator=gen, device=dev)
+    rays[6] = torch.where(pick < 0.3, pick, rays[6])
+    k = torch.arange(n, device=dev)
+    rays[3:8, k % 97 == 1] = 0.0
+    rays[0, k % 89 == 2] = float("nan")
+    rays[1, k % 83 == 3] = float("inf")
+    rays[4, k % 79 == 4] = float("nan")
+    rays[3:6, k % 73 == 5] = 0.0
+    swap = k % 71 == 6
+    rays[6, swap], rays[7, swap] = rays[7, swap] + 0.01, rays[6, swap]
+    return rays
+
+
+def dense_equal(torch, mk, tab, sweep, rays, live=None):
+    """Both dense sweeps on `rays` (the any-hit one also with the `live`
+    mask) equal to their twins bit for bit, at the default residency budget
+    and, for a table a budget can hold (3,584 rows), with the budget one row
+    under it (the ring) -> (the closest hits, the masks, the largest |t -
+    twin's t| over the hits)."""
     from pathtracer_tpu_torch.kernels import dense
 
-    tabs = sweep_tables(torch, dev)
+    rows = int(sweep.shape[0])
+    want = (dense.sweep_closest_plain(rays, tab),
+            dense.sweep_any_plain(rays, tab),
+            None if live is None else dense.sweep_any_plain(rays, tab, live))
+
+    def run():
+        return (dense.sweep_closest(rays, tab, sweep),
+                dense.sweep_any(rays, tab, sweep),
+                None if live is None else dense.sweep_any(rays, tab, sweep,
+                                                          live))
+
+    err = 0.0
+    hit = want[0][1] >= 0
+    runs = [("default", run())]
+    # a budget holds at most 3584 rows: a larger table is always the ring's
+    if rows - 1 <= 3584:
+        runs.append(("one_row_under", one_row_under(mk, rows, run)))
+    for staging, got in runs:
+        for name, k, p in zip(("closest", "any", "any_live"), got, want):
+            if p is None:
+                continue
+            check(torch.equal(k, p), f"dense_sweep_{name} on {rows} rows "
+                  f"({staging} budget): differs from the twin on "
+                  f"{int((k != p).any(dim=0).sum())} rays")
+        if hit.any():
+            err = max(err, float((got[0][0][hit] - want[0][0][hit]).abs()
+                                 .max()))
+    return want[0], want[1], err
+
+
+def phase_sweep(torch, dev, n_rays):
+    """dense_sweep_closest and dense_sweep_any (the walk on the sweep table)
+    against their twins, bit for bit: on the chip table (resident), the
+    random table (1,120 rows: the ring) and a 9,216-row one (over the round
+    kernels' cap), each at the default budget and one row under the table,
+    on random rays (t in (1e-6, 1e9); shadow rays with t_max in (0.05,
+    1.5)) and on rays with per-ray bounds and degenerate lanes (with and
+    without a `live` mask); then the kernels' and the twins' times and the
+    bounds on the random rays."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    tabs = dict(sweep_tables(torch, dev), big=big_table(torch, dev))
     gen = torch.Generator(device=dev).manual_seed(11)
     res = {}
-    for name, (tab, _) in tabs.items():
-        rays = _rays(torch, n_rays, gen, dev)
-        k = dense.sweep_closest(rays, tab)
-        pl = dense.sweep_closest_plain(rays, tab)
-        torch.cuda.synchronize()
-        hit_k, hit_p = k[1] >= 0, pl[1] >= 0
-        check(torch.equal(hit_k, hit_p), f"sweep {name}: hit masks differ "
-              f"on {int((hit_k != hit_p).sum())} rays")
-        check(torch.equal(k[1], pl[1]), f"sweep {name}: prim ids differ on "
-              f"{int((k[1] != pl[1]).sum())} rays")
-        tk, tp = k[0][hit_k], pl[0][hit_p]
-        check(torch.allclose(tk, tp, rtol=1e-5, atol=0.0),
-              f"sweep {name}: t differs beyond rtol 1e-5")
-        err = float((tk - tp).abs().max()) if tk.numel() else 0.0
-        tmax = torch.rand((1, n_rays), generator=gen, device=dev) * 1.45 + 0.05
-        rays_a = _rays(torch, n_rays, gen, dev, tmax)
-        ka, pa = dense.sweep_any(rays_a, tab), dense.sweep_any_plain(rays_a,
-                                                                     tab)
-        check(torch.equal(ka, pa), f"sweep {name}: any-hit masks differ on "
-              f"{int((ka != pa).sum())} rays")
-        ms = cuda_ms(torch, lambda: dense.sweep_closest(rays, tab), 20)
+    for name, (tab, sweep) in tabs.items():
+        # the twin sweeps the 9,216 rows in 288 blocks: fewer rays there
+        n = n_rays // 8 if name == "big" else n_rays
+        rays = _rays(torch, n, gen, dev)
+        tmax = torch.rand((1, n), generator=gen, device=dev) * 1.45 + 0.05
+        rays_a = _rays(torch, n, gen, dev, tmax)
+        k, _, err = dense_equal(torch, mk, tab, sweep, rays)
+        ka = dense_equal(torch, mk, tab, sweep, rays_a)[1]
+        odd = odd_rays(torch, n, gen, dev)
+        live = torch.rand(n, generator=gen, device=dev) < 0.6
+        err = max(err, dense_equal(torch, mk, tab, sweep, odd, live)[2])
+        hit = k[1] >= 0
+        ms = cuda_ms(torch, lambda: dense.sweep_closest(rays, tab, sweep),
+                     20)
         plain_ms = cuda_ms(torch, lambda: dense.sweep_closest_plain(rays, tab),
                            3)
-        ms_any = cuda_ms(torch, lambda: dense.sweep_any(rays_a, tab), 20)
+        ms_any = cuda_ms(torch, lambda: dense.sweep_any(rays_a, tab, sweep),
+                         20)
         plain_any = cuda_ms(torch, lambda: dense.sweep_any_plain(rays_a, tab),
                             3)
-        res[name] = dict(prims=int(tab.shape[0]), rays=n_rays,
-                         hit_frac=float(hit_k.float().mean()),
+        rows = int(sweep.shape[0])
+        res[name] = dict(prims=rows, rays=n,
+                         staging=("resident" if rows <= mk.SWEEP_RESIDENT_ROWS
+                                  else "ring"),
+                         hit_frac=float(hit.float().mean()),
                          max_abs_err_t=err, closest_ms=ms,
                          closest_plain_ms=plain_ms, any_ms=ms_any,
                          any_plain_ms=plain_any,
                          any_frac=float(ka.mean()),
+                         odd_rays_equal=True,
                          closest_bound=bound(
-                             n_rays * sweep_ops(tab),
-                             F32 * (10 * n_rays + dense_floats(tab))),
+                             n * sweep_ops(sweep),
+                             F32 * (10 * n + int(sweep.numel()))),
                          # an unblocked ray tests every prim, a blocked one
                          # at least the cheapest single test
                          any_bound=bound(
-                             int((ka == 0).sum()) * sweep_ops(tab)
+                             int((ka == 0).sum()) * sweep_ops(sweep)
                              + int(ka.sum()) * min(PRIM_OPS),
-                             F32 * (9 * n_rays + dense_floats(tab))))
+                             F32 * (9 * n + int(sweep.numel()))))
     emit("sweep", **res)
     return res
 
@@ -1109,7 +1189,9 @@ def close_rel(a, b, rtol):
 def regen_rays(torch, world, camera, settings, width, spp, seed):
     """The ray rows that one round of pt_trace_regen hands the dense sweep
     kernels: the first closest-hit query's (the camera rays) and the first
-    shadow query's (the first NEE sample's), each with its table."""
+    shadow query's (the first NEE sample's), each as (rays, packed table,
+    sweep table, live mask: None for the closest-hit query, the sample's
+    worth for the shadow query)."""
     from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
@@ -1118,9 +1200,10 @@ def regen_rays(torch, world, camera, settings, width, spp, seed):
     real = dense.sweep_closest, dense.sweep_any
 
     def grab(name, fn):
-        def wrapped(rays, tab):
-            got.setdefault(name, (rays.clone(), tab))
-            return fn(rays, tab)
+        def wrapped(rays, tab, sweep=None, *live):
+            got.setdefault(name, (rays.clone(), tab, sweep, *[
+                x.clone() for x in live]))
+            return fn(rays, tab, sweep, *live)
         return wrapped
 
     dense.sweep_closest = grab("closest", real[0])
@@ -1131,45 +1214,129 @@ def regen_rays(torch, world, camera, settings, width, spp, seed):
                        TorchUniforms(gen), max_rounds=1)
     finally:
         dense.sweep_closest, dense.sweep_any = real
-    return got
+    return got["closest"][:3] + (None,), got["any"]
 
 
-def dense_vs_plain(torch, rays, tab, closest):
-    """A dense sweep kernel against its plain twin on the same rays: the
-    ids (closest) or the masks (any) must be equal and t within rtol 1e-5
-    (the sweep phase's check) -> the record with ms, plain ms and bound."""
+def mask_effect(torch, world, camera, settings, width, spp, seed):
+    """A whole pt_trace_regen render whose every shadow query is timed with
+    the `worth` mask it passes and again without it (CUDA events around one
+    launch each, after the render's own): per query, the share of lanes
+    whose sample was not worth a ray, and the two times. The render's
+    result is the masked sweep's, as in any render."""
+    from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
+
+    real = dense.sweep_any
+    share, ms_masked, ms_all = [], [], []
+
+    def timed(fn):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1)
+
+    def wrapped(rays, tab, sweep=None, live=None):
+        out = real(rays, tab, sweep, live)
+        share.append(1.0 - float(live.float().mean()))
+        ms_masked.append(timed(lambda: real(rays, tab, sweep, live)))
+        ms_all.append(timed(lambda: real(rays, tab, sweep)))
+        return out
+
+    dense.sweep_any = wrapped
+    try:
+        gen = torch.Generator(device=world.prims.pa.device).manual_seed(seed)
+        pt_trace_regen(world, camera, settings, width, width, spp,
+                       TorchUniforms(gen))
+    finally:
+        dense.sweep_any = real
+    ls = settings.light_samples
+    per_round = [share[i:i + ls] for i in range(0, len(share), ls)]
+    return dict(
+        queries=len(share),
+        non_worth_share_by_round=[[round(x, 4) for x in r]
+                                  for r in per_round],
+        non_worth_share_mean=sum(share) / len(share),
+        any_ms_per_launch_masked=sum(ms_masked) / len(ms_masked),
+        any_ms_per_launch_unmasked=sum(ms_all) / len(ms_all),
+        any_ms_masked_sum=sum(ms_masked), any_ms_unmasked_sum=sum(ms_all),
+        any_ms_by_round_masked=[round(sum(ms_masked[i:i + ls]), 3)
+                                for i in range(0, len(ms_masked), ls)],
+        any_ms_by_round_unmasked=[round(sum(ms_all[i:i + ls]), 3)
+                                  for i in range(0, len(ms_all), ls)])
+
+
+def dense_vs_plain(torch, rays, tab, sweep, live, closest):
+    """A dense sweep kernel against its plain twin on the same rays (the
+    any-hit one with the `live` mask, None: every lane): the ids and t
+    (closest) or the masks (any) must be equal bit for bit -> the record
+    with ms, plain ms and bound. The bound counts the rays swept: every
+    lane's rays read and results written (and its live flag, 1 B), the
+    sweep table (64 B a row); a swept closest-hit or unblocked ray tests
+    every prim, a blocked one at least the cheapest single test."""
     from pathtracer_tpu_torch.kernels import dense
 
     n = int(rays.shape[1])
-    fn = dense.sweep_closest if closest else dense.sweep_any
-    twin = dense.sweep_closest_plain if closest else dense.sweep_any_plain
-    k, p = fn(rays, tab), twin(rays, tab)
+    table = F32 * int(sweep.numel())
+    if closest:
+        def fn():
+            return dense.sweep_closest(rays, tab, sweep)
+
+        def twin():
+            return dense.sweep_closest_plain(rays, tab)
+    else:
+        def fn():
+            return dense.sweep_any(rays, tab, sweep, live)
+
+        def twin():
+            return dense.sweep_any_plain(rays, tab, live)
+    k, p = fn(), twin()
     torch.cuda.synchronize()
+    name = "dense_sweep_closest" if closest else "dense_sweep_any"
+    check(torch.equal(k, p), f"{name}: differs from the twin on "
+          f"{int((k != p).any(dim=0).sum())} rays")
     if closest:
         hit = p[1] >= 0
-        check(torch.equal(k[1], p[1]), "dense_sweep_closest: prim ids "
-              f"differ from the twin on {int((k[1] != p[1]).sum())} rays")
-        check(torch.allclose(k[0][hit], p[0][hit], rtol=1e-5, atol=0.0),
-              "dense_sweep_closest: t differs beyond rtol 1e-5")
         err = float((k[0][hit] - p[0][hit]).abs().max()) if hit.any() \
             else 0.0
-        b = bound(n * sweep_ops(tab), F32 * (10 * n + dense_floats(tab)))
-        frac = float(hit.float().mean())
+        b = bound(n * sweep_ops(sweep), F32 * 10 * n + table)
+        rec = dict(hit_frac=float(hit.float().mean()))
     else:
-        check(torch.equal(k, p), "dense_sweep_any: masks differ from the "
-              f"twin on {int((k != p).sum())} rays")
         err = float((k - p).abs().max())
+        swept = n if live is None else int(live.sum())
         blocked = int(k.sum())
-        # an unblocked ray tests every prim, a blocked one at least the
-        # cheapest single test
-        b = bound((n - blocked) * sweep_ops(tab) + blocked * min(PRIM_OPS),
-                  F32 * (9 * n + dense_floats(tab)))
-        frac = blocked / n
-    ms = cuda_ms(torch, lambda: fn(rays, tab), 10)
-    plain_ms = cuda_ms(torch, lambda: twin(rays, tab), 2)
-    return dict(rays=n, prims=int(tab.shape[0]), max_abs_err=err,
-                hit_or_blocked_frac=frac, ms=ms, plain_ms=plain_ms,
-                bound=b)
+        b = bound((swept - blocked) * sweep_ops(sweep)
+                  + blocked * min(PRIM_OPS),
+                  F32 * (n + 8 * swept) + table
+                  + (0 if live is None else n))
+        rec = dict(swept=swept, blocked_frac_of_swept=blocked / max(swept, 1))
+    ms = cuda_ms(torch, fn, 10)
+    plain_ms = cuda_ms(torch, twin, 2)
+    return dict(rays=n, prims=int(sweep.shape[0]), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound=b, **rec)
+
+
+def dense_attrs(rows, budget):
+    """Registers, local bytes, shared bytes and blocks an SM of the two
+    dense sweep kernels walking a table of `rows` rows."""
+    import ctypes
+
+    from pathtracer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    out = {}
+    for which, name in enumerate(("closest", "any")):
+        v = [ctypes.c_int() for _ in range(5)]
+        rc = lib.dense_sweep_attrs(which, rows, budget,
+                                   *[ctypes.byref(x) for x in v])
+        check(rc == 0, f"dense_sweep_attrs: CUDA error {rc}")
+        out[name] = dict(zip(("regs", "local_bytes", "static_bytes",
+                              "dynamic_bytes", "blocks_per_sm"),
+                             [x.value for x in v]))
+    return out
 
 
 def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
@@ -1181,9 +1348,13 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
     cornell_box's through the megakernel, the same radiance field) and the
     fog box under medium-aware settings (held to the medium route's film).
     Every closest-hit query launches dense_sweep_closest and every shadow
-    query dense_sweep_any, once a round and once a round per light sample;
-    the two kernels are held to their twins on the gem render's own first
-    camera rays and first shadow rays."""
+    query dense_sweep_any (with the samples' worth as its `live` mask), once
+    a round and once a round per light sample. The two kernels are held to
+    their twins bit for bit and timed on the gem render's own first camera
+    rays and first shadow rays, the shadow rays with every lane swept and
+    with the mask; a whole gem render times each shadow query both ways
+    (`mask_effect`); the kernels' registers, shared bytes and blocks an SM
+    at the gem's table, resident and through the ring."""
     from pathtracer_tpu_torch import scenes
     from pathtracer_tpu_torch.core import spectral
     from pathtracer_tpu_torch.kernels import dense
@@ -1234,7 +1405,8 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
                        warm_mrays_per_s=warm.total_rays / warm_s / 1e6,
                        **busy_profile(torch, lambda: render(
                            world, camera, settings, w, spp, 2028, use),
-                           prefixes=("sweep_kernel<",), host_ops=False))
+                           prefixes=("dense_closest_kernel",
+                                     "dense_any_kernel"), host_ops=False))
             rec["sweep_share_of_device_ms"] = (rec["round_kernels_ms"]
                                                / rec["device_ms"])
         return rec
@@ -1243,10 +1415,18 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
     # the gem: against its megakernel film
     world, camera, settings, _ = _scene(torch, dev, "gem_cornell",
                                         "CORNELL_CAMERA", 1, 12)
-    rays = regen_rays(torch, world, camera, settings, width, gem_spp, 2026)
+    closest, shadow = regen_rays(torch, world, camera, settings, width,
+                                 gem_spp, 2026)
     res["kernels_on_regen_rays"] = {
-        "dense_sweep_closest": dense_vs_plain(torch, *rays["closest"], True),
-        "dense_sweep_any": dense_vs_plain(torch, *rays["any"], False)}
+        "dense_sweep_closest": dense_vs_plain(torch, *closest, True),
+        "dense_sweep_any": dense_vs_plain(torch, *shadow[:3], None, False),
+        "dense_sweep_any_masked": dense_vs_plain(torch, *shadow, False)}
+    rows = int(closest[2].shape[0])
+    res["dense_attrs"] = {
+        f"resident_{rows}_rows": dense_attrs(rows, mk.SWEEP_RESIDENT_ROWS),
+        "ring": dense_attrs(rows, rows - 1)}
+    res["gem_mask_effect"] = mask_effect(torch, world, camera, settings,
+                                         width, gem_spp, 2030)
     gem = regen_case("gem_cornell", world, camera, settings, width, gem_spp,
                      False)
     check(close_rel(gem["film_mean"], gem_mega["film_mean"], 0.03),
@@ -1465,12 +1645,13 @@ def _lt_scene(dev, recipe, cam, cs, max_bounces=8, min_bounces=1, rr=True,
         russian_roulette=rr, stratified=stratified)
 
 
-def lt_rays(torch, dense, tab, so, sd, tmax, want):
+def lt_rays(torch, dense, t, so, sd, tmax, want):
     """(shadow rays swept, unblocked among them) of the rays `want` selects
-    ([3, N] origins and directions), by the any-hit sweep kernel."""
+    ([3, N] origins and directions), by the any-hit sweep kernel over the
+    tables `t`."""
     rays = torch.cat([so, sd, torch.full_like(tmax, 1e-6)[None],
                       torch.where(want, tmax, 0.0)[None]]).contiguous()
-    blocked = dense.sweep_any(rays, tab)[0] > 0.5
+    blocked = dense.sweep_any(rays, t.dense_tab, t.sweep_tab)[0] > 0.5
     return int(want.sum()), int((want & ~blocked).sum())
 
 
@@ -1496,7 +1677,7 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
     rays = []
     for ci in range(cs):
         b = lt.Q_CONN + lt.CONN_ROWS * ci
-        rays.append(lt_rays(torch, dense, tab, q[b:b + 3], q[b + 3:b + 6],
+        rays.append(lt_rays(torch, dense, t, q[b:b + 3], q[b + 3:b + 6],
                             q[b + 6], alive0 & (q[b + 6] > 1e-6)))
     aux = lt.k4_aux_v2(cs) if usp is not None else lt.k4_aux(cs)
     hw = out[aux["resp"]] > 0.5
@@ -1504,7 +1685,7 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
         sp = lt._spawn_plain(a, usp, t.light_tab, t.spec_tab,
                              scene.lcdf_tab)
         want = hw & sp["lv_valid"]
-        rays.append(lt_rays(torch, dense, tab, torch.stack(list(
+        rays.append(lt_rays(torch, dense, t, torch.stack(list(
             sp["so_lv"])), torch.stack(list(sp["dir_lv"])), sp["tmax_lv"],
             want))
         spawn_bytes = F32 * 11 * int(hw.sum())
@@ -1512,7 +1693,7 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
     else:
         f = feed
         want = hw & (f[lt.F_LV_VALID] > 0.5)
-        rays.append(lt_rays(torch, dense, tab, f[lt.F_LV:lt.F_LV + 3],
+        rays.append(lt_rays(torch, dense, t, f[lt.F_LV:lt.F_LV + 3],
                             f[lt.F_LV + 3:lt.F_LV + 6], f[lt.F_LV + 6], want))
         spawn_bytes = F32 * (11 * int(hw.sum()) + 8 * int(want.sum()))
         extra = 0
@@ -2314,16 +2495,24 @@ def main():
 
     def dense_record(which, line, regen, sweep):
         name = f"dense_sweep_{which}"
-        on_rays = regen["kernels_on_regen_rays"][name]
+        kr = regen["kernels_on_regen_rays"]
+        on_rays = kr[name]
         err = max([on_rays["max_abs_err"]] + [
             s["max_abs_err_t"] if which == "closest" else 0.0
             for s in sweep.values()])
+        extra = {}
+        if which == "any":
+            masked = kr["dense_sweep_any_masked"]
+            extra = dict(masked_ms=masked["ms"],
+                         masked_plain_ms=masked["plain_ms"],
+                         masked_bound_ms=masked["bound"]["bound_ms"],
+                         masked_max_abs_err=masked["max_abs_err"])
         return dict(
             name=name, route="cuda", source=src + "dense_sweep.cu",
             replaces="pathtracer_tpu/kernels/" + line,
             launches=regen["gem_cornell"]["launches"][name],
             light_grid_launches=regen["light_grid_cornell"]["launches"][name],
-            max_abs_err=err, **timed(on_rays))
+            max_abs_err=err, **timed(on_rays), **extra)
 
     kernels = {"kernels": [
         dict(name="fused_round", route="cuda", source=src + "fused_round.cu",
@@ -2380,7 +2569,9 @@ def main():
              max_abs_err=lt_err("k34", "v1"), **timed(lt_v1, "finalize_")),
         # the regen integrator's closest-hit and shadow queries: launches on
         # the gem and light-grid renders, agreement over the sweep phase and
-        # the gem render's own rays, time and bound on those rays
+        # the gem render's own rays, time and bound on those rays (the
+        # shadow rays with every lane swept; masked_*: with the render's
+        # worth mask)
         dense_record("closest", "dense.py:608", regen, sweep),
         dense_record("any", "dense.py:624", regen, sweep)]}
     print(json.dumps(kernels), flush=True)

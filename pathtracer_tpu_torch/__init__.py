@@ -9,9 +9,10 @@ the two-program round, and light tracing of the same scenes by
 (`kernels/lt_mega.py`). `render_regen` takes every other identity-transform
 scene through the regen integrator without kernels
 (`integrator/pt_regen.py`), whose closest-hit and shadow queries are the
-dense sweep kernels (`kernels/csrc/dense_sweep.cu`). On a CUDA tensor every kernel of those paths is a
-hand-written CUDA kernel (`kernels/csrc/`), built with `nvcc` at first use;
-on a CPU tensor each kernel wrapper runs its plain PyTorch twin.
+dense sweep kernels (`kernels/csrc/dense_sweep.cu`). On a CUDA tensor every
+kernel of those paths is a hand-written CUDA kernel (`kernels/csrc/`),
+built with `nvcc` at first use; on a CPU tensor each kernel wrapper runs
+its plain PyTorch twin.
 
 Importing the package builds and loads nothing.
 """

@@ -9,12 +9,14 @@ Primitive encodings (pa/pb/pc are [P,3] payload slots):
 The port intersects only through the dense sweep (`kernels/dense.py`): on
 a CUDA tensor `intersect_dense` / `intersect_any_dense` launch the
 hand-written `dense_sweep_closest` / `dense_sweep_any` kernels
-(`kernels/csrc/dense_sweep.cu`), on a CPU tensor their plain twins; the
-closest hit is the minimum t, ties to the minimum prim id, as the JAX
-sweep reduces its chunks. `_fill_attributes` then recomputes the winning
-prim's hit attributes in torch. Only identity-transform scenes are taken:
-the kernel has no per-prim transform, and the BVH and two-level
-accelerators are still to be ported (ROADMAP §1 items 9 and 13).
+(`kernels/csrc/dense_sweep.cu`), which walk the compact sweep table of
+`sweep_table`, on a CPU tensor their plain twins, which read the packed
+table of `dense_table`; the closest hit is the minimum t, ties to the
+minimum prim id, as the JAX sweep reduces its chunks. `_fill_attributes`
+then recomputes the winning prim's hit attributes in torch. Only
+identity-transform scenes are taken: the kernel has no per-prim transform,
+and the BVH and two-level accelerators are still to be ported (ROADMAP §1
+items 9 and 13).
 `sample_surface` draws the light and NEE sample points.
 """
 
@@ -80,14 +82,27 @@ NO_TRANSFORMS = ("the port intersects identity-transform scenes only: the "
                  "still to be ported (ROADMAP §1 items 9 and 13)")
 
 
+def _packed(prims: Primitives, pack) -> torch.Tensor:
+    cols = [prims.ptype, prims.valid, prims.pa, prims.pb, prims.pc]
+    tab = pack(*[c.detach().cpu().numpy() for c in cols])
+    return torch.as_tensor(tab, device=prims.pa.device)
+
+
 def dense_table(prims: Primitives) -> torch.Tensor:
-    """The packed `[P_pad, 128]` f32 table the dense sweep reads
+    """The packed `[P_pad, 128]` f32 table the dense sweep's twins read
     (`kernels/dense.pack_prims_np`), on the prims' device."""
     from pathtracer_tpu_torch.kernels.dense import pack_prims_np
 
-    cols = [prims.ptype, prims.valid, prims.pa, prims.pb, prims.pc]
-    tab = pack_prims_np(*[c.detach().cpu().numpy() for c in cols])
-    return torch.as_tensor(tab, device=prims.pa.device)
+    return _packed(prims, pack_prims_np)
+
+
+def sweep_table(prims: Primitives) -> torch.Tensor:
+    """The compact `[P_pad, 16]` f32 sweep table the dense sweep kernels
+    walk (`kernels/dense.pack_sweep_np`, host numpy), on the prims'
+    device."""
+    from pathtracer_tpu_torch.kernels.dense import pack_sweep_np
+
+    return _packed(prims, pack_sweep_np)
 
 
 def _ray_rows(o, d, t_min, t_max):
@@ -105,31 +120,40 @@ def _check_query(prims, ignore_prim):
         raise NotImplementedError(NO_TRANSFORMS)
 
 
+def _tables(prims, tab, sweep):
+    """The packed table and the sweep table, packed here where the caller
+    passed None."""
+    return (dense_table(prims) if tab is None else tab,
+            sweep_table(prims) if sweep is None else sweep)
+
+
 def intersect_dense(prims: Primitives, o, d, t_min, t_max, ignore_prim=None,
-                    tab=None) -> HitRecord:
+                    tab=None, sweep=None) -> HitRecord:
     """The closest hit over every prim. o, d: f32[N,3]; t_min, t_max:
-    f32[N]; `tab` the packed table of `dense_table(prims)` (packed here
-    when None: pass it to pack once per render)."""
+    f32[N]; `tab` the packed table of `dense_table(prims)` and `sweep` the
+    sweep table of `sweep_table(prims)` (packed here when None: pass them
+    to pack once per render)."""
     from pathtracer_tpu_torch.kernels.dense import sweep_closest
 
     _check_query(prims, ignore_prim)
-    if tab is None:
-        tab = dense_table(prims)
-    res = sweep_closest(_ray_rows(o, d, t_min, t_max), tab)
+    tab, sweep = _tables(prims, tab, sweep)
+    res = sweep_closest(_ray_rows(o, d, t_min, t_max), tab, sweep)
     pid = res[1].long()
     hit = pid >= 0
     return _fill_attributes(prims, o, d, res[0], torch.clamp(pid, min=0), hit)
 
 
 def intersect_any_dense(prims: Primitives, o, d, t_min, t_max,
-                        ignore_prim=None, tab=None):
-    """Occlusion: does any prim block (t_min, t_max)? -> bool[N]."""
+                        ignore_prim=None, tab=None, sweep=None, live=None):
+    """Occlusion: does any prim block (t_min, t_max)? -> bool[N]. `tab`
+    and `sweep` as `intersect_dense`'s; with `live` (bool[N]) only the live
+    lanes are swept and the others read False."""
     from pathtracer_tpu_torch.kernels.dense import sweep_any
 
     _check_query(prims, ignore_prim)
-    if tab is None:
-        tab = dense_table(prims)
-    return sweep_any(_ray_rows(o, d, t_min, t_max), tab)[0] > 0.5
+    tab, sweep = _tables(prims, tab, sweep)
+    return sweep_any(_ray_rows(o, d, t_min, t_max), tab, sweep,
+                     live)[0] > 0.5
 
 
 def _fill_attributes(prims: Primitives, o, d, t, pid, hit) -> HitRecord:

@@ -13,7 +13,10 @@ stack, emission and environment adds with MIS, next-event estimation with
 one shadow query per light sample (`World.intersect_any`), BSDF or phase
 sampling with hero-wavelength spectral MIS, Russian roulette, and the
 respawn. On the card the two queries launch the hand-written dense sweep
-kernels (`kernels/csrc/dense_sweep.cu`); everything else is torch.
+kernels (`kernels/csrc/dense_sweep.cu`); everything else is torch. A shadow
+ray is swept only where its light sample was worth a ray (`worth`): the
+verdict is read nowhere else, and the JAX body sweeps every lane for the
+same radiance.
 
 The JAX `while_loop` is a host loop that checks for a live lane every
 `ALIVE_CHECK_EVERY` rounds; a round with no live lane changes nothing but
@@ -308,7 +311,8 @@ def pt_trace_regen(world, camera, settings: PTSettings, width: int,
                     offset_n = hr.geo_normal
                 so = point + offset_n * (NORMAL_OFFSET * torch.sign(
                     vecmath.dot(offset_n, nee_dir) + 1e-9))[..., None]
-                blocked = world.intersect_any(so, nee_dir, t_lo, nee_tmax)
+                blocked = world.intersect_any(so, nee_dir, t_lo, nee_tmax,
+                                              live=worth)
                 if medium_aware:
                     tr_dist = torch.where(chose_env, 2.0 * world.radius, dist)
                     tr = torch.where(

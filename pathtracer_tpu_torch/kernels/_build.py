@@ -100,9 +100,13 @@ def build():
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (rays, tab, n, p_rows, out, stream)
-    "dense_sweep_closest": [_P, _P, _I, _I, _P, _P],
-    "dense_sweep_any": [_P, _P, _I, _I, _P, _P],
+    # (rays, n, sweep, p_rows, resident_rows, out, stream)
+    "dense_sweep_closest": [_P, _I, _P, _I, _I, _P, _P],
+    # (rays, live | null, n, sweep, p_rows, resident_rows, out, stream)
+    "dense_sweep_any": [_P, _P, _I, _P, _I, _I, _P, _P],
+    # (which: 0 closest, 1 any; p_rows; resident_rows; regs*, local_bytes*,
+    #  static_bytes*, dynamic_bytes*, blocks_per_sm*)
+    "dense_sweep_attrs": [_I, _I, _I, _P, _P, _P, _P, _P],
     # (u, nu, state, out, n, sweep, p_rows, prim, p_pad, mat, light, spec,
     #  spec_rows, args*, stream)
     "fused_round_launch": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,

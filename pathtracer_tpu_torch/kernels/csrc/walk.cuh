@@ -1,25 +1,26 @@
-// The table walks of the round kernels designed for the H100: K12, K34, K1
-// and K3 (two_prog_round.cu), the fused round (fused_round.cu), K12-LT and
-// K34-LT v2 and v1 (lt_round.cu). A compact baked sweep table in shared
-// memory, brought there by the TMA unit's asynchronous bulk copies, and a
-// walk that computes what depends only on the ray once per ray and what
-// depends only on the prim once per scene.
+// The table walks of the kernels designed for the H100: K12, K34, K1 and K3
+// (two_prog_round.cu), the fused round (fused_round.cu), K12-LT and K34-LT
+// v2 and v1 (lt_round.cu), and the dense closest-hit and any-hit sweeps of
+// World.intersect / intersect_any (dense_sweep.cu). A compact baked sweep
+// table in shared memory, brought there by the TMA unit's asynchronous bulk
+// copies, and a walk that computes what depends only on the ray once per ray
+// and what depends only on the prim once per scene.
 //
 // The table is kernels/dense.py:pack_sweep_np's f32[P_pad, 16]: 64-byte
 // rows of ptype, valid, pa[3], pb[3], pc[3], and for a rect its unit normal
 // n[3], bb and cc (zeros for other prims). Every f32 expression below is
-// sweep.cuh:prim_t's with its operands, order and rounding (the library is
-// built with --fmad=false and IEEE divide and sqrt), so a walk returns the
-// bits of prim_t's walks: dense_sweep.cu's, which stays on prim_t as the
-// independent check of these.
+// the plain twin's (kernels/dense.py:chunk_t) with its operands, order and
+// rounding (the library is built with --fmad=false and IEEE divide and
+// sqrt), so a walk returns the twin's bits; the twin, torch on the card, is
+// the independent check of every walk.
 // What is not in the per-prim loop here:
 //   - the triangle test's axis permutation, sheared direction, 1/dz and the
 //     permuted origin are RayTerms of the ray; the prim's vertices are
 //     fetched in permuted order by indexed shared-memory loads (a selection,
-//     as the select chains of prim_t are);
+//     as the twin's select chains are);
 //   - the sphere test's a = d.d and 1/a are RayTerms too;
 //   - the rect test's normal, bb and cc come from the row: the bake computed
-//     them by prim_t's expressions (in prim_t a cross product, a sqrt and
+//     them by the twin's expressions (there a cross product, a sqrt and
 //     three divides of every test);
 //   - the triangle test's divide runs only where the ray passes inside the
 //     three edges (t is read nowhere else), so a warp whose lanes all miss a
@@ -222,7 +223,7 @@ PT_DEV void row_t(const float* r, const RayTerms* q, float t_min,
 #pragma unroll
     for (int j = 0; j < NR; ++j) t[j] = INFINITY;
   } else if ((unsigned)(ptype - pt::PRIM_SPHERE) > 2u) {
-    // PRIM_TRIANGLE, and any code that is no other type's, as prim_t's
+    // PRIM_TRIANGLE, and any code that is no other type's, as the twin's
     // chain does; first, for most rows are triangles
 #pragma unroll
     for (int j = 0; j < NR; ++j) t[j] = triangle_t(r, q[j], t_min, t_max[j]);
@@ -380,12 +381,12 @@ PT_DEV void for_tiles(Table& T, Pending pending, Body body) {
 
 // ---------------------------------------------------------------- walks
 
-// the closest hit of a live lane's ray over the table: ids rise with the
-// rows, so strict '<' keeps the lowest id among equal t. A miss leaves
-// t_hit = inf, pid = -1
-PT_DEV void closest(Table& T, bool live, V3 o, V3 d, float* t_hit, int* pid) {
+// the closest hit of a live lane's ray in (t_min, t_max) over the table:
+// ids rise with the rows, so strict '<' keeps the lowest id among equal t.
+// A miss leaves t_hit = inf, pid = -1
+PT_DEV void closest(Table& T, bool live, V3 o, V3 d, float t_min,
+                    float t_max, float* t_hit, int* pid) {
   const RayTerms q = ray_terms(o, d);
-  const float t_max = RAY_TMAX;
   float best_t = INFINITY;
   int best_id = -1;
   for_tiles(
@@ -396,7 +397,7 @@ PT_DEV void closest(Table& T, bool live, V3 o, V3 d, float* t_hit, int* pid) {
 #pragma unroll 2
         for (int i = 0; i < cnt; ++i) {
           float t;
-          row_t<1>(rows + i * ROW, &q, T_MIN, &t_max, &t);
+          row_t<1>(rows + i * ROW, &q, t_min, &t_max, &t);
           if (t < best_t) {
             best_t = t;
             best_id = row0 + i;
@@ -407,13 +408,18 @@ PT_DEV void closest(Table& T, bool live, V3 o, V3 d, float* t_hit, int* pid) {
   *pid = best_id;
 }
 
+// the same in the round kernels' bounds, (T_MIN, RAY_TMAX)
+PT_DEV void closest(Table& T, bool live, V3 o, V3 d, float* t_hit, int* pid) {
+  closest(T, live, o, d, T_MIN, RAY_TMAX, t_hit, pid);
+}
+
 // whether anything blocks each of a lane's NR shadow rays (so[j], sd[j]) in
-// (T_MIN, tmax[j]), for the rays with want[j]: every row read from shared
+// (t_min, tmax[j]), for the rays with want[j]: every row read from shared
 // memory is tested against all NR rays before the next, and a warp leaves
 // the rows when none of its lanes has a wanted ray unresolved
 template <int NR>
 PT_DEV void any_hit(Table& T, const bool* want, const V3* so, const V3* sd,
-                    const float* tmax, bool* blocked) {
+                    float t_min, const float* tmax, bool* blocked) {
   RayTerms q[NR];
   bool unres[NR];
 #pragma unroll
@@ -432,13 +438,20 @@ PT_DEV void any_hit(Table& T, const bool* want, const V3* so, const V3* sd,
     for (int i = 0; i < cnt; ++i) {
       if (!__any_sync(0xffffffffu, pending())) break;
       float t[NR];
-      row_t<NR>(rows + i * ROW, q, T_MIN, tmax, t);
+      row_t<NR>(rows + i * ROW, q, t_min, tmax, t);
 #pragma unroll
       for (int j = 0; j < NR; ++j) unres[j] = unres[j] && !(t[j] < INFINITY);
     }
   });
 #pragma unroll
   for (int j = 0; j < NR; ++j) blocked[j] = want[j] && !unres[j];
+}
+
+// the same from the round kernels' T_MIN
+template <int NR>
+PT_DEV void any_hit(Table& T, const bool* want, const V3* so, const V3* sd,
+                    const float* tmax, bool* blocked) {
+  any_hit<NR>(T, want, so, sd, T_MIN, tmax, blocked);
 }
 
 }  // namespace walk

@@ -8,14 +8,16 @@ zero. Rays are `[8, N]` rows: origin (3), direction (3), tmin, tmax.
 normal and edge norms baked in: the table that the round kernels walk in
 shared memory (`csrc/walk.cuh`), K1 and K3 among them.
 
-`sweep_closest` / `sweep_any` launch the CUDA kernel `csrc/dense_sweep.cu`
-on CUDA tensors and run the plain torch twin (`sweep_closest_plain`,
-`sweep_any_plain`) on CPU tensors; they answer `World.intersect` /
-`intersect_any` (`geometry/soa.py`), the regen integrator's queries. `sweep_closest_rows` (K1 of the
-texture-feed round) reads the rays in place from rows of the megakernel
-state and writes `[8, N]` rows (t, prim id); its kernel is in
-`csrc/two_prog_round.cu` and walks the sweep table, its twin
-`sweep_closest_rows_plain` the packed table.
+`sweep_closest` / `sweep_any` launch the CUDA kernels of
+`csrc/dense_sweep.cu` on CUDA tensors, which walk the sweep table
+(`World.sweep_tab`), and run the plain torch twins (`sweep_closest_plain`,
+`sweep_any_plain`) on the packed table on CPU tensors; they answer
+`World.intersect` / `intersect_any` (`geometry/soa.py`), the regen
+integrator's queries. `sweep_closest_rows` (K1 of the texture-feed round)
+reads the rays in place from rows of the megakernel state and writes
+`[8, N]` rows (t, prim id); its kernel is in `csrc/two_prog_round.cu` and
+walks the sweep table, its twin `sweep_closest_rows_plain` the packed
+table.
 `sweep_any_rows` (K3 of the split round) reads each lane's shadow ray and
 its tmax in place from the K2 rows and writes the blocked mask; its kernel
 is in the same file and walks the sweep table too, its twin
@@ -44,7 +46,7 @@ PBF = 32  # prim rows are padded to a multiple of this block
 _C_N, _C_BB, _C_CC = 11, 14, 15
 SWEEP_COLS = 16
 
-# kernel launches of the CUDA sweep, closest hit and any hit; the plain
+# kernel launches of the dense sweeps, closest hit and any hit; the plain
 # twins never count
 CLOSEST_LAUNCHES = 0
 ANY_LAUNCHES = 0
@@ -266,9 +268,17 @@ def sweep_closest_plain(rays, tab):
     return torch.stack([t, pid])
 
 
-def sweep_any_plain(rays, tab):
-    """rays [8, N], tab [P_pad, 128] -> [1, N] f32 0/1 blocked mask."""
-    return sweep_any_cols(tab, *_ray_cols(rays)).to(torch.float32)[None, :]
+def sweep_any_plain(rays, tab, live=None):
+    """rays [8, N], tab [P_pad, 128] -> [1, N] f32 0/1 blocked mask. With
+    `live` (bool [N]), only the live lanes are swept and the others read 0,
+    as the kernel writes them; None sweeps every lane."""
+    if live is None:
+        return sweep_any_cols(tab, *_ray_cols(rays)).to(
+            torch.float32)[None, :]
+    out = torch.zeros((1, rays.shape[1]), dtype=torch.float32,
+                      device=rays.device)
+    out[0, live] = sweep_any_cols(tab, *_ray_cols(rays[:, live])).float()
+    return out
 
 
 def sweep_closest_rows_plain(src, tab, row0: int, alive_row: int):
@@ -339,10 +349,10 @@ def _check(rays, tab, rows=8):
         raise ValueError(f"unsupported device {rays.device}")
 
 
-# why a CUDA tensor's rows sweep (K1, K3) is refused without the sweep table
+# why a CUDA tensor's sweep is refused without the sweep table
 _NO_SWEEP = ("the CUDA kernel walks the sweep table: pass sweep= "
-             "(MegaScene.sweep_tab, baked by bake_mega_scene, or "
-             "pack_sweep_np of the prims)")
+             "(World.sweep_tab, MegaScene.sweep_tab baked by "
+             "bake_mega_scene, or pack_sweep_np of the prims)")
 
 
 def check_sweep(sweep, tab):
@@ -359,31 +369,52 @@ def check_sweep(sweep, tab):
         raise ValueError(f"sweep_tab is on {sweep.device}, not {tab.device}")
 
 
-def _launch(fn_name, rays, tab, out):
-    from pathtracer_tpu_torch.kernels import _build
+def _check_live(live, rays):
+    """The lanes to sweep: bool [N], contiguous, on the rays' device."""
+    if live.dtype != torch.bool:
+        raise TypeError(f"live must be bool, got {live.dtype}")
+    if live.shape != (rays.shape[1],) or not live.is_contiguous():
+        raise ValueError(f"live must be a contiguous [{rays.shape[1]}] "
+                         f"tensor, got {tuple(live.shape)}")
+    if live.device != rays.device:
+        raise ValueError(f"live is on {live.device}, not {rays.device}")
 
-    lib = _build.library()
+
+def _launch(fn_name, rays, sweep, out, *flags):
+    """Launch a dense sweep kernel on the sweep table `sweep` (`flags`: the
+    any-hit kernel's lane-flag pointer)."""
+    from pathtracer_tpu_torch.kernels import _build
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
     stream = torch.cuda.current_stream(rays.device).cuda_stream
-    rc = getattr(lib, fn_name)(
-        ctypes.c_void_p(rays.data_ptr()), ctypes.c_void_p(tab.data_ptr()),
-        ctypes.c_int(rays.shape[1]), ctypes.c_int(tab.shape[0]),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    rc = getattr(_build.library(), fn_name)(
+        ctypes.c_void_p(rays.data_ptr()), *flags, rays.shape[1],
+        ctypes.c_void_p(sweep.data_ptr()), sweep.shape[0],
+        mk.SWEEP_RESIDENT_ROWS, ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
     return out
 
 
-def sweep_closest(rays, tab):
+def sweep_closest(rays, tab, sweep=None):
     """Closest hit -> [2, N] (t, prim id or -1): the CUDA kernel on a CUDA
-    tensor, the plain twin on a CPU tensor."""
+    tensor, the plain twin on a CPU tensor. The kernel walks `sweep`, the
+    compact table packed beside `tab` (`pack_sweep_np`; `World.sweep_tab`),
+    resident in shared memory up to `megakernel.SWEEP_RESIDENT_ROWS` rows,
+    else through the ring of tiles; the twin reads `tab`."""
     global CLOSEST_LAUNCHES
     _check(rays, tab)
+    if sweep is not None:
+        check_sweep(sweep, tab)
     if rays.device.type == "cpu":
         return sweep_closest_plain(rays, tab)
+    if sweep is None:
+        raise ValueError(_NO_SWEEP)
     out = torch.empty((2, rays.shape[1]), dtype=torch.float32,
                       device=rays.device)
-    _launch("dense_sweep_closest", rays, tab, out)
+    _launch("dense_sweep_closest", rays, sweep, out)
     CLOSEST_LAUNCHES += 1
     return out
 
@@ -473,15 +504,25 @@ def sweep_any_rows(src, tab, row0: int, tmax_row: int,
     return out
 
 
-def sweep_any(rays, tab):
-    """Any hit -> [1, N] f32 0/1: the CUDA kernel on a CUDA tensor, the
-    plain twin on a CPU tensor."""
+def sweep_any(rays, tab, sweep=None, live=None):
+    """Any hit -> [1, N] f32 0/1: the CUDA kernel on a CUDA tensor, the plain
+    twin on a CPU tensor; `sweep` as `sweep_closest`'s. With `live` (bool
+    [N]), only the live lanes are swept and the others read 0: the regen
+    integrator reads a shadow ray's verdict only where the light sample was
+    worth a ray. None sweeps every lane, as the JAX kernel does."""
     global ANY_LAUNCHES
     _check(rays, tab)
+    if sweep is not None:
+        check_sweep(sweep, tab)
+    if live is not None:
+        _check_live(live, rays)
     if rays.device.type == "cpu":
-        return sweep_any_plain(rays, tab)
+        return sweep_any_plain(rays, tab, live)
+    if sweep is None:
+        raise ValueError(_NO_SWEEP)
     out = torch.empty((1, rays.shape[1]), dtype=torch.float32,
                       device=rays.device)
-    _launch("dense_sweep_any", rays, tab, out)
+    _launch("dense_sweep_any", rays, sweep, out, ctypes.c_void_p(
+        None if live is None else live.data_ptr()))
     ANY_LAUNCHES += 1
     return out

@@ -165,7 +165,8 @@ NU4 = 8            # K34's uniform rows: 1 (RR) + 5 (respawn), padded
 
 MEGA_MAX_PRIMS = 8192  # the megakernel gate
 # The kernels that walk the sweep table from dynamic shared memory (K12,
-# K34, K1, K3, K12-LT, K34-LT) keep a table of at most this many rows whole
+# K34, K1, K3, K12-LT, K34-LT, the dense sweeps of World.intersect /
+# intersect_any) keep a table of at most this many rows whole
 # in a block's shared memory: 576 rows x 64 B = 36 KB, the largest table that
 # costs none of the six 128-thread blocks an SM holds of K12 and K34 (the
 # ring takes 24 KB). A larger table goes through the ring of csrc/walk.cuh:

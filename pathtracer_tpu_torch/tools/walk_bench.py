@@ -6,7 +6,7 @@ light tracer's kernels too.
 
     python -m pathtracer_tpu_torch.tools.walk_bench
     python -m pathtracer_tpu_torch.tools.walk_bench --cases none \
-        --rounds fused,k1,k3,k2m,lt
+        --rounds fused,k1,k3,k2m,lt,dense
 
 Cases: the gem (352 table rows), a finer gem (1,312 rows: 82 KB, resident
 only with the opt-in above 48 KB), the mesh (5,152 rows, always the ring)
@@ -28,12 +28,18 @@ C = 1 and 4) the medium instantiations of K2 and K12, and their surface
 instantiations on the same lanes, with the digest of each kernel's rows and
 the share of scattered lanes; `--rounds lt`: K12-LT and K34-LT on a second
 round's inputs at 2^20 lanes (chip_lens v2 at 1 and 2 camera samples, the
-HDR blob v1), as chip_smoke.py times them. With the registers and spill
+HDR blob v1), as chip_smoke.py times them; `--rounds dense`: the dense
+sweeps of `World.intersect` / `intersect_any` on the rays of the gem's
+first regen round at 1080 x 1080, 8 spp (its camera rays; its first NEE
+sample's shadow rays, every lane swept, and, where the tree has the mask,
+only the lanes worth a ray) and on 2^20 random rays over the random
+1,120-row table, resident and through the ring, with each result's
+digest and the kernel's device time. With the registers and spill
 bytes of each kernel, and where the tree reports them its shared bytes and
 blocks per SM. The k3 and k2m rounds chain their rounds through the plain
 twins, so that every tree times its kernels on the same inputs: `--against
 FILE` reads the lines another tree printed (a parent's) and says of each
-digest whether the rows are equal bit for bit.
+digest (k3, k2m and dense) whether the rows are equal bit for bit.
 
 The script also runs on a tree from before a kernel's move onto the
 shared-memory walk (copy it there): it then times that tree's kernel, under
@@ -164,7 +170,7 @@ def emit(rec):
     digest whether it equals the other tree's for the same case."""
     other = AGAINST.get(rec["case"])
     if other is not None:
-        for key in ("mask", "rows"):
+        for key in ("mask", "rows", "out"):
             if key in rec and key in other:
                 rec[f"{key}_equal_to_against"] = rec[key] == other[key]
     print(json.dumps(rec), flush=True)
@@ -366,6 +372,113 @@ def bench_k1(dev, smi, reps):
         mk.SWEEP_RESIDENT_ROWS = budget0
 
 
+def dense_on_walk():
+    """Whether this tree's dense sweeps walk the sweep table."""
+    return "sweep" in inspect.signature(dense.sweep_closest).parameters
+
+
+def regen_round_rays(world, camera, settings, seed):
+    """The gem's first pt_trace_regen round's dense sweep calls: (camera
+    rays, the first NEE sample's shadow rays, their worth mask or None)."""
+    from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
+
+    got = {}
+    real = dense.sweep_closest, dense.sweep_any
+
+    def grab(name, fn):
+        def wrapped(rays, tab, *rest):
+            got.setdefault(name, (rays.clone(), *rest))
+            return fn(rays, tab, *rest)
+        return wrapped
+
+    dense.sweep_closest = grab("closest", real[0])
+    dense.sweep_any = grab("any", real[1])
+    try:
+        gen = torch.Generator(device=world.prims.pa.device).manual_seed(seed)
+        pt_trace_regen(world, camera, settings, WIDTH, WIDTH, 8,
+                       mk.TorchUniforms(gen), max_rounds=1)
+    finally:
+        dense.sweep_closest, dense.sweep_any = real
+    shadow = got["any"]
+    return got["closest"][0], shadow[0], shadow[2] if len(shadow) > 2 \
+        else None
+
+
+def bench_dense(dev, smi, reps):
+    """The dense sweeps on the gem's first regen round's rays at 1080 x 1080
+    and on 2^20 random rays over the random table, resident and through the
+    ring (the budget one row under the table)."""
+    world = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    s = PTSettings(max_bounces=12, min_bounces=1, light_samples=2,
+                   russian_roulette=True)
+    cam_rays, nee_rays, worth = regen_round_rays(world, camera, s, 2026)
+    p = scenes.random_prims(SceneBuilder(), spectral, seed=1, grid=20,
+                            n_each=100).build(dev).prims
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 1 << 20
+    d = torch.randn((3, n), generator=gen, device=dev)
+    rnd = torch.cat([torch.rand((3, n), generator=gen, device=dev) * 1.4
+                     - 0.2, d / torch.linalg.norm(d, dim=0, keepdim=True),
+                     torch.full((1, n), 1e-6, device=dev),
+                     torch.rand((1, n), generator=gen, device=dev) * 1.45
+                     + 0.05]).contiguous()
+    walk = dense_on_walk()
+    budget0 = mk.SWEEP_RESIDENT_ROWS
+    for table, prims, cases in (
+            ("gem", world.prims, (("camera", cam_rays, "closest", None),
+                                  ("nee0", nee_rays, "any", None),
+                                  ("nee0_masked", nee_rays, "any", worth))),
+            ("random", p, (("closest", rnd, "closest", None),
+                           ("any", rnd, "any", None)))):
+        cols = [x.cpu().numpy() for x in (prims.ptype, prims.valid, prims.pa,
+                                          prims.pb, prims.pc)]
+        tab = torch.as_tensor(dense.pack_prims_np(*cols), device=dev)
+        sweep = torch.as_tensor(dense.pack_sweep_np(*cols), device=dev)
+        rows = int(tab.shape[0])
+        stagings = ((("resident", budget0), ("ring", rows - 1))
+                    if walk else (("tiles", None),))
+        for case, rays, which, live in cases:
+            if case.endswith("masked") and (live is None or not walk):
+                continue
+            kw = dict(sweep=sweep) if walk else {}
+            if live is not None:
+                kw["live"] = live
+            fn = dense.sweep_closest if which == "closest" else \
+                dense.sweep_any
+            for staging, budget in stagings:
+                if staging == "resident" and rows > budget0:
+                    continue
+                if budget is not None:
+                    mk.SWEEP_RESIDENT_ROWS = budget
+                out = fn(rays, tab, **kw)
+                rec = dict(case=f"dense_{table}_{case}_{staging}", rows=rows,
+                           rays=int(rays.shape[1]), card=smi, walk=staging,
+                           budget_rows=budget,
+                           swept=int(rays.shape[1] if live is None
+                                     else live.sum()),
+                           hit_or_blocked=int((out[-1] >= 0.5).sum()
+                                              if which == "any"
+                                              else (out[1] >= 0).sum()),
+                           out=digest(out),
+                           ms=cuda_ms(lambda: fn(rays, tab, **kw), reps),
+                           device_ms=device_ms(
+                               lambda: fn(rays, tab, **kw), reps,
+                               "dense_" if walk else "sweep_kernel"))
+                if walk:
+                    v = [ctypes.c_int() for _ in range(5)]
+                    rc = _build.library().dense_sweep_attrs(
+                        0 if which == "closest" else 1, rows,
+                        mk.SWEEP_RESIDENT_ROWS, *[ctypes.byref(x) for x in v])
+                    if rc != 0:
+                        raise RuntimeError(f"dense_sweep_attrs: {rc}")
+                    rec.update(zip(("regs", "local_bytes", "static_bytes",
+                                    "shared_bytes", "blocks_per_sm"),
+                                   [x.value for x in v]))
+                mk.SWEEP_RESIDENT_ROWS = budget0
+                emit(rec)
+
+
 def bench_lt(dev, smi, reps):
     """K12-LT and K34-LT on a second round's inputs at 2^20 lanes."""
     from pathtracer_tpu_torch.integrator.lt import LTSettings
@@ -423,7 +536,8 @@ def main():
     ap.add_argument("--cases", default="gem,gem_fine,mesh,fog",
                     help="K12/K34 cases, comma-separated, or none")
     ap.add_argument("--rounds", default="",
-                    help="fused, k1, k3, k2m and/or lt, comma-separated")
+                    help="fused, k1, k3, k2m, lt and/or dense, "
+                    "comma-separated")
     ap.add_argument("--against", default=None,
                     help="a file of the lines another tree printed: compare "
                     "the digests of the k3 and k2m rounds with its own")
@@ -450,7 +564,7 @@ def main():
     for name in args.rounds.split(","):
         if name:
             dict(fused=bench_fused, k1=bench_k1, k3=bench_k3, k2m=bench_k2m,
-                 lt=bench_lt)[name](dev, smi, args.reps)
+                 lt=bench_lt, dense=bench_dense)[name](dev, smi, args.reps)
     for name in args.cases.split(","):
         if name == "none":
             continue

@@ -10,10 +10,12 @@ port's own `SceneBuilder.build()` goes through it too. The medium table
 
 `intersect` / `intersect_any` answer the closest-hit and shadow queries by
 the dense sweep at every prim count (`geometry/soa.intersect_dense`: the
-CUDA kernels of `kernels/csrc/dense_sweep.cu` on the card). The JAX package
-switches to its BVH above `DENSE_MAX_PRIMS`; the BVH and the two-level
-accelerator are not part of the port yet (ROADMAP §1 items 9 and 13), so
-closest hits agree with the JAX package's up to ties between equal t.
+CUDA kernels of `kernels/csrc/dense_sweep.cu` on the card, walking
+`sweep_tab`; the plain twins on the CPU, reading `dense_tab`). The JAX
+package switches to its BVH above `DENSE_MAX_PRIMS`; the BVH and the
+two-level accelerator are not part of the port yet (ROADMAP §1 items 9 and
+13), so closest hits agree with the JAX package's up to ties between equal
+t.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathtracer_tpu_torch.geometry.soa import (
     dense_table,
     intersect_any_dense,
     intersect_dense,
+    sweep_table,
 )
 from pathtracer_tpu_torch.materials.tables import Materials
 from pathtracer_tpu_torch.mediums.tables import Mediums
@@ -66,21 +69,30 @@ class World:
 
     @functools.cached_property
     def dense_tab(self) -> torch.Tensor:
-        """The packed dense sweep table, packed once per World."""
+        """The packed dense table the plain twins read, packed once per
+        World."""
         return dense_table(self.prims)
+
+    @functools.cached_property
+    def sweep_tab(self) -> torch.Tensor:
+        """The compact sweep table the dense sweep kernels walk, packed once
+        per World."""
+        return sweep_table(self.prims)
 
     def intersect(self, o, d, t_min, t_max):
         """The closest hit of rays o, d [N, 3] in (t_min, t_max) [N] ->
         HitRecord. Raises NotImplementedError on a scene with per-prim
         transforms."""
         return intersect_dense(self.prims, o, d, t_min, t_max,
-                               tab=self.dense_tab)
+                               tab=self.dense_tab, sweep=self.sweep_tab)
 
-    def intersect_any(self, o, d, t_min, t_max):
+    def intersect_any(self, o, d, t_min, t_max, live=None):
         """Whether anything blocks each ray within (t_min, t_max) ->
-        bool[N]."""
+        bool[N]. With `live` (bool[N]) only the live lanes are swept; the
+        others read False."""
         return intersect_any_dense(self.prims, o, d, t_min, t_max,
-                                   tab=self.dense_tab)
+                                   tab=self.dense_tab, sweep=self.sweep_tab,
+                                   live=live)
 
     def pick_random_light(self, u):
         """A uniform light pick per lane -> (prim index, pick pdf)."""

@@ -29,9 +29,12 @@ residency budget, and the 41 tiles of the mesh), the two bit for bit equal
 to each other, at 1, 2 and 3 NEE samples; and the split round renders the
 film of the two-program round. The polygon-aperture respawn and the
 direct-only cut, which no recipe reaches, have a case each (fused round,
-K12, K34). `World.intersect` / `intersect_any` on a CUDA world launch the
-dense sweep kernels and give the CPU twin's hit record, and a regen render
-launches them once a round and once a round per light sample."""
+K12, K34). The dense sweeps (dense_sweep.cu) walk the sweep table too, one
+ray a lane with its own bounds, resident and through the ring, a table of
+9,216 rows among them, equal to their twins bit for bit with and without
+the any-hit sweep's `live` mask. `World.intersect` / `intersect_any` on a
+CUDA world launch them and give the CPU twin's hit record, and a regen
+render launches them once a round and once a round per light sample."""
 
 import numpy as np
 import pytest
@@ -64,30 +67,99 @@ def _rays(n, gen, dev, tmax=None):
     return torch.cat([o, d, t0, t1]).contiguous()
 
 
-@pytest.mark.parametrize("table", ["chip", "random"])
-def test_sweep_kernel_matches_plain(dev, table):
+def _dense_tables(table, dev):
+    """(the packed table, the sweep table) of a dense sweep case: the chip
+    scene (32 rows), the gem (352), the random table of all four prim types
+    (1,120 rows: the ring at the default budget) and a random one of 9,216
+    rows, over the round kernels' 8192-row cap."""
     if table == "chip":
-        w = scenes.chip_scene(SceneBuilder(), spectral).build("cpu")
+        w = scenes.chip_scene(SceneBuilder(), spectral).build(dev)
+    elif table == "gem":
+        w = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
     else:
         w = scenes.random_prims(SceneBuilder(), spectral, seed=2, grid=20,
-                                n_each=100).build("cpu")
-    p = w.prims
-    tab = torch.as_tensor(dense.pack_prims_np(
-        p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(), p.pb.numpy(),
-        p.pc.numpy()), device=dev)
+                                n_each=100 if table == "random"
+                                else 2800).build(dev)
+    return w.dense_tab, w.sweep_tab
+
+
+@pytest.mark.parametrize("table", ["chip", "random"])
+def test_sweep_kernel_matches_plain(dev, table):
+    tab, sweep = _dense_tables(table, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     rays = _rays(1 << 16, gen, dev)
     launches = dense.CLOSEST_LAUNCHES
-    k, pl = dense.sweep_closest(rays, tab), dense.sweep_closest_plain(rays,
-                                                                      tab)
+    k = dense.sweep_closest(rays, tab, sweep)
+    pl = dense.sweep_closest_plain(rays, tab)
     assert dense.CLOSEST_LAUNCHES == launches + 1
-    assert torch.equal(k[1], pl[1])
-    hit = k[1] >= 0
-    assert torch.allclose(k[0][hit], pl[0][hit], rtol=1e-5, atol=0.0)
+    assert torch.equal(k, pl)
+    assert (k[1] >= 0).float().mean() > 0.05
     rays_a = _rays(1 << 16, gen, dev,
                    torch.rand((1, 1 << 16), generator=gen, device=dev) + 0.05)
-    assert torch.equal(dense.sweep_any(rays_a, tab),
+    assert torch.equal(dense.sweep_any(rays_a, tab, sweep),
                        dense.sweep_any_plain(rays_a, tab))
+    with pytest.raises(ValueError, match="sweep="):
+        dense.sweep_closest(rays, tab)
+    with pytest.raises(ValueError, match="sweep="):
+        dense.sweep_any(rays_a, tab)
+
+
+def _odd_rays(n, gen, dev):
+    """Rays with per-ray bounds and the degenerate lanes the regen
+    integrator and the JAX padding hand the sweeps: t_min drawn in (0, 0.3)
+    on a third of the lanes; t_min = t_max = 0 with a zero direction; NaN
+    and inf origins; NaN and zero directions; t_min >= t_max."""
+    rays = _rays(n, gen, dev, torch.rand((1, n), generator=gen, device=dev)
+                 * 1.45 + 0.05)
+    pick = torch.rand(n, generator=gen, device=dev)
+    rays[6] = torch.where(pick < 0.3, pick, rays[6])
+    k = torch.arange(n, device=dev)
+    pad = k % 97 == 1
+    rays[3:8, pad] = 0.0
+    rays[0, k % 89 == 2] = float("nan")
+    rays[1, k % 83 == 3] = float("inf")
+    rays[4, k % 79 == 4] = float("nan")
+    rays[3:6, k % 73 == 5] = 0.0
+    swap = k % 71 == 6
+    rays[6, swap], rays[7, swap] = rays[7, swap] + 0.01, rays[6, swap]
+    return rays
+
+
+@pytest.mark.parametrize("table,budget", [
+    ("chip", "default"), ("gem", "default"), ("gem", "at_table"),
+    ("gem", "one_row_under"), ("random", "default"), ("big", "default")])
+def test_dense_sweeps_walk_equal_twins(dev, table, budget, monkeypatch):
+    """dense_sweep_closest and dense_sweep_any walk the sweep table through
+    walk.cuh, resident (the chip, the gem: the budget at the table) or
+    through the ring (the gem with the budget one row under its table, the
+    1,120-row random table, the 9,216-row one, which no round kernel
+    takes): ids, t and masks equal to the twins' bit for bit on rays with
+    per-ray bounds and degenerate lanes, and with the `live` mask the
+    masked lanes read 0 and the others the unmasked verdict."""
+    tab, sweep = _dense_tables(table, dev)
+    rows = int(sweep.shape[0])
+    if budget != "default":
+        monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS",
+                            rows if budget == "at_table" else rows - 1)
+    assert (rows <= mk.SWEEP_RESIDENT_ROWS) == (
+        table in ("chip", "gem") and budget != "one_row_under")
+    n = (1 << 13) if table == "big" else (1 << 16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rays = _odd_rays(n, gen, dev)
+    launches = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
+    k = dense.sweep_closest(rays, tab, sweep)
+    assert torch.equal(k, dense.sweep_closest_plain(rays, tab))
+    assert (k[1] >= 0).any()
+    ka = dense.sweep_any(rays, tab, sweep)
+    assert torch.equal(ka, dense.sweep_any_plain(rays, tab))
+    assert 0.0 < float(ka.mean()) < 1.0
+    live = torch.rand(n, generator=gen, device=dev) < 0.6
+    km = dense.sweep_any(rays, tab, sweep, live)
+    assert torch.equal(km, dense.sweep_any_plain(rays, tab, live))
+    assert torch.equal(km[0][live], ka[0][live])
+    assert not km[0][~live].any()
+    assert (dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 2)
 
 
 @pytest.mark.parametrize("recipe", [scenes.chip_scene, scenes.cornell_sharp],
@@ -694,9 +766,11 @@ def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
 @pytest.mark.parametrize("recipe", ["gem_cornell", "light_grid_cornell"])
 def test_world_intersect_and_regen_launch_dense_sweeps(dev, recipe):
     """World.intersect / intersect_any on a CUDA world launch the dense
-    sweep kernels and give the CPU twin's hit record (ids and masks equal,
-    attributes within rtol 1e-5); a regen render launches the closest sweep
-    once a round and the any sweep once a round per light sample."""
+    sweep kernels on World.sweep_tab and give the CPU twin's hit record
+    (ids and masks equal, attributes within rtol 1e-5), with and without
+    the `live` mask; a regen render, whose shadow queries pass the samples'
+    worth as the mask, launches the closest sweep once a round and the any
+    sweep once a round per light sample."""
     from pathtracer_tpu_torch.renderer.persistent import render_regen
 
     fn = getattr(scenes, recipe)
@@ -712,10 +786,15 @@ def test_world_intersect_and_regen_launch_dense_sweeps(dev, recipe):
     before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
     hk = w_gpu.intersect(*[x.to(dev) for x in (o, d, t0, t1)])
     bk = w_gpu.intersect_any(*[x.to(dev) for x in (o, d, t0, t1)])
+    live = torch.rand(n, generator=gen) < 0.5
+    bm = w_gpu.intersect_any(*[x.to(dev) for x in (o, d, t0, t1)],
+                             live=live.to(dev))
     assert (dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + 2)
     hp, bp = w_cpu.intersect(o, d, t0, t1), w_cpu.intersect_any(o, d, t0, t1)
     assert torch.equal(bk.cpu(), bp)
+    assert torch.equal(bm.cpu(), w_cpu.intersect_any(o, d, t0, t1, live))
+    assert torch.equal(bm.cpu(), bp & live)
     for f in ("hit", "prim_id", "material_id", "mat_kind", "instance_id"):
         assert torch.equal(getattr(hk, f).cpu(), getattr(hp, f)), f
     hit = hp.hit

@@ -1,5 +1,6 @@
-"""The port's plain dense sweep (twin of csrc/dense_sweep.cu) against the JAX
-package's Pallas sweep in interpret mode and its XLA `intersect_dense`, on
+"""The port's plain dense sweep (twin of csrc/dense_sweep.cu's walks) against
+the JAX package's Pallas sweep in interpret mode and its XLA
+`intersect_dense`, on
 5000 seeded rays through the chip scene and a random table with all four
 prim types (including a triangle mesh whose neighbours share edges).
 Hit and prim id must be exact and t within rtol 1e-5, atol 1e-5, as the JAX
@@ -116,3 +117,10 @@ def test_wrapper_checks_and_counts():
         dense.sweep_any(rays.double(), tab)
     with pytest.raises(ValueError):
         dense.sweep_any(torch.zeros((10, 8)).T, tab)
+    # the lanes to sweep: bool [N] on the rays' device
+    live = torch.arange(10) % 2 == 0
+    assert dense.sweep_any(rays, tab, live=live).shape == (1, 10)
+    with pytest.raises(TypeError, match="live"):
+        dense.sweep_any(rays, tab, live=live.float())
+    with pytest.raises(ValueError, match="live"):
+        dense.sweep_any(rays, tab, live=live[:9])

@@ -175,6 +175,33 @@ def test_intersect_any_matches_jax(recipe, ref):
     assert 0.1 < want.mean() < 1.0
 
 
+@pytest.mark.parametrize("recipe", INTERSECT_RECIPES)
+def test_intersect_any_live_lanes_match_jax(recipe):
+    """`intersect_any(..., live=)` sweeps only the live lanes: there it
+    equals the unmasked query and the JAX `intersect_any_dense`, elsewhere
+    it reads False, whatever the dead lanes hold (NaN origins, zero
+    directions, t_min = t_max = 0, the JAX package's padding)."""
+    jw, tw, o, d, tmin, tmax = _scene_rays(recipe)
+    live = np.random.default_rng(6).uniform(size=N_RAYS) < 0.6
+    dead = np.flatnonzero(~live)
+    o2, d2, tmin2, tmax2 = o.copy(), d.copy(), tmin.copy(), tmax.copy()
+    o2[dead[0::3]] = np.nan
+    d2[dead[1::3]] = 0.0
+    tmin2[dead[2::3]] = tmax2[dead[2::3]] = 0.0
+    want = np.asarray(j_any(jw.prims, *[jnp.asarray(x)
+                                        for x in (o, d, tmin, tmax)]))
+    full = tw.intersect_any(*[torch.as_tensor(x) for x in (o, d, tmin,
+                                                           tmax)])
+    got = tw.intersect_any(*[torch.as_tensor(x) for x in (o2, d2, tmin2,
+                                                          tmax2)],
+                           live=torch.as_tensor(live))
+    assert got.dtype == torch.bool and got.shape == (N_RAYS,)
+    np.testing.assert_array_equal(got.numpy()[live], full.numpy()[live])
+    np.testing.assert_array_equal(got.numpy()[live], want[live])
+    assert not got.numpy()[~live].any()
+    assert 0.1 < want[live].mean() < 1.0
+
+
 def test_intersect_refuses_transforms_and_ignore_prim():
     from pathtracer_tpu_torch.geometry.soa import intersect_dense
 

@@ -94,6 +94,37 @@ def test_bake_carries_sweep_tab(recipe, cam):
         mk._sweep_tab(stale)
 
 
+WORLD_RECIPES = ["chip_scene", "gem_cornell", "light_grid_cornell"]
+
+
+@pytest.mark.parametrize("recipe", WORLD_RECIPES)
+def test_world_sweep_tab_packed_once(recipe, monkeypatch):
+    """`World.sweep_tab`, the table the dense sweep kernels walk, is
+    `pack_sweep_np` of the world's prims bit for bit, beside `dense_tab`,
+    and packed once however many queries the world answers."""
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build("cpu")
+    packs = []
+    real = dense.pack_sweep_np
+    monkeypatch.setattr(dense, "pack_sweep_np",
+                        lambda *cols: packs.append(1) or real(*cols))
+    o = torch.full((16, 3), 0.5)
+    d = torch.nn.functional.normalize(torch.randn(
+        (16, 3), generator=torch.Generator().manual_seed(2)), dim=1)
+    t0, t1 = torch.full((16,), 1e-6), torch.full((16,), 1e9)
+    for _ in range(2):
+        world.intersect(o, d, t0, t1)
+        world.intersect_any(o, d, t0, t1, live=torch.ones(16, dtype=bool))
+    assert len(packs) == 1
+    sweep = world.sweep_tab
+    assert sweep is world.sweep_tab
+    assert sweep.device.type == "cpu" and sweep.is_contiguous()
+    p = world.prims
+    want = real(p.ptype.numpy(), p.valid.numpy(), p.pa.numpy(),
+                p.pb.numpy(), p.pc.numpy())
+    assert np.array_equal(bits(sweep.numpy()), bits(want))
+    check_table(sweep.numpy(), world.dense_tab.numpy())
+
+
 def lt_bake(recipe, cam, v2):
     world = getattr(scenes, recipe)(SceneBuilder(), spectral).build("cpu")
     camera = make_projective_camera(**getattr(scenes, cam), device="cpu")
@@ -150,12 +181,34 @@ def lt_scenes():
 
 
 @pytest.mark.parametrize("how", ["stale", "cols", "dtype", "strided"])
-@pytest.mark.parametrize("wrapper", ["k1", "k3", "lt_v2", "lt_v1"])
+@pytest.mark.parametrize("wrapper", ["k1", "k3", "lt_v2", "lt_v1",
+                                     "dense_closest", "dense_any"])
 def test_wrappers_refuse_a_bad_sweep_tab(lt_scenes, wrapper, how):
-    """K1 (`dense.sweep_closest_rows`), K3 (`dense.sweep_any_rows`) and
-    K34-LT v2 and v1 check the sweep table they would walk before the device
-    branch: on CPU tensors, where the twins read the dense table, a stale or
-    mis-shaped one is refused, and the baked one gives the twin's rows."""
+    """K1 (`dense.sweep_closest_rows`), K3 (`dense.sweep_any_rows`), K34-LT
+    v2 and v1 and the dense sweeps (`dense.sweep_closest`, `sweep_any`)
+    check the sweep table they would walk before the device branch: on CPU
+    tensors, where the twins read the dense table, a stale or mis-shaped
+    one is refused, and the baked one gives the twin's rows."""
+    if wrapper.startswith("dense"):
+        scene = lt_scenes[True].tabs
+        gen = torch.Generator().manual_seed(10)
+        d = torch.randn((3, 64), generator=gen)
+        rays = torch.cat([torch.rand((3, 64), generator=gen),
+                          d / torch.linalg.norm(d, dim=0),
+                          torch.full((1, 64), 1e-6),
+                          torch.full((1, 64), 1e9)]).contiguous()
+        fn, twin = ((dense.sweep_closest, dense.sweep_closest_plain)
+                    if wrapper == "dense_closest"
+                    else (dense.sweep_any, dense.sweep_any_plain))
+        bad = bad_sweep(scene.sweep_tab, how)
+        with pytest.raises((ValueError, TypeError), match="sweep_tab"):
+            fn(rays, scene.dense_tab, bad)
+        before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
+        out = fn(rays, scene.dense_tab, scene.sweep_tab)
+        assert (dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES) == before
+        assert torch.equal(out, twin(rays, scene.dense_tab))
+        assert (out[-1] >= 0.5).any()
+        return
     if wrapper == "k3":
         scene = lt_scenes[True].tabs
         gen = torch.Generator().manual_seed(9)

@@ -672,3 +672,78 @@ def regen_state_to_jax(state):
     counters = len(out) - 2
     out[counters] = out[counters].astype(jnp.float32)
     return (jnp.int32(rnd_i), *out)
+
+
+REGEN_DISCRETE = ("alive", "done", "bounce_ct", "med_stack")
+
+
+def _lane_rows(x):
+    x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return x.reshape(x.shape[0], -1)
+
+
+def check_regen_state(ref, got):
+    """The port's RegenState `got` against the JAX carry's `ref` (both as
+    RegenStates): the discrete rows equal on >= 99.9% of lanes; on those
+    lanes every continuous row within rtol 1e-4, atol 1e-5 on >= 99.9% of
+    them and within rtol 5e-3, atol 1e-4 on all; prev_pdf within rtol 2e-2;
+    the counters within 1e-3 a lane (tests/test_torch_regen_rounds.py
+    gives the reasons)."""
+    n = got.alive.shape[0]
+    assert ref.rnd_i == got.rnd_i
+    match = np.ones(n, bool)
+    for f in REGEN_DISCRETE:
+        match &= (_lane_rows(getattr(ref, f))
+                  == _lane_rows(getattr(got, f))).all(axis=1)
+    assert match.mean() >= 0.999, f"discrete rows agree on {match.mean()}"
+    for f in ("o", "d", "lam", "beta", "path_rad", "acc", "prev_pdf",
+              "pdfr"):
+        x = _lane_rows(getattr(ref, f))[match]
+        y = _lane_rows(getattr(got, f))[match]
+        if f == "prev_pdf":
+            np.testing.assert_allclose(y, x, rtol=2e-2, atol=1e-5,
+                                       err_msg=f)
+            continue
+        ok = np.isclose(y, x, rtol=1e-4, atol=1e-5).all(axis=1)
+        assert ok.mean() >= 0.999, f"{f}: {ok.mean()} of lanes within 1e-4"
+        np.testing.assert_allclose(y, x, rtol=5e-3, atol=1e-4, err_msg=f)
+    np.testing.assert_allclose(got.counters.numpy(), ref.counters.numpy(),
+                               rtol=0, atol=1e-3 * n)
+
+
+def regen_rounds_match_jax(recipe, hwss, medium, width=32, spp=4,
+                           rounds=3):
+    """`rounds` rounds of the port's pt_trace_regen against the JAX one on
+    the JAX draws (`RegenReplay`), each package chained on its own state
+    from the same first spawn, every state held by `check_regen_state`."""
+    from pathtracer_tpu.integrator.pt_regen import pt_trace_regen as j_regen
+    from pathtracer_tpu_torch.integrator.pt_regen import (
+        pt_trace_regen as t_regen,
+    )
+
+    jw, tw, jc, tc = both_worlds(recipe)
+    js, ts = both_settings(**NEE_SETTINGS, hwss=hwss, medium_aware=medium)
+    key = jax.random.PRNGKey(7)
+
+    @jax.jit
+    def j_round(world, cam, st):
+        return j_regen(world, cam, js, width, width, spp, key,
+                       init_state=st, max_rounds=1, return_state=True)
+
+    uni = RegenReplay(key)
+    jst = j_regen(jw, jc, js, width, width, spp, key, max_rounds=0,
+                  return_state=True)
+    tst = t_regen(tw, tc, ts, width, width, spp, uni, max_rounds=0,
+                  return_state=True)
+    check_regen_state(regen_state_to_torch(jst), tst)
+    back = regen_state_to_torch(regen_state_to_jax(tst))
+    for f, x in zip(back._fields, back):
+        assert f == "rnd_i" and x == tst.rnd_i or torch.equal(
+            x, getattr(tst, f)), f
+    for _ in range(rounds):
+        jst = j_round(jw, jc, jst)
+        tst = t_regen(tw, tc, ts, width, width, spp, uni, init_state=tst,
+                      max_rounds=1, return_state=True)
+        check_regen_state(regen_state_to_torch(jst), tst)
+    assert tst.alive.any() and tst.counters[2] > 0
+    return tst
