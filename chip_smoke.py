@@ -23,7 +23,18 @@ fog box at 512x512, 4 spp, medium-aware (within 0.05 of the medium
 route's), with both sweep kernels held to their twins bit for bit on the
 gem render's own first camera and shadow rays (every lane, and the
 masked lanes) and a whole gem render's shadow queries timed with and
-without the mask. Films go to `output/`. Then the
+without the mask. Then the light-tracing wavefront (`integrator/lt.py:
+lt_trace`, torch with `dense_sweep.cu`'s kernels for its closest hits and
+lens connections): the textured Cornell box at 1080x1080, 4 light paths per
+pixel, max bounces 8, stratified, through `render_splatted`'s default route
+(the LT megakernel's gate refuses it; film mean within 0.15 of the path
+tracer's at matched bounces), and the lens box at 512x512, 8 paths per
+pixel through `lt_trace` and through the LT megakernel (means within 0.15,
+particles equal, bounce rays within 0.08); and BDPT (`integrator/bdpt.py`)
+through `render_bdpt` on the Cornell box at 512x512, 4 spp, max_depth 4
+(film mean within 0.05 of the path tracer's at matched coverage) and 6;
+both dense kernels held to their twins bit for bit on an lt_trace bounce's
+and a BDPT pass's own rays. Films go to `output/`. Then the
 dispersive hero-wavelength furnace and the HDR furnace must come out
 uniform. Last, the light tracer: three chained rounds of K12-LT and K34-LT
 (v2: in-kernel spawn, on the chip scene with its lens proxy at 1 and 2
@@ -1186,6 +1197,83 @@ def close_rel(a, b, rtol):
     return all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b))
 
 
+def dense_rays(torch, fn, closest_at=0, any_at=0):
+    """Run `fn` and return the closest-hit query number `closest_at` and
+    the shadow query number `any_at` that it hands the dense sweep kernels,
+    each as (rays, packed table, sweep table, live mask or None)."""
+    from pathtracer_tpu_torch.kernels import dense
+
+    got = {"closest": [], "any": []}
+    real = dense.sweep_closest, dense.sweep_any
+
+    def grab(name, at, fn):
+        def wrapped(rays, tab, sweep=None, live=None):
+            if len(got[name]) <= at:
+                got[name].append((rays.clone(), tab, sweep, None if live is
+                                  None else live.clone()))
+            return fn(rays, tab, sweep, live) if name == "any" \
+                else fn(rays, tab, sweep)
+        return wrapped
+
+    dense.sweep_closest = grab("closest", closest_at, real[0])
+    dense.sweep_any = grab("any", any_at, real[1])
+    try:
+        fn()
+    finally:
+        dense.sweep_closest, dense.sweep_any = real
+    return got["closest"][closest_at], got["any"][any_at]
+
+
+def wavefront_render(torch, dev, name, render, n_closest, n_any, extra=None):
+    """One render of a wavefront integrator without round kernels
+    (`render(seed, stats)` -> (film, Profile, wall s)): the dense sweep
+    kernels launch as `n_closest(stats)` and `n_any(stats)` say, no round
+    kernel or plain twin runs; the film is finite and lit. Then a warm
+    render and a third with the device traced alone: the busy share and
+    the sweeps' share of device time."""
+    from pathtracer_tpu_torch.kernels import dense
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+    from pathtracer_tpu_torch.renderer.output import output_film
+    from pathtracer_tpu_torch.tonemap import Reinhard0
+
+    reset_counts(mk, dense, lt)
+    stats = {}
+    film, profile, elapsed = render(2026, stats)
+    counts = dict(dense_sweep_closest=dense.CLOSEST_LAUNCHES,
+                  dense_sweep_any=dense.ANY_LAUNCHES,
+                  round_kernels=(mk.FUSED_LAUNCHES + mk.SHADE_LAUNCHES
+                                 + mk.K2_LAUNCHES + dense.ROWS_LAUNCHES
+                                 + lt.SHADE_LAUNCHES),
+                  plain_calls=(mk.PLAIN_CALLS + dense.ROWS_PLAIN_CALLS
+                               + dense.ANY_ROWS_PLAIN_CALLS
+                               + lt.PLAIN_CALLS))
+    check(counts["dense_sweep_closest"] == n_closest(stats) > 0
+          and counts["dense_sweep_any"] == n_any(stats)
+          and counts["round_kernels"] == counts["plain_calls"] == 0,
+          f"{name}: launches {counts} for {stats}")
+    film_h = film.cpu()
+    check(bool(torch.isfinite(film_h).all()), f"{name}: non-finite film")
+    mean_y = float(film_h[..., 1].mean())
+    check(mean_y > 0.0, f"{name}: film is black")
+    exr, png = output_film(film_h, name, Reinhard0(),
+                           output_dir=os.path.join(ROOT, "output"))
+    _, warm, warm_s = render(2027, {})
+    rec = dict(stats=stats, launches=counts, wall_s=elapsed,
+               mrays_per_s=profile.total_rays / elapsed / 1e6,
+               warm_wall_s=warm_s,
+               warm_mrays_per_s=warm.total_rays / warm_s / 1e6,
+               counters=profile_counts(profile), mean_y=mean_y,
+               film_mean=film_h.double().mean(dim=(0, 1)).tolist(),
+               png=os.path.relpath(png, ROOT), **(extra or {}))
+    rec.update(busy_profile(torch, lambda: render(2028, {}),
+                            prefixes=("dense_closest_kernel",
+                                      "dense_any_kernel"), host_ops=False))
+    rec["sweep_share_of_device_ms"] = (rec["round_kernels_ms"]
+                                       / rec["device_ms"])
+    return rec
+
+
 def regen_rays(torch, world, camera, settings, width, spp, seed):
     """The ray rows that one round of pt_trace_regen hands the dense sweep
     kernels: the first closest-hit query's (the camera rays) and the first
@@ -1193,28 +1281,12 @@ def regen_rays(torch, world, camera, settings, width, spp, seed):
     sweep table, live mask: None for the closest-hit query, the sample's
     worth for the shadow query)."""
     from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
-    from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
 
-    got = {}
-    real = dense.sweep_closest, dense.sweep_any
-
-    def grab(name, fn):
-        def wrapped(rays, tab, sweep=None, *live):
-            got.setdefault(name, (rays.clone(), tab, sweep, *[
-                x.clone() for x in live]))
-            return fn(rays, tab, sweep, *live)
-        return wrapped
-
-    dense.sweep_closest = grab("closest", real[0])
-    dense.sweep_any = grab("any", real[1])
-    try:
-        gen = torch.Generator(device=world.prims.pa.device).manual_seed(seed)
-        pt_trace_regen(world, camera, settings, width, width, spp,
-                       TorchUniforms(gen), max_rounds=1)
-    finally:
-        dense.sweep_closest, dense.sweep_any = real
-    return got["closest"][:3] + (None,), got["any"]
+    gen = torch.Generator(device=world.prims.pa.device).manual_seed(seed)
+    return dense_rays(torch, lambda: pt_trace_regen(
+        world, camera, settings, width, width, spp, TorchUniforms(gen),
+        max_rounds=1))
 
 
 def mask_effect(torch, world, camera, settings, width, spp, seed):
@@ -1357,12 +1429,9 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
     at the gem's table, resident and through the ring."""
     from pathtracer_tpu_torch import scenes
     from pathtracer_tpu_torch.core import spectral
-    from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
     from pathtracer_tpu_torch.parsing import SceneBuilder
-    from pathtracer_tpu_torch.renderer.output import output_film
     from pathtracer_tpu_torch.renderer.persistent import render_regen
-    from pathtracer_tpu_torch.tonemap import Reinhard0
 
     def render(world, camera, settings, w, spp, seed, use=None, stats=None):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -1370,45 +1439,15 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
                             device=dev, stats=stats, use_megakernel=use)
 
     def regen_case(name, world, camera, settings, w, spp, use):
-        reset_counts(mk, dense)
-        stats = {}
-        film, profile, elapsed = render(world, camera, settings, w, spp,
-                                        2026, use, stats)
         ls = settings.light_samples
-        counts = dict(dense_sweep_closest=dense.CLOSEST_LAUNCHES,
-                      dense_sweep_any=dense.ANY_LAUNCHES,
-                      round_kernels=(mk.FUSED_LAUNCHES + mk.SHADE_LAUNCHES
-                                     + mk.K2_LAUNCHES + dense.ROWS_LAUNCHES),
-                      plain_calls=(mk.PLAIN_CALLS + dense.ROWS_PLAIN_CALLS
-                                   + dense.ANY_ROWS_PLAIN_CALLS))
-        rounds = stats["rounds"]
-        check(stats["route"] == "regen", f"{name}: route {stats['route']}")
-        check(counts["dense_sweep_closest"] == rounds > 0
-              and counts["dense_sweep_any"] == ls * rounds
-              and counts["round_kernels"] == counts["plain_calls"] == 0,
-              f"{name}: launches {counts} for {rounds} rounds")
-        film_h = film.cpu()
-        check(bool(torch.isfinite(film_h).all()), f"{name}: non-finite film")
-        check(float(film_h[..., 1].mean()) > 0.0, f"{name}: film is black")
-        exr, png = output_film(film_h, f"{name}_regen_{w}", Reinhard0(),
-                               output_dir=os.path.join(ROOT, "output"))
-        rec = dict(width=w, spp=spp, rounds=rounds, launches=counts,
-                   wall_s=elapsed,
-                   mrays_per_s=profile.total_rays / elapsed / 1e6,
-                   counters=profile_counts(profile),
-                   film_mean=film_h.double().mean(dim=(0, 1)).tolist(),
-                   png=os.path.relpath(png, ROOT))
-        if w == width:
-            _, warm, warm_s = render(world, camera, settings, w, spp, 2027,
-                                     use)
-            rec.update(warm_wall_s=warm_s,
-                       warm_mrays_per_s=warm.total_rays / warm_s / 1e6,
-                       **busy_profile(torch, lambda: render(
-                           world, camera, settings, w, spp, 2028, use),
-                           prefixes=("dense_closest_kernel",
-                                     "dense_any_kernel"), host_ops=False))
-            rec["sweep_share_of_device_ms"] = (rec["round_kernels_ms"]
-                                               / rec["device_ms"])
+        rec = wavefront_render(
+            torch, dev, f"{name}_regen_{w}",
+            lambda seed, stats: render(world, camera, settings, w, spp, seed,
+                                       use, stats),
+            lambda stats: stats["rounds"],
+            lambda stats: ls * stats["rounds"], dict(width=w, spp=spp))
+        check(rec["stats"]["route"] == "regen",
+              f"{name}: route {rec['stats']}")
         return rec
 
     res = {}
@@ -1467,6 +1506,174 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
           f"medium route's {fog_mean}")
     res["fog_cornell"] = dict(fog, medium_route_film_mean=fog_mean)
     emit("render_regen", **res)
+    return res
+
+
+def phase_lt_trace(torch, dev, width, ppp, lens_width, lens_ppp):
+    """The light-tracing wavefront (integrator/lt.py:lt_trace) through
+    render_splatted: the textured box at width² · ppp (outside the LT
+    megakernel's gate: the default route takes lt_trace), its film held to
+    the texture route's path-traced film at matched bounces (mean Y within
+    0.15), exactly width² · ppp particles; the lens box at lens_width² ·
+    lens_ppp through use_megakernel=False and through the LT megakernel
+    (mean Y within 0.15, particles equal, bounce rays within 0.08; the two
+    CAMERA_RAYS counts printed by their definitions). Every bounce launches
+    dense_sweep_closest once, the light vertex and every camera sample of a
+    bounce dense_sweep_any once. Both kernels are held to their twins bit
+    for bit, and timed, on bounce 0's rays of the textured render."""
+    from pathtracer_tpu_torch.integrator.lt import lt_trace
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+    from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.renderer.splatted import render_splatted
+
+    def splatted(world, camera, settings, w, p, use=None):
+        def render(seed, stats):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return render_splatted(world, camera, settings, w, w, p,
+                                   generator=gen, device=dev, stats=stats,
+                                   use_megakernel=use)
+        return render
+
+    def closest(stats):
+        return stats["rounds"]
+
+    def any_of(cs):
+        return lambda stats: stats["chunks"] + cs * stats["rounds"]
+
+    res = {}
+    world, camera, settings = _lt_scene(dev, "textured_cornell",
+                                        "TEXTURED_CAMERA", 1)
+    check(not lt.lt_mega_available(world, camera, settings),
+          "textured_cornell is inside the LT megakernel's gate")
+    n_paths = width * width * ppp
+    tex = wavefront_render(
+        torch, dev, f"lt_trace_textured_cornell_{width}",
+        splatted(world, camera, settings, width, ppp), closest, any_of(1),
+        dict(width=width, paths_per_pixel=ppp, paths=n_paths,
+             max_bounces=settings.max_bounces))
+    check(tex["stats"]["route"] == "lt_trace"
+          and tex["counters"][3] == n_paths,
+          f"textured LT: route {tex['stats']}, {tex['counters'][3]} "
+          f"particles for {n_paths}")
+    pt_settings = PTSettings(max_bounces=settings.max_bounces,
+                             min_bounces=settings.min_bounces,
+                             light_samples=1, russian_roulette=True)
+    stats = {}
+    pt_film, _, _ = render_regen(
+        world, camera, pt_settings, width, width, 4, device=dev, stats=stats,
+        generator=torch.Generator(device=dev).manual_seed(7))
+    check(stats["route"] == "megakernel", "textured PT left the megakernel")
+    pt_y = float(pt_film[..., 1].mean())
+    tex["pt_mean_y"] = pt_y
+    check(abs(tex["mean_y"] - pt_y) / pt_y < 0.15,
+          f"textured LT/PT mean Y {tex['mean_y']} / {pt_y}")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    c_rays, a_rays = dense_rays(torch, lambda: lt_trace(
+        world, camera, settings, width, width, width * width,
+        TorchUniforms(gen)), 0, 1)
+    res["kernels_on_lt_trace_rays"] = {
+        "dense_sweep_closest": dense_vs_plain(torch, *c_rays, True),
+        "dense_sweep_any": dense_vs_plain(torch, *a_rays, False)}
+    res["textured_cornell"] = tex
+    # the bench's LT configuration on both routes
+    world, camera, settings = _lt_scene(dev, "lens_box", "LENS_BOX_CAMERA",
+                                        1)
+    wave = wavefront_render(
+        torch, dev, f"lt_trace_lens_box_{lens_width}",
+        splatted(world, camera, settings, lens_width, lens_ppp, False),
+        closest, any_of(1), dict(width=lens_width, paths_per_pixel=lens_ppp))
+    mega_render = splatted(world, camera, settings, lens_width, lens_ppp)
+    stats = {}
+    film, mega, mega_s = mega_render(2026, stats)
+    check(stats["route"] == "lt_mega", f"lens box: route {stats}")
+    _, mega_warm, mega_warm_s = mega_render(2027, {})
+    mega_y = float(film[..., 1].mean())
+    wc, mc = wave["counters"], profile_counts(mega)
+    check(abs(wave["mean_y"] - mega_y) / mega_y < 0.15,
+          f"lens box: lt_trace mean Y {wave['mean_y']} / LT megakernel "
+          f"{mega_y}")
+    check(wc[3] == mc[3] == lens_width * lens_width * lens_ppp,
+          f"lens box: particles {wc[3]} / {mc[3]}")
+    check(close_rel([wc[1]], [mc[1]], 0.08),
+          f"lens box: bounce rays {wc[1]} / {mc[1]}")
+    res["lens_box"] = dict(
+        wave, lt_mega=dict(mean_y=mega_y, wall_s=mega_s,
+                           mrays_per_s=mega.total_rays / mega_s / 1e6,
+                           warm_wall_s=mega_warm_s,
+                           warm_mrays_per_s=(mega_warm.total_rays
+                                             / mega_warm_s / 1e6),
+                           counters=mc),
+        camera_rays_lt_trace_every_lane=wc[0],
+        camera_rays_lt_mega_live_lanes=mc[0])
+    emit("lt_trace", **res)
+    return res
+
+
+def phase_bdpt(torch, dev, width, spp, depths):
+    """BDPT (integrator/bdpt.py) through render_bdpt on the Cornell box at
+    width² · spp for each max_depth of `depths`: a pass launches
+    dense_sweep_closest once a step of either subpath's walk and
+    dense_sweep_any once for each strategy family with shadow rays
+    (environment NEE, connections, lens splats); the films are finite and
+    lit; the first depth's film mean Y within 0.05 of the path tracer's at
+    matched coverage (max and min bounces 2 · max_depth - 2, no RR, light
+    samples 1). Both kernels are held to their twins bit for bit, and
+    timed, on one pass's light-walk and connection rays."""
+    from pathtracer_tpu_torch import scenes
+    from pathtracer_tpu_torch.camera import make_projective_camera
+    from pathtracer_tpu_torch.core import spectral
+    from pathtracer_tpu_torch.integrator.bdpt import BDPTSettings, bdpt_trace
+    from pathtracer_tpu_torch.integrator.pt import PTSettings
+    from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
+    from pathtracer_tpu_torch.parsing import SceneBuilder
+    from pathtracer_tpu_torch.renderer.bdpt_renderer import (
+        BDPT_LANE_BUDGET,
+        render_bdpt,
+    )
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+
+    world = scenes.cornell_box(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    res = {}
+    for md in depths:
+        settings = BDPTSettings(max_depth=md)
+
+        def render(seed, stats, settings=settings):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return render_bdpt(world, camera, settings, width, width, spp,
+                               generator=gen, device=dev, stats=stats)
+
+        n = width * width
+        n_chunk = -(-n // max(-(-(n * md * md) // BDPT_LANE_BUDGET), 1))
+        res[f"md{md}"] = wavefront_render(
+            torch, dev, f"bdpt_cornell_box_{width}_md{md}", render,
+            lambda stats, md=md: stats["passes"] * 2 * (md - 1),
+            lambda stats: stats["passes"] * 3,
+            dict(width=width, spp=spp, max_depth=md, pass_points=n_chunk,
+                 pass_pair_lanes=n_chunk * md * (md - 1)))
+    md = depths[0]
+    pt = PTSettings(max_bounces=2 * md - 2, min_bounces=2 * md - 2,
+                    light_samples=1, russian_roulette=False)
+    pt_film, _, _ = render_regen(
+        world, camera, pt, width, width, 16, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(9))
+    pt_y = float(pt_film[..., 1].mean())
+    bd_y = res[f"md{md}"]["mean_y"]
+    res[f"md{md}"]["pt_mean_y"] = pt_y
+    check(abs(bd_y - pt_y) / pt_y < 0.05,
+          f"BDPT md {md} mean Y {bd_y} against PT {pt_y}")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n_chunk = res[f"md{md}"]["pass_points"]
+    film_uv = torch.rand((n_chunk, 2), generator=gen, device=dev)
+    c_rays, a_rays = dense_rays(torch, lambda: bdpt_trace(
+        world, camera, BDPTSettings(max_depth=md), film_uv,
+        TorchUniforms(gen)), 0, 1)
+    res["kernels_on_bdpt_rays"] = {
+        "dense_sweep_closest": dense_vs_plain(torch, *c_rays, True),
+        "dense_sweep_any": dense_vs_plain(torch, *a_rays, False)}
+    emit("bdpt", **res)
     return res
 
 
@@ -1885,8 +2092,9 @@ def phase_render_lt(torch, dev, recipe, cam, width, ppp, v2, busy=False):
     rounds = stats["rounds"]
     k34, other = (("lt_finalize_spawn", "lt_finalize") if v2
                   else ("lt_finalize", "lt_finalize_spawn"))
-    check(stats["route"] == ("v2" if v2 else "v1"),
-          f"{recipe}: route {stats['route']}")
+    check(stats["route"] == "lt_mega"
+          and stats["lt_round"] == ("v2" if v2 else "v1"),
+          f"{recipe}: route {stats}")
     check(counts["lt_shade"] == counts[k34] == rounds > 0,
           f"{recipe}: K12-LT/K34-LT launches {counts} != rounds {rounds}")
     check(counts[other] == 0 and counts["plain_calls"] == 0,
@@ -1904,7 +2112,7 @@ def phase_render_lt(torch, dev, recipe, cam, width, ppp, v2, busy=False):
     _, warm_profile, warm_s = render(2027)
     rec = dict(scene=recipe, width=width, height=width, paths_per_pixel=ppp,
                paths=n_paths, max_bounces=settings.max_bounces,
-               route=stats["route"], rounds=rounds, wall_s=elapsed,
+               route=stats["lt_round"], rounds=rounds, wall_s=elapsed,
                mrays_per_s=rays / elapsed / 1e6, warm_wall_s=warm_s,
                warm_mrays_per_s=warm_profile.total_rays / warm_s / 1e6,
                light_rays=profile.light_rays, camera_rays=profile.camera_rays,
@@ -1961,8 +2169,8 @@ def phase_lt_estimators(torch, dev):
             device=dev, spawn_inkernel=inkernel, stats=stats)
         light_rays = Profile().add_device_counts(
             counters.cpu().tolist()).light_rays
-        check(stats["route"] == tag and light_rays == n_paths,
-              f"spike box {tag}: route {stats['route']}, "
+        check(stats["lt_round"] == tag and light_rays == n_paths,
+              f"spike box {tag}: route {stats['lt_round']}, "
               f"{light_rays} particles")
         sums[tag] = film.sum(dim=0).cpu().tolist()
     ratios = [x / y for x, y in zip(sums["v2"], sums["v1"])]
@@ -2402,6 +2610,8 @@ LT_CASES = (("chip_lens", "CHIP_LENS_CAMERA", 1, True, 1 << 20, 1080),
             ("chip_lens", "CHIP_LENS_CAMERA", 2, True, 1 << 20, 1080),
             ("hdri_blob", "SPHERE_CAMERA", 1, False, 512 * 512 * 4, 512))
 LT_PATHS = 16  # light paths per pixel of the LT render at 1080 x 1080
+# light paths per pixel of the lt_trace render of the textured box
+LT_TRACE_PATHS = 4
 # light paths per pixel of the v1 render of hdri_blob at 512 x 512: its
 # 2^20 particles fill 2^20 lanes, the count the v1 case above checks
 LT_HDRI_PATHS = 4
@@ -2436,6 +2646,8 @@ def main():
                           12)
     textured = phase_render_textured(torch, dev, WIDTH, SPP)
     regen = phase_render_regen(torch, dev, gem, WIDTH, 8, SPP, 512, 4)
+    lt_wave = phase_lt_trace(torch, dev, WIDTH, LT_TRACE_PATHS, 512, 8)
+    bdpt = phase_bdpt(torch, dev, 512, 4, (4, 6))
     phase_furnace(torch, dev)
     phase_hdr_furnace(torch, dev)
     ltr = phase_lt_round(torch, dev, LT_CASES)
@@ -2499,7 +2711,9 @@ def main():
         on_rays = kr[name]
         err = max([on_rays["max_abs_err"]] + [
             s["max_abs_err_t"] if which == "closest" else 0.0
-            for s in sweep.values()])
+            for s in sweep.values()] + [
+            lt_wave["kernels_on_lt_trace_rays"][name]["max_abs_err"],
+            bdpt["kernels_on_bdpt_rays"][name]["max_abs_err"]])
         extra = {}
         if which == "any":
             masked = kr["dense_sweep_any_masked"]
@@ -2512,6 +2726,10 @@ def main():
             replaces="pathtracer_tpu/kernels/" + line,
             launches=regen["gem_cornell"]["launches"][name],
             light_grid_launches=regen["light_grid_cornell"]["launches"][name],
+            lt_trace_launches=lt_wave["textured_cornell"]["launches"][name],
+            lt_trace_lens_box_launches=lt_wave["lens_box"]["launches"][name],
+            bdpt_md4_launches=bdpt["md4"]["launches"][name],
+            bdpt_md6_launches=bdpt["md6"]["launches"][name],
             max_abs_err=err, **timed(on_rays), **extra)
 
     kernels = {"kernels": [

@@ -207,8 +207,10 @@ def evaluate(bank: CurveBank, idx, lam):
     """Curve `idx` at wavelength(s) `lam`: a lerp between the two bracketing
     knots (u clipped to [0, RES-1-1e-4])."""
     res = bank.values.shape[1]
-    idx = torch.as_tensor(idx, device=bank.values.device)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=bank.values.device)
+    if not isinstance(idx, torch.Tensor):
+        # a fill, not a copy from the host (which waits for the card)
+        idx = torch.full(lam.shape, int(idx), device=lam.device)
     idx, lam = torch.broadcast_tensors(idx, lam)
     u = (lam - bank.lam_lo) / (bank.lam_hi - bank.lam_lo) * (res - 1)
     u = torch.clamp(u, 0.0, res - 1 - 1e-4)

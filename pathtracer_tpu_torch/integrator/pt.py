@@ -6,8 +6,10 @@ The port's path tracers are the megakernel's regen loop
 rounds) for the scenes in its gate, and the regen integrator without kernels
 (`integrator/pt_regen.py`) for every scene: `renderer/persistent.py:
 render_regen` picks between them. The XLA wavefront `pt_trace` is still to
-be ported (ROADMAP §1 item 8). The light tracer is `integrator/lt.py` with
-`kernels/lt_mega.py`. `medium_aware` turns on the tracked-medium transport.
+be ported (ROADMAP §1 item 8). The light tracers are `kernels/lt_mega.py`
+and the wavefront `integrator/lt.py:lt_trace`, bidirectional path tracing
+`integrator/bdpt.py`; both wavefronts take `camera_ray` below.
+`medium_aware` turns on the tracked-medium transport.
 """
 
 from __future__ import annotations

@@ -136,9 +136,10 @@ PLAIN_CALLS = 0
 
 _NOT_IN_GATE = ("the LT megakernel takes projective cameras, identity "
                 "transforms, at most 8192 prims, 24 materials and 128 lights, "
-                "1x1 surface textures and spectral curves of 512 knots; other "
-                "scenes need the XLA light-tracing wavefront `lt_trace`, not "
-                "ported yet (ROADMAP §1 item 11)")
+                "1x1 surface textures and spectral curves of 512 knots; "
+                "render_splatted takes other scenes through the "
+                "light-tracing wavefront `integrator/lt.py:lt_trace` unless "
+                "use_megakernel=True")
 
 
 def q2_rows(camera_samples: int) -> int:
@@ -1033,19 +1034,21 @@ def stratify_usp(settings, usp, perm):
     return usp
 
 
-def lt_spawn_feed(world, camera, settings, u0, uc, width, height):
+def lt_spawn_feed(world, camera, settings, u0, uc, width, height,
+                  has_proxy=None):
     """The v1 respawn rows [NF, N] (the JAX package's `_lt_spawn_feed`,
     plain torch on the lanes' device): a candidate particle per lane from
     `spawn_particles` on the spawn columns u0 [N, 9] (stratified by the
     caller), and the light vertex's lens connection from
-    `_connect_to_camera_values` on the lens columns uc [N, 2]."""
+    `_connect_to_camera_values` on the lens columns uc [N, 2] (`has_proxy`
+    as there)."""
     from pathtracer_tpu_torch.integrator.lt import (
         _connect_to_camera_values,
         spawn_particles,
     )
 
     sp = spawn_particles(world, settings, u0)
-    lv = _connect_to_camera_values(world, camera, sp, uc)
+    lv = _connect_to_camera_values(world, camera, sp, uc, has_proxy)
     valid = lv["valid"] & ~sp["pick_env"] & (int(world.n_lights) > 0)
     e = torch.where(valid, lv["energy"], 0.0)
     xyz = _xyz(sp["lam_i"], e)
@@ -1127,7 +1130,8 @@ def spawn_feed_for(scene: LtScene, settings, uniforms, it: int, n_pad: int):
             it, cells, dev, stream=STREAM_SPAWN))
     uc = uniforms.lanes(it, 2, n_pad, dev, stream=STREAM_LENS)
     return lt_spawn_feed(scene.world, scene.camera, settings, u0, uc,
-                         int(scene.a.width), int(scene.a.height))
+                         int(scene.a.width), int(scene.a.height),
+                         scene.a.has_proxy)
 
 
 # counter slots of a round's counter rows (bounce, camera, light)
@@ -1156,7 +1160,8 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
     splat sum, counters f64[5]), on `device` (default: the world's). Every
     lane spawns its budget of particles, so exactly n_paths are spawned.
     `spawn_inkernel` False forces the spawn-feed route (v1) on a scene that
-    v2 takes. A `stats` dict, if given, gets "rounds" and "route"."""
+    v2 takes. A `stats` dict, if given, gets "rounds" and "lt_round" (the
+    K34-LT route, "v2" or "v1")."""
     if width * height >= (1 << 24):
         raise ValueError("the film's pixel ids ride f32 rows: width * height "
                          "must be below 2^24")
@@ -1184,5 +1189,5 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
             break
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + it
-        stats["route"] = "v2" if scene.spawn_inkernel else "v1"
+        stats["lt_round"] = "v2" if scene.spawn_inkernel else "v1"
     return film, counters

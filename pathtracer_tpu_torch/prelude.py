@@ -30,8 +30,9 @@ def power_heuristic(a, b):
 
 
 def safe_div(num, den, default=0.0):
-    """num/den with den==0 mapped to `default` (no NaN/inf)."""
+    """num/den with den==0 mapped to `default` (no NaN/inf). `default` goes
+    to `torch.where` as a Python number: a tensor made of it on the card
+    would be a copy from the host, which waits for the card."""
     den_ok = den != 0.0
     q = num / torch.where(den_ok, den, torch.ones_like(den))
-    return torch.where(den_ok, q, torch.as_tensor(default, dtype=q.dtype,
-                                                  device=q.device))
+    return torch.where(den_ok, q, default)

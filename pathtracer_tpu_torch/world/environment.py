@@ -165,7 +165,10 @@ def env_sample_uv(env: Environment, u1, u2):
     h, w = env.imp_pdf.shape
     uu, vv = u1, u2
     if kind == ENV_HDR and bool(env.imp_baked) and (h, w) != (1, 1):
-        # 2-level inverse transform with the intra-texel CDF lerp
+        # 2-level inverse transform with the intra-texel CDF lerp. The
+        # uniforms are often column slices of a block: torch.searchsorted
+        # warns on a strided input and copies it, so copy once here
+        u1, u2 = u1.contiguous(), u2.contiguous()
         mcdf = env.imp_marginal_cdf.to(dev)
         rows = env.imp_row_cdf.to(dev)
         yi = torch.clamp(torch.searchsorted(mcdf, u1, right=True) - 1, 0,

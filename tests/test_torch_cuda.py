@@ -34,7 +34,9 @@ ray a lane with its own bounds, resident and through the ring, a table of
 9,216 rows among them, equal to their twins bit for bit with and without
 the any-hit sweep's `live` mask. `World.intersect` / `intersect_any` on a
 CUDA world launch them and give the CPU twin's hit record, and a regen
-render launches them once a round and once a round per light sample."""
+render launches them once a round and once a round per light sample; the
+light-tracing wavefront and BDPT launch them on every bounce and every
+strategy family, and match CPU runs of the same uniforms."""
 
 import numpy as np
 import pytest
@@ -814,3 +816,88 @@ def test_world_intersect_and_regen_launch_dense_sweeps(dev, recipe):
     assert dense.ANY_LAUNCHES - before[1] == 2 * rounds
     assert torch.isfinite(film).all() and float(film[..., 1].mean()) > 0.0
     assert profile.camera_rays == 64 * 64 * 2
+
+
+class _CpuDrawn:
+    """A uniform source that draws each block on the CPU from one generator
+    and moves it to the lanes' device: a CPU run and a card run of the same
+    integrator see the same numbers."""
+
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def lanes(self, it, cols, n, device, stream=None):
+        return torch.rand((n, cols), generator=self.gen).to(device)
+
+    def permutation(self, it, n, device, stream=None):
+        return torch.randperm(n, generator=self.gen).to(device)
+
+
+@pytest.mark.parametrize("recipe,cam", [("textured_cornell", "TEXTURED_CAMERA"),
+                                        ("lens_box", "LENS_BOX_CAMERA")])
+def test_lt_trace_launches_dense_sweeps(dev, recipe, cam):
+    """The light-tracing wavefront on a CUDA world launches the closest
+    sweep once a bounce and the any sweep once for the light vertex and
+    once a bounce per camera sample; its film mean and counters match a
+    CPU run of the same uniforms within 1e-3."""
+    from pathtracer_tpu_torch.integrator.lt import LTSettings, lt_trace
+
+    fn = getattr(scenes, recipe)
+    settings = LTSettings(max_bounces=4, camera_samples=2, stratified=True)
+    runs = {}
+    for where in ("cpu", dev):
+        world = fn(SceneBuilder(), spectral).build(where)
+        camera = make_projective_camera(**getattr(scenes, cam), device=where)
+        before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
+        stats = {}
+        film, counters = lt_trace(world, camera, settings, 32, 32, 8192,
+                                  _CpuDrawn(5), stats=stats)
+        launches = (dense.CLOSEST_LAUNCHES - before[0],
+                    dense.ANY_LAUNCHES - before[1])
+        runs[str(where)] = (film.cpu(), counters.cpu(), launches,
+                            stats["rounds"])
+    film_c, cnt_c, launch_c, _ = runs["cpu"]
+    film_g, cnt_g, launch_g, rounds = runs[str(dev)]
+    assert launch_c == (0, 0) and rounds > 0
+    assert launch_g == (rounds, 1 + 2 * rounds)
+    assert torch.isfinite(film_g).all() and float(film_g[:, 1].mean()) > 0
+    torch.testing.assert_close(film_g.double().mean(0),
+                               film_c.double().mean(0), rtol=1e-3, atol=0)
+    torch.testing.assert_close(cnt_g, cnt_c, rtol=1e-3, atol=0)
+
+
+def test_bdpt_trace_launches_dense_sweeps(dev):
+    """BDPT on a CUDA world launches the closest sweep once a walk step of
+    either subpath and the any sweep once for each strategy family that
+    casts shadow rays (environment NEE, connections, lens splats); its
+    energies and counters match a CPU run of the same uniforms within
+    1e-3, and `render_bdpt` renders a finite, lit film."""
+    from pathtracer_tpu_torch.integrator.bdpt import BDPTSettings, bdpt_trace
+    from pathtracer_tpu_torch.renderer.bdpt_renderer import render_bdpt
+
+    settings = BDPTSettings(max_depth=4)
+    film_uv = torch.rand((4096, 2), generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for where in ("cpu", dev):
+        world = scenes.cornell_box(SceneBuilder(), spectral).build(where)
+        camera = make_projective_camera(**scenes.CORNELL_CAMERA,
+                                        device=where)
+        before = dense.CLOSEST_LAUNCHES, dense.ANY_LAUNCHES
+        out = bdpt_trace(world, camera, settings, film_uv.to(where),
+                         _CpuDrawn(6))
+        runs[str(where)] = ([x.cpu() for x in out],
+                            (dense.CLOSEST_LAUNCHES - before[0],
+                             dense.ANY_LAUNCHES - before[1]))
+    (own_c, _, e_c, _, _, cnt_c), launch_c = runs["cpu"]
+    (own_g, _, e_g, _, _, cnt_g), launch_g = runs[str(dev)]
+    assert launch_c == (0, 0) and launch_g == (6, 3)
+    for g, c in ((own_g, own_c), (e_g, e_c)):
+        assert float(g.sum()) > 0
+        torch.testing.assert_close(g.double().mean(), c.double().mean(),
+                                   rtol=1e-3, atol=0)
+    torch.testing.assert_close(cnt_g, cnt_c, rtol=1e-3, atol=0)
+    film, profile, _ = render_bdpt(
+        world, camera, settings, 64, 64, 2,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    assert torch.isfinite(film).all() and float(film[..., 1].mean()) > 0
+    assert profile.light_rays == 64 * 64 * 2

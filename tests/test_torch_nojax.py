@@ -1,7 +1,9 @@
 """The port stands without JAX: in a fresh interpreter where `jax` and
 `pathtracer_tpu` cannot be imported, every module of pathtracer_tpu_torch
 imports, and a 16x16 @ 1 spp path-traced render, a 16x16 @ 2 paths per
-pixel light-traced render and a 12x12 @ 2 spp medium-aware render of the fog
+pixel light-traced render (the LT megakernel's route), a 12x12 @ 1 light-traced
+render of the textured box (the light-tracing wavefront `lt_trace`), a
+12x12 @ 1 BDPT render and a 12x12 @ 2 spp medium-aware render of the fog
 box (through the two-program and the split round, which must agree) run on
 the CPU. And chip_smoke.py,
 which drives the port on a GPU, exits non-zero and prints no result where
@@ -46,6 +48,22 @@ film, profile, _ = render_splatted(world, cam, LTSettings(max_bounces=4), 16,
                                    16, 2, generator=torch.Generator().manual_seed(0))
 assert film.shape == (16, 16, 3) and bool(torch.isfinite(film).all())
 assert float(film[..., 1].mean()) > 0 and profile.light_rays == 512
+world = scenes.textured_cornell(SceneBuilder(), spectral).build("cpu")
+cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device="cpu")
+stats = {}
+film, profile, _ = render_splatted(world, cam, LTSettings(max_bounces=3), 12,
+                                   12, 1, generator=torch.Generator().manual_seed(0),
+                                   stats=stats)
+assert stats["route"] == "lt_trace" and bool(torch.isfinite(film).all())
+assert float(film[..., 1].mean()) > 0 and profile.light_rays == 144
+from pathtracer_tpu_torch.integrator.bdpt import BDPTSettings
+from pathtracer_tpu_torch.renderer.bdpt_renderer import render_bdpt
+world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
+cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
+film, profile, _ = render_bdpt(world, cam, BDPTSettings(max_depth=3), 12, 12,
+                               1, generator=torch.Generator().manual_seed(0))
+assert film.shape == (12, 12, 3) and bool(torch.isfinite(film).all())
+assert float(film[..., 1].mean()) > 0 and profile.light_rays == 144
 world = scenes.fog_cornell(SceneBuilder(), spectral).build("cpu")
 cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
 medium = PTSettings(light_samples=2, medium_aware=True, hwss=True)

@@ -12,8 +12,9 @@ CPU) against the JAX package:
   the lens-proxy box of the JAX package's tests/test_render_lt.py: film
   mean Y within 0.15 (the JAX test's bound), at max and min bounces 4
   without Russian roulette;
-- the gate refuses what the megakernel does not take, naming the ROADMAP
-  item that ports the light-tracing wavefront.
+- the gate refuses what the megakernel does not take: those scenes render
+  through the light-tracing wavefront `lt_trace` unless use_megakernel=True,
+  and a camera the port does not have is refused naming its ROADMAP item.
 """
 
 import numpy as np
@@ -61,7 +62,7 @@ def test_replayed_render_matches_jax(monkeypatch):
     film, profile, _ = render_splatted(tw, tc, ts, 16, 16, 16,
                                        uniforms=LTReplay(key), device="cpu",
                                        stats=stats)
-    assert stats["route"] == "v2"
+    assert stats["route"] == "lt_mega" and stats["lt_round"] == "v2"
     jfilm = np.asarray(jfilm) * (256.0 / 4096.0)
     assert np.isfinite(film.numpy()).all()
     np.testing.assert_allclose(film.numpy().reshape(-1, 3).mean(axis=0),
@@ -123,6 +124,10 @@ def _many_lights(n):
 @pytest.mark.parametrize("what", ["uv_texture", "too_many_prims",
                                   "too_many_lights", "camera"])
 def test_gate_refuses_with_roadmap_item(what):
+    """A scene the LT megakernel's gate refuses renders through the
+    light-tracing wavefront `lt_trace` by default and raises only under
+    use_megakernel=True; a camera the port does not have raises on either
+    route, `lt_trace` naming the ROADMAP item that ports it."""
     cam = make_projective_camera(**scenes.CORNELL_CAMERA, device="cpu")
     if what == "uv_texture":
         world = scenes.textured_cornell(SceneBuilder(), spectral).build("cpu")
@@ -134,11 +139,22 @@ def test_gate_refuses_with_roadmap_item(what):
     else:
         world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
         cam = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-        render_splatted(world, cam, LTSettings(), 8, 8, 1)
+    settings = LTSettings(max_bounces=2)
+    assert not tlt.lt_mega_available(world, cam, settings)
+    with pytest.raises(NotImplementedError, match="use_megakernel=True"):
+        render_splatted(world, cam, settings, 8, 8, 1, use_megakernel=True)
+    if what == "camera":
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
+            render_splatted(world, cam, settings, 8, 8, 1)
+        return
+    stats = {}
+    film, profile, _ = render_splatted(world, cam, settings, 8, 8, 1,
+                                       generator=_gen(4), stats=stats)
+    assert stats["route"] == "lt_trace" and profile.light_rays == 64
+    assert film.shape == (8, 8, 3) and bool(torch.isfinite(film).all())
     if what == "too_many_lights":
         assert tlt.lt_mega_available(_many_lights(tlt.LT_MAX_LIGHTS), cam,
-                                     LTSettings())
+                                     settings)
 
 
 def test_wrappers_take_plain_twins_on_cpu():

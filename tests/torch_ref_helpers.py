@@ -88,6 +88,7 @@ RECIPES = {
     "light_grid": (scenes.light_grid_cornell, scenes.CORNELL_CAMERA),
     "light_grid4": (lambda b, sp: scenes.light_grid_cornell(b, sp, n=4),
                     scenes.CORNELL_CAMERA),
+    "lens_box": (scenes.lens_box, scenes.LENS_BOX_CAMERA),
 }
 # the headline render's estimator settings, and the HWSS furnace's
 NEE_SETTINGS = dict(max_bounces=12, min_bounces=1, light_samples=2,
@@ -747,3 +748,180 @@ def regen_rounds_match_jax(recipe, hwss, medium, width=32, spp=4,
         check_regen_state(regen_state_to_torch(jst), tst)
     assert tst.alive.any() and tst.counters[2] > 0
     return tst
+
+
+# ------------------------------------------- the wavefront integrators
+
+
+class LTTraceReplay:
+    """Uniform source for the port's `lt_trace` that yields exactly the
+    blocks the JAX `lt_trace(key)` draws: k_init, k_walk = split(key); the
+    spawn columns uniform(k_init, (n, 9)) and the strata permutation
+    permutation(fold(k_init, 7), cells); the light vertex's lens columns
+    from fold(k_walk, 999); bounce b's block from fold(k_walk, b). With
+    `chunked`, call `chunk` c replays the key fold(key, 3000 + c) that the
+    JAX `render_splatted` hands its chunk c."""
+
+    def __init__(self, key, chunked=False):
+        self.key, self.chunked = key, chunked
+
+    def _keys(self, chunk):
+        key = sampling.fold(self.key, 3000 + chunk) if self.chunked \
+            else self.key
+        return jax.random.split(key)
+
+    def lanes(self, chunk, cols, n, device, stream=None):
+        from pathtracer_tpu_torch.integrator import lt
+
+        k_init, k_walk = self._keys(chunk)
+        if stream == lt.LT_SPAWN:
+            k = k_init
+        elif stream == lt.LT_LENS:
+            k = sampling.fold(k_walk, 999)
+        else:
+            k = sampling.fold(k_walk, stream - lt.LT_BOUNCE)
+        u = jax.random.uniform(k, (n, cols))
+        return torch.as_tensor(np.array(u), device=device)
+
+    def permutation(self, chunk, n, device, stream=None):
+        p = jax.random.permutation(sampling.fold(self._keys(chunk)[0], 7), n)
+        return torch.as_tensor(np.array(p), device=device).long()
+
+
+class BDPTReplay:
+    """Uniform source for the port's BDPT that yields exactly the JAX
+    draws. `render_bdpt`'s pass `it` (= 5000 + c · 7919 + start) keys
+    fold(key, it): its jitter from fold(., 11), its `bdpt_trace` key from
+    fold(., 13); with `direct`, `key` is the `bdpt_trace` key itself. Inside
+    `bdpt_trace`, k_lam, k_light, k_eye, k_con = split(key, 4): λ from
+    uniform(k_lam, (n,)), the light vertex from fold(k_light, 100), light
+    walk step i from fold(fold(k_light, 200), i), the lens from
+    fold(k_eye, 300), eye walk step i from fold(fold(k_eye, 400), i), the
+    environment NEE columns from fold(k_con, 777)."""
+
+    def __init__(self, key, direct=False):
+        self.key, self.direct = key, direct
+
+    def lanes(self, it, cols, n, device, stream=None):
+        from pathtracer_tpu_torch.integrator import bdpt as tb
+
+        if self.direct:
+            tk = self.key
+        else:
+            ck = sampling.fold(self.key, it)
+            if stream == tb.S_JITTER:
+                u = jax.random.uniform(sampling.fold(ck, 11), (n, cols))
+                return torch.as_tensor(np.array(u), device=device)
+            tk = sampling.fold(ck, 13)
+        k_lam, k_light, k_eye, k_con = jax.random.split(tk, 4)
+        if stream == tb.S_LAM:
+            k = k_lam  # uniform(k, (n,)) is uniform(k, (n, 1))'s column
+        elif stream == tb.S_LIGHT:
+            k = sampling.fold(k_light, 100)
+        elif stream == tb.S_EYE:
+            k = sampling.fold(k_eye, 300)
+        elif stream == tb.S_ENV:
+            k = sampling.fold(k_con, 777)
+        elif stream >= tb.S_EYE_WALK:
+            k = sampling.fold(sampling.fold(k_eye, 400),
+                              stream - tb.S_EYE_WALK)
+        else:
+            k = sampling.fold(sampling.fold(k_light, 200),
+                              stream - tb.S_LIGHT_WALK)
+        u = jax.random.uniform(k, (n, cols))
+        return torch.as_tensor(np.array(u), device=device)
+
+
+def lt_trace_matches_jax(recipe, cs, stratified, n=512, width=16):
+    """The port's `lt_trace` with the JAX draws replayed (LTTraceReplay)
+    against the JAX `lt_trace` at max bounces 4: film sums within rtol
+    1e-4, pixels within rtol 1e-3 / atol 1e-5 on >= 99.9% of pixels, every
+    counter within 1e-6 relative (CAMERA_RAYS counts every lane's unblocked
+    connections, as the JAX `lt_trace` does)."""
+    from pathtracer_tpu.integrator.lt import lt_trace as jax_lt_trace
+    from pathtracer_tpu_torch.integrator.lt import lt_trace
+    from pathtracer_tpu_torch.utils import profile as prof
+
+    jw, tw, jc, tc = both_worlds(recipe)
+    js, ts = both_lt_settings(max_bounces=4, camera_samples=cs,
+                              stratified=stratified)
+    key = jax.random.PRNGKey(7)
+    jfilm, jcount = jax.jit(jax_lt_trace, static_argnums=(2, 3, 4, 5))(
+        jw, jc, js, width, width, n, key)
+    jfilm, jcount = np.asarray(jfilm), np.asarray(jcount)
+    stats = {}
+    film, counters = lt_trace(tw, tc, ts, width, width, n,
+                              LTTraceReplay(key), stats=stats)
+    film, counters = film.numpy(), counters.numpy()
+    assert stats["chunks"] == 1 and 0 < stats["rounds"] <= 4
+    assert counters[prof.LIGHT_RAYS] == n
+    assert np.isfinite(film).all() and jfilm.sum() > 0
+    np.testing.assert_allclose(film.sum(0), jfilm.sum(0), rtol=1e-4)
+    close = np.isclose(film, jfilm, rtol=1e-3, atol=1e-5).all(-1)
+    assert close.mean() >= 0.999, np.where(~close)
+    np.testing.assert_allclose(counters, jcount, rtol=1e-6)
+
+
+def jax_bdpt_batched(jw, jc, settings, film_uv, key):
+    """The JAX `bdpt_trace`'s batched body at any max_depth: PT_BDPT_BATCHED
+    is set while a jit of a function of this call's own is first traced
+    (the JAX package reads it at trace time and takes its per-pair loops at
+    max_depth <= 4 without it)."""
+    import os
+
+    from pathtracer_tpu.integrator.bdpt import bdpt_trace as jax_bdpt_trace
+
+    def batched(world, camera, film_uv, key):
+        return jax_bdpt_trace(world, camera, settings, film_uv, key)
+
+    old = os.environ.get("PT_BDPT_BATCHED")
+    os.environ["PT_BDPT_BATCHED"] = "1"
+    try:
+        out = jax.jit(batched)(jw, jc, jnp.asarray(film_uv), key)
+    finally:
+        if old is None:
+            del os.environ["PT_BDPT_BATCHED"]
+        else:
+            os.environ["PT_BDPT_BATCHED"] = old
+    return [np.asarray(a) for a in out]
+
+
+def _mostly_close(got, ref, rtol, atol):
+    close = np.isclose(got, ref, rtol=rtol, atol=atol)
+    assert close.size == 0 or close.mean() >= 0.999, (
+        np.where(~close), got[~close], ref[~close])
+
+
+def bdpt_trace_matches_jax(recipe, max_depth, selected_pair=None, n=256):
+    """The port's `bdpt_trace` with the JAX draws replayed (BDPTReplay) on
+    n random film points against the JAX batched body: own-pixel energy
+    and splat energy within rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes and
+    their sums within rtol 1e-4, the lit splats' film uv within rtol 1e-4,
+    λ within rtol 1e-6, every counter within 1e-6 relative."""
+    from pathtracer_tpu.integrator.bdpt import BDPTSettings as JaxBDPT
+    from pathtracer_tpu_torch.integrator.bdpt import BDPTSettings, bdpt_trace
+
+    jw, tw, jc, tc = both_worlds(recipe)
+    key = jax.random.PRNGKey(5)
+    film_uv = np.random.default_rng(0).uniform(size=(n, 2)) \
+        .astype(np.float32)
+    ref = jax_bdpt_batched(jw, jc, JaxBDPT(max_depth=max_depth,
+                                           selected_pair=selected_pair),
+                           film_uv, key)
+    got = [a.numpy() for a in bdpt_trace(
+        tw, tc, BDPTSettings(max_depth=max_depth,
+                             selected_pair=selected_pair),
+        torch.as_tensor(film_uv), BDPTReplay(key, direct=True))]
+    (own, uv, e, lam, lam_s, counters) = got
+    (j_own, j_uv, j_e, j_lam, j_lam_s, j_counters) = ref
+    assert own.shape == j_own.shape and e.shape == j_e.shape
+    assert np.isfinite(own).all() and np.isfinite(e).all()
+    for a, b in ((own, j_own), (e, j_e)):
+        _mostly_close(a, b, 1e-4, 1e-6)
+        np.testing.assert_allclose(a.sum(), b.sum(), rtol=1e-4, atol=1e-6)
+    lit = j_e > 0.0
+    np.testing.assert_allclose(uv[lit], j_uv[lit], rtol=1e-4)
+    np.testing.assert_allclose(lam, j_lam, rtol=1e-6)
+    np.testing.assert_allclose(lam_s, j_lam_s, rtol=1e-6)
+    np.testing.assert_allclose(counters, j_counters, rtol=1e-6)
+    return got
