@@ -1,0 +1,4 @@
+"""`rounds_per_frame` in the host-bound cells, whose end-to-end metrics carry bounds
+of their own (their runs spread more than the device-bound cells')."""
+
+from ptbench.metrics.rounds_per_frame import read  # noqa: F401
