@@ -1052,19 +1052,17 @@ def device_kernels(torch, fn, with_ms=False):
     return len(spans)
 
 
-def busy_profile(torch, fn, prefixes=(), host_ops=True):
+def busy_profile(torch, fn, prefixes=()):
     """One call of `fn` (which must end by waiting for the card) under
-    torch.profiler -> the profiled wall, the device time, the device's busy
-    time (the union of the kernel intervals) and share, the device kernels,
-    the eight kernels with the most device time, and the device time of the
-    kernels whose names contain one of `prefixes`. `host_ops` False traces
-    the device alone: tracing every host op of a render of millions of
-    small launches slows its wall by more than half."""
+    torch.profiler, tracing the device alone (tracing every host op of a
+    render of millions of small launches slows its wall by more than half)
+    -> the profiled wall, the device time, the device's busy time (the
+    union of the kernel intervals) and share, the device kernels, the eight
+    kernels with the most device time, and the device time of the kernels
+    whose names contain one of `prefixes`."""
     from torch.profiler import ProfilerActivity, profile as profiler
 
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
-                                      else [])
-    with profiler(activities=acts) as prof:
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -1268,7 +1266,7 @@ def wavefront_render(torch, dev, name, render, n_closest, n_any, extra=None):
                png=os.path.relpath(png, ROOT), **(extra or {}))
     rec.update(busy_profile(torch, lambda: render(2028, {}),
                             prefixes=("dense_closest_kernel",
-                                      "dense_any_kernel"), host_ops=False))
+                                      "dense_any_kernel")))
     rec["sweep_share_of_device_ms"] = (rec["round_kernels_ms"]
                                        / rec["device_ms"])
     return rec

@@ -191,29 +191,31 @@ def nu_lt(camera_samples: int) -> int:
 def lt_gate_refusal(world, camera, settings):
     """Why the LT megakernel does not render this scene, or None if it
     does (the JAX package's `lt_mega_available`, with the light cap its
-    table bake needs)."""
+    table bake needs), recorded as a `gate` span."""
     from pathtracer_tpu_torch.camera.projective import ProjectiveCamera
 
-    w = world
-    if not isinstance(camera, ProjectiveCamera) \
-            or int(w.prims.xf_inv.shape[0]) != 1 \
-            or w.prims.count > mk.MEGA_MAX_PRIMS or int(w.mats.count) > 24 \
-            or int(w.n_lights) > LT_MAX_LIGHTS \
-            or int(w.bank.values.shape[1]) != mk.SPEC_RES:
-        return _NOT_IN_GATE
-    t = w.tex
-    lc, lstart = mk._np(t.layer_count), mk._np(t.layer_start)
-    lw, lh = mk._np(t.layer_w), mk._np(t.layer_h)
-    tex_ok = np.ones(lc.shape[0], bool)
-    layer_ok = np.ones(lw.shape[0], bool)
-    if int(w.env.kind) == ENV_HDR:
-        tid = int(w.env.tex_id)
-        tex_ok[tid] = False
-        layer_ok[int(lstart[tid]):int(lstart[tid]) + int(lc[tid])] = False
-    if not (lc[tex_ok] == 1).all() or not (
-            (lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
-        return _NOT_IN_GATE
-    return None
+    with prof.span("gate"):
+        w = world
+        if not isinstance(camera, ProjectiveCamera) \
+                or int(w.prims.xf_inv.shape[0]) != 1 \
+                or w.prims.count > mk.MEGA_MAX_PRIMS \
+                or int(w.mats.count) > 24 \
+                or int(w.n_lights) > LT_MAX_LIGHTS \
+                or int(w.bank.values.shape[1]) != mk.SPEC_RES:
+            return _NOT_IN_GATE
+        t = w.tex
+        lc, lstart = mk._np(t.layer_count), mk._np(t.layer_start)
+        lw, lh = mk._np(t.layer_w), mk._np(t.layer_h)
+        tex_ok = np.ones(lc.shape[0], bool)
+        layer_ok = np.ones(lw.shape[0], bool)
+        if int(w.env.kind) == ENV_HDR:
+            tid = int(w.env.tex_id)
+            tex_ok[tid] = False
+            layer_ok[int(lstart[tid]):int(lstart[tid]) + int(lc[tid])] = False
+        if not (lc[tex_ok] == 1).all() or not (
+                (lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
+            return _NOT_IN_GATE
+        return None
 
 
 def lt_mega_available(world, camera, settings) -> bool:
@@ -1104,7 +1106,8 @@ def lt_round_v1(state, scene: LtScene, settings, uniforms, it: int, film):
     n_pad, dev = state.shape[1], state.device
     u = uniforms.round(it, nu_lt(a.cs), n_pad, dev, stream=STREAM_U)
     q = lt_shade(u, state, scene)
-    feed = spawn_feed_for(scene, settings, uniforms, it, n_pad)
+    with prof.span("feed"):
+        feed = spawn_feed_for(scene, settings, uniforms, it, n_pad)
     out = lt_finalize(u, state, q, feed, scene)
     aux = k4_aux(a.cs)
     gate = out[aux["lv_ok"]]
@@ -1167,8 +1170,9 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
                          "must be below 2^24")
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
-    scene = build_lt_scene(world, camera, settings, width, height, device,
-                           spawn_inkernel)
+    with prof.span("bake"):
+        scene = build_lt_scene(world, camera, settings, width, height,
+                               device, spawn_inkernel)
     state, b_each = lt_init(n_paths, device)
     film = torch.zeros((width * height, 3), dtype=torch.float32,
                        device=device)
@@ -1177,16 +1181,23 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
     slots = torch.tensor(_SLOTS, device=device)
     step = lt_round_v2 if scene.spawn_inkernel else lt_round_v1
     max_iters = int((b_each + 1) * settings.max_bounces * 4 + 64)
+    live = mk.live_lanes(max_iters, device)
     it = 0
     while it < max_iters:
         for _ in range(ALIVE_CHECK_EVERY):
+            if live is not None:
+                torch.sum(state[LS_ALIVE] > 0.5, 0, dtype=torch.float64,
+                          out=live[it])
             out, _, counts = step(state, scene, settings, uniforms, it, film)
             state = out[:NS_LT]
             counters.index_add_(0, slots,
                                 counts.sum(dim=1, dtype=torch.float64))
             it += 1
-        if not bool(((state[LS_ALIVE] + state[LS_BUDGET]) > 0.5).any()):
+        with prof.span("wait"):
+            alive = bool(((state[LS_ALIVE] + state[LS_BUDGET]) > 0.5).any())
+        if not alive:
             break
+    mk.count_lanes(live, it, state.shape[1])
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + it
         stats["lt_round"] = "v2" if scene.spawn_inkernel else "v1"

@@ -294,41 +294,44 @@ def mega_available(world, camera, settings) -> bool:
 
 
 def _mega_gate(world, camera) -> bool:
+    """The megakernel's scene gate, recorded as a `gate` span."""
     from pathtracer_tpu_torch.camera.projective import ProjectiveCamera
 
-    if not isinstance(camera, ProjectiveCamera):
-        return False
-    w = world
-    if int(w.prims.xf_inv.shape[0]) != 1:
-        return False
-    if w.prims.count > MEGA_MAX_PRIMS:
-        return False
-    if int(w.mats.count) > 24 or int(w.n_lights) > 16:
-        return False
-    # multi-texel or multi-layer textures only as a lambertian's reflectance
-    # (the texture feed) or as the HDR map (the environment feed); any other
-    # texture is one 1x1 layer, baked into the material tables
-    t = w.tex
-    lc, lstart = _np(t.layer_count), _np(t.layer_start)
-    lw, lh = _np(t.layer_w), _np(t.layer_h)
-    tex_ok = np.ones(lc.shape[0], bool)
-    layer_ok = np.ones(lw.shape[0], bool)
+    with prof.span("gate"):
+        if not isinstance(camera, ProjectiveCamera):
+            return False
+        w = world
+        if int(w.prims.xf_inv.shape[0]) != 1:
+            return False
+        if w.prims.count > MEGA_MAX_PRIMS:
+            return False
+        if int(w.mats.count) > 24 or int(w.n_lights) > 16:
+            return False
+        # multi-texel or multi-layer textures only as a lambertian's
+        # reflectance (the texture feed) or as the HDR map (the environment
+        # feed); any other texture is one 1x1 layer, baked into the
+        # material tables
+        t = w.tex
+        lc, lstart = _np(t.layer_count), _np(t.layer_start)
+        lw, lh = _np(t.layer_w), _np(t.layer_h)
+        tex_ok = np.ones(lc.shape[0], bool)
+        layer_ok = np.ones(lw.shape[0], bool)
 
-    def exempt(tid):
-        tex_ok[tid] = False
-        layer_ok[int(lstart[tid]):int(lstart[tid]) + int(lc[tid])] = False
+        def exempt(tid):
+            tex_ok[tid] = False
+            layer_ok[int(lstart[tid]):int(lstart[tid]) + int(lc[tid])] = False
 
-    if int(w.env.kind) == ENV_HDR:
-        exempt(int(w.env.tex_id))
-    mtype, tex_id = _np(w.mats.mtype), _np(w.mats.tex_id)
-    for i in range(int(w.mats.count)):
-        if mtype[i] == MAT_LAMBERTIAN and tex_id[i] >= 0:
-            exempt(int(tex_id[i]))
-    if not (lc[tex_ok] == 1).all():
-        return False
-    if not ((lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
-        return False
-    return int(w.bank.values.shape[1]) == SPEC_RES
+        if int(w.env.kind) == ENV_HDR:
+            exempt(int(w.env.tex_id))
+        mtype, tex_id = _np(w.mats.mtype), _np(w.mats.tex_id)
+        for i in range(int(w.mats.count)):
+            if mtype[i] == MAT_LAMBERTIAN and tex_id[i] >= 0:
+                exempt(int(tex_id[i]))
+        if not (lc[tex_ok] == 1).all():
+            return False
+        if not ((lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
+            return False
+        return int(w.bank.values.shape[1]) == SPEC_RES
 
 
 def fused_ok(scene) -> bool:
@@ -2229,15 +2232,37 @@ _TWO_PROG_SLOTS = (prof.BOUNCE_RAYS, prof.CAMERA_RAYS, prof.ENV_HITS,
                    prof.SHADOW_RAYS)
 
 
+def live_lanes(max_iters: int, device):
+    """While tracing is on, the f64 accumulator of a render's live lanes,
+    one slot a round (filled on the device, read by `Recorder.resolve`);
+    off, None."""
+    if prof.recorder() is None:
+        return None
+    return torch.zeros(max_iters + ALIVE_CHECK_EVERY, dtype=torch.float64,
+                       device=device)
+
+
+def count_lanes(live, rounds: int, n_pad: int):
+    """Record a render's `lanes_launched` (n_pad a round) and
+    `lanes_live` (the lanes alive at each round's start) while tracing is
+    on."""
+    if live is not None:
+        prof.count("lanes_launched", [n_pad] * rounds)
+        prof.count("lanes_live", live[:rounds])
+
+
 def _k12_uniforms(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     """K12's (or K2's) uniform block (stream 0) and the feeds computed from
     it: (u12, ef | None, mf | None)."""
     u12 = uniforms.round(it, n_u_rows(a.light_samples, a.medium),
                          state.shape[1], state.device, stream=0)
-    ef = (env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
-          if scene.env is not None else None)
-    mf = (med_feed(scene.med, state, u12, a.light_samples, a.c_lanes)
-          if scene.med is not None else None)
+    ef = mf = None
+    if scene.env is not None:
+        with prof.span("feed"):
+            ef = env_feed(scene.env, state, u12, a.light_samples, a.c_lanes)
+    if scene.med is not None:
+        with prof.span("feed"):
+            mf = med_feed(scene.med, state, u12, a.light_samples, a.c_lanes)
     return u12, ef, mf
 
 
@@ -2260,7 +2285,8 @@ def texfeed_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE,
                             _sweep_tab(scene))
     u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
-    tf = tex_feed(scene.tex, state, tp, a.c_lanes)
+    with prof.span("feed"):
+        tf = tex_feed(scene.tex, state, tp, a.c_lanes)
     k2 = shade(u12, state, tp, scene, a, ef, tf, mf)
     u34 = uniforms.round(it, NU4, state.shape[1], state.device, stream=1)
     return finalize_sweep(u34, state, k2, scene, a), k2
@@ -2277,8 +2303,10 @@ def split_round(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
     sweep = _sweep_tab(scene)
     tp = sweep_closest_rows(state, scene.dense_tab, S_O, S_ALIVE, sweep)
     u12, ef, mf = _k12_uniforms(state, scene, a, uniforms, it)
-    tf = (tex_feed(scene.tex, state, tp, a.c_lanes)
-          if scene.tex is not None else None)
+    tf = None
+    if scene.tex is not None:
+        with prof.span("feed"):
+            tf = tex_feed(scene.tex, state, tp, a.c_lanes)
     k2 = shade(u12, state, tp, scene, a, ef, tf, mf)
     blks = []
     for si in range(a.light_samples):
@@ -2308,22 +2336,27 @@ def pt_trace_regen_mega(world, camera, settings, width, height, spp,
         raise NotImplementedError(why)
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
-    scene = build_mega_scene(world, camera, device, settings)
+    with prof.span("bake"):
+        scene = build_mega_scene(world, camera, device, settings)
+        cam = camera.to(device)
     a = RoundArgs.make(scene.consts, settings, width, height)
     n = width * height
     n_pad = -(-n // TILE) * TILE
     fused = fused_ok(scene) and stepper is None
     step = (split_round if stepper == "split" else
             texfeed_round if scene.tex is not None else two_prog_round)
-    cam = camera.to(device)
     state, counters = mega_init(cam, uniforms.init(n_pad, device), a, n,
                                 n_pad, spp)
     slots = torch.tensor(_FUSED_SLOTS if fused else _TWO_PROG_SLOTS,
                          device=device)
     max_iters = int(spp * settings.max_bounces * 8 + 64)
+    live = live_lanes(max_iters, device)
     it = 0
     while it < max_iters:
         for _ in range(ALIVE_CHECK_EVERY):
+            if live is not None:
+                torch.sum(state[S_ALIVE] > 0.5, 0, dtype=torch.float64,
+                          out=live[it])
             if fused:
                 u = uniforms.round(it, nu_rows(a.light_samples), n_pad,
                                    device)
@@ -2337,8 +2370,11 @@ def pt_trace_regen_mega(world, camera, settings, width, height, spp,
             counters.index_add_(0, slots,
                                 counts.sum(dim=1, dtype=torch.float64))
             it += 1
-        if not bool((state[S_ALIVE] > 0.5).any()):
+        with prof.span("wait"):
+            alive = bool((state[S_ALIVE] > 0.5).any())
+        if not alive:
             break
+    count_lanes(live, it, n_pad)
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + it
     return state[S_ACC:S_ACC + 3, :n].T, counters

@@ -8,6 +8,7 @@ import time
 import torch
 
 from pathtracer_tpu_torch.kernels.megakernel import TorchUniforms
+from pathtracer_tpu_torch.utils import profile as prof
 from pathtracer_tpu_torch.utils.profile import Profile
 
 
@@ -25,6 +26,8 @@ def timed_render(world, generator, uniforms, device, trace):
         uniforms = TorchUniforms(generator)
     t0 = time.perf_counter()
     film, counters = trace(device, uniforms)
-    profile = Profile().add_device_counts(counters.cpu().tolist())
+    with prof.span("wait"):
+        counts = counters.cpu().tolist()
+    profile = Profile().add_device_counts(counts)
     elapsed = time.perf_counter() - t0
     return film, profile, elapsed

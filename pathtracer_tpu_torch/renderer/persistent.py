@@ -11,6 +11,8 @@ from pathtracer_tpu_torch.kernels.megakernel import (
     pt_trace_regen_mega,
 )
 from pathtracer_tpu_torch.renderer.common import timed_render
+from pathtracer_tpu_torch.utils import profile as prof
+
 
 def render_regen(world, camera, settings, width: int, height: int,
                  min_samples: int, generator: torch.Generator | None = None,
@@ -35,22 +37,24 @@ def render_regen(world, camera, settings, width: int, height: int,
     integrator for every scene; True raises `NotImplementedError` on a
     scene outside the gate. The megakernel renders on `device` (default:
     the world's), the regen integrator on the world's device only."""
-    why = gate_refusal(world, camera, settings)
-    if use_megakernel and why is not None:
-        raise NotImplementedError(why)
-    mega = why is None and use_megakernel is not False
-    if stats is not None:
-        stats["route"] = "megakernel" if mega else "regen"
+    with prof.span("render"):
+        why = gate_refusal(world, camera, settings)
+        if use_megakernel and why is not None:
+            raise NotImplementedError(why)
+        mega = why is None and use_megakernel is not False
+        if stats is not None:
+            stats["route"] = "megakernel" if mega else "regen"
 
-    def trace(device, uniforms):
-        if mega:
-            acc, counters = pt_trace_regen_mega(
-                world, camera, settings, width, height, min_samples,
-                uniforms, device=device, stats=stats, stepper=stepper)
-        else:
-            acc, counters = pt_trace_regen(
-                world, camera, settings, width, height, min_samples,
-                uniforms, device=device, stats=stats)
-        return (acc / float(min_samples)).reshape(height, width, 3), counters
+        def trace(device, uniforms):
+            if mega:
+                acc, counters = pt_trace_regen_mega(
+                    world, camera, settings, width, height, min_samples,
+                    uniforms, device=device, stats=stats, stepper=stepper)
+            else:
+                acc, counters = pt_trace_regen(
+                    world, camera, settings, width, height, min_samples,
+                    uniforms, device=device, stats=stats)
+            film = (acc / float(min_samples)).reshape(height, width, 3)
+            return film, counters
 
-    return timed_render(world, generator, uniforms, device, trace)
+        return timed_render(world, generator, uniforms, device, trace)

@@ -39,39 +39,41 @@ def render_splatted(world, camera, settings, width: int, height: int,
     renders on `device` (default: the world's), `lt_trace` on the world's
     device only, in calls of `paths_per_chunk` paths (default: one a
     pixel), chunk c drawing its uniforms as chunk c."""
-    why = lt_gate_refusal(world, camera, settings)
-    if use_megakernel and why is not None:
-        raise NotImplementedError(why)
-    mega = why is None and use_megakernel is not False
-    if stats is not None:
-        stats["route"] = "lt_mega" if mega else "lt_trace"
-    n_pix = width * height
-    total_paths = n_pix * min_samples
+    with prof.span("render"):
+        why = lt_gate_refusal(world, camera, settings)
+        if use_megakernel and why is not None:
+            raise NotImplementedError(why)
+        mega = why is None and use_megakernel is not False
+        if stats is not None:
+            stats["route"] = "lt_mega" if mega else "lt_trace"
+        n_pix = width * height
+        total_paths = n_pix * min_samples
 
-    def trace(device, uniforms):
-        if mega:
-            film, counters = lt_trace_mega(world, camera, settings, width,
-                                           height, total_paths, uniforms,
-                                           device=device, stats=stats)
-            film = film * (float(n_pix) / float(total_paths))
-            return film.reshape(height, width, 3), counters
-        if device != world.prims.pa.device:
-            raise ValueError(f"the world lives on {world.prims.pa.device}, "
-                             f"not {device}")
-        check_camera(camera)
-        wh, cam_h, has_proxy = (host_world(world), camera.to("cpu"),
-                                _has_proxy(world))
-        chunk = paths_per_chunk or n_pix
-        n_chunks = -(-total_paths // chunk)
-        film = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
-        counters = torch.zeros(prof.N_COUNTERS, dtype=torch.float64,
+        def trace(device, uniforms):
+            if mega:
+                film, counters = lt_trace_mega(world, camera, settings, width,
+                                               height, total_paths, uniforms,
+                                               device=device, stats=stats)
+                film = film * (float(n_pix) / float(total_paths))
+                return film.reshape(height, width, 3), counters
+            if device != world.prims.pa.device:
+                raise ValueError(f"the world lives on "
+                                 f"{world.prims.pa.device}, not {device}")
+            check_camera(camera)
+            wh, cam_h, has_proxy = (host_world(world), camera.to("cpu"),
+                                    _has_proxy(world))
+            chunk = paths_per_chunk or n_pix
+            n_chunks = -(-total_paths // chunk)
+            film = torch.zeros((n_pix, 3), dtype=torch.float32,
                                device=device)
-        for c in range(n_chunks):
-            f, cn = _lt_trace(wh, cam_h, has_proxy, settings, width, height,
-                              chunk, uniforms, c, stats)
-            film = film + f
-            counters = counters + cn
-        film = film * (float(n_pix) / float(n_chunks * chunk))
-        return film.reshape(height, width, 3), counters
+            counters = torch.zeros(prof.N_COUNTERS, dtype=torch.float64,
+                                   device=device)
+            for c in range(n_chunks):
+                f, cn = _lt_trace(wh, cam_h, has_proxy, settings, width,
+                                  height, chunk, uniforms, c, stats)
+                film = film + f
+                counters = counters + cn
+            film = film * (float(n_pix) / float(n_chunks * chunk))
+            return film.reshape(height, width, 3), counters
 
-    return timed_render(world, generator, uniforms, device, trace)
+        return timed_render(world, generator, uniforms, device, trace)

@@ -36,7 +36,9 @@ the any-hit sweep's `live` mask. `World.intersect` / `intersect_any` on a
 CUDA world launch them and give the CPU twin's hit record, and a regen
 render launches them once a round and once a round per light sample; the
 light-tracing wavefront and BDPT launch them on every bounce and every
-strategy family, and match CPU runs of the same uniforms."""
+strategy family, and match CPU runs of the same uniforms. With tracing on
+(utils/profile.py), the megakernel routes render the film and counters of
+tracing off and count their lanes on the card."""
 
 import numpy as np
 import pytest
@@ -901,3 +903,52 @@ def test_bdpt_trace_launches_dense_sweeps(dev):
         generator=torch.Generator(device=dev).manual_seed(1))
     assert torch.isfinite(film).all() and float(film[..., 1].mean()) > 0
     assert profile.light_rays == 64 * 64 * 2
+
+
+@pytest.mark.parametrize("integrator", ["pt", "lt"])
+def test_tracing_on_the_card_changes_no_film(dev, integrator):
+    """The textured box path-traced (the texture-feed round) and the gem
+    light-traced (the LT megakernel v2), with tracing off and on: the same
+    counters and film (bit for bit in PT; the LT splat's atomics add in
+    any order), and the lane counters of every round."""
+    import collections
+
+    from pathtracer_tpu_torch.integrator.lt import LTSettings
+    from pathtracer_tpu_torch.renderer.persistent import render_regen
+    from pathtracer_tpu_torch.renderer.splatted import render_splatted
+    from pathtracer_tpu_torch.utils import profile
+
+    if integrator == "pt":
+        world = scenes.textured_cornell(SceneBuilder(), spectral).build(dev)
+        cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device=dev)
+        render, s = render_regen, PTSettings(light_samples=2)
+    else:
+        world = scenes.gem_cornell(SceneBuilder(), spectral).build(dev)
+        cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+        render, s = render_splatted, LTSettings(max_bounces=8)
+
+    def go(stats=None):
+        gen = torch.Generator(device=dev).manual_seed(14)
+        return render(world, cam, s, 128, 128, 2, generator=gen, device=dev,
+                      stats=stats)
+
+    film0, prof0, _ = go()
+    stats = {}
+    with profile.tracing() as rec:
+        film1, prof1, _ = go(stats)
+        torch.cuda.synchronize()
+    rec.resolve()
+    assert prof0 == prof1
+    if integrator == "pt":
+        assert torch.equal(film0, film1)
+    else:  # the splat's index_add_ adds in the order its atomics land
+        torch.testing.assert_close(film1, film0, rtol=1e-4, atol=1e-7)
+    r = stats["rounds"]
+    names = collections.Counter(sp.name for sp in rec.spans)
+    assert names["render"] == 1 and names["bake"] == 1
+    assert names["wait"] == -(-r // mk.ALIVE_CHECK_EVERY) + 1
+    assert names["feed"] == (r if integrator == "pt" else 0)
+    live, launched = rec.values("lanes_live"), rec.values("lanes_launched")
+    assert len(live) == len(launched) == r
+    assert all(0 <= a <= b for a, b in zip(live, launched))
+    assert live[0] == (128 * 128 if integrator == "pt" else 0)
