@@ -39,9 +39,11 @@ dispersive hero-wavelength furnace and the HDR furnace must come out
 uniform. Last, the light tracer: three chained rounds of K12-LT and K34-LT
 (v2: in-kernel spawn, on the chip scene with its lens proxy at 1 and 2
 camera samples; v1: from the torch spawn feed, on the HDR blob) against
-their twins, the `render_splatted` renders of the chip scene with its lens
-proxy at 1080x1080, 16 light paths per pixel (v2), and of the HDR blob at
-512x512, 4 paths per pixel (v1, with the device's busy share), and two
+their twins, the film splats the kernels add with atomics against the
+`index_add_` of the twins' splat rows (rtol 1e-5), the `render_splatted`
+renders of the chip scene with its lens proxy at 1080x1080, 16 light paths
+per pixel (v2), and of the HDR blob at 512x512, 4 paths per pixel (v1,
+with the device's busy share), and two
 estimator checks: light against path tracing on the Cornell box, in-kernel
 spawn against the spawn feed on a spike-emission box. Last of all,
 participating media and the split round K1 | feeds | K2 | K3 | K4: K3
@@ -1910,16 +1912,48 @@ def lt_bounds(torch, lt, dense, scene, state, q, out, usp=None, feed=None):
     return b12, b34, rays
 
 
+def lt_splat_film(torch, lt, film, cs, v2, q=None, out=None, feed=None):
+    """A zero film like `film` with the splat rows of a round's Q rows `q`
+    (the direct hits) and K34-LT rows `out` (the connections and the light
+    vertex; v1's from the spawn feed's rows under its gate) index-added, as
+    the CPU wrappers add the twins' rows."""
+    fams = []
+    if q is not None:
+        fams.append(q[lt.Q_HIT_PID:lt.Q_HIT_XYZ + 3])
+    if out is not None:
+        fams += [out[lt.K4_CONN + 4 * ci:lt.K4_CONN + 4 * ci + 4]
+                 for ci in range(cs)]
+        if v2:
+            b = lt.k4_aux_v2(cs)["lv_pid"]
+            fams.append(out[b:b + 4])
+        else:
+            fams.append(feed[lt.F_LV + 7:lt.F_LV + 11]
+                        * out[lt.k4_aux(cs)["lv_ok"]])
+    pid = torch.cat([f[0] for f in fams]).long()
+    xyz = torch.cat([f[1:4].T for f in fams])
+    return torch.zeros_like(film).index_add_(0, pid, xyz)
+
+
+def film_rel_err(torch, film, ref):
+    """The largest relative error of `film` against `ref` (the absolute
+    error where `ref` is 0); a NaN on either side gives NaN."""
+    err = (film - ref).abs() / ref.abs().where(ref != 0, torch.ones_like(ref))
+    return float(err.max())
+
+
 def phase_lt_round(torch, dev, cases):
     """Three chained LT rounds per case from a state of dead lanes with a
     budget of 2 particles: K12-LT and K34-LT (v2, or v1 after the torch
     spawn feed) against their twins, each side on its own state; K12-LT's
     Q rows and K34-LT's out rows must also equal the twins' on the kernel's
     own state on every row, with the sweep table resident and through the
-    ring (the budget one row under the table); then the kernels', the
-    twins' and the feed's
-    times and the bounds on the second round's inputs (the first round
-    only spawns)."""
+    ring (the budget one row under the table), and the splats the kernels
+    add to a zero film [width², 3] with atomics must equal the `index_add_`
+    of those twins' splat rows within rtol 1e-5 (K12-LT's and K34-LT's, and
+    both kernels' through the ring); then the kernels' times (each adding
+    to a film, as on the render's path), the twins' and the feed's times
+    and the bounds on the second round's inputs (the first round only
+    spawns)."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import lt_mega as lt
     from pathtracer_tpu_torch.kernels import megakernel as mk
@@ -1945,14 +1979,16 @@ def phase_lt_round(torch, dev, cases):
         rows = int(t.sweep_tab.shape[0])
         check(rows <= mk.SWEEP_RESIDENT_ROWS,
               f"{recipe}: {rows} rows are not resident")
+        film0 = torch.zeros((width * width, 3), device=dev)
 
         def ring(fn):
             return one_row_under(mk, rows, fn)
 
         for it in range(3):
             u = unif.round(it, lt.nu_lt(cs), n, dev)
-            qk = lt.lt_shade(u, sk, scene)
-            q_ring = ring(lambda: lt.lt_shade(u, sk, scene))
+            f12, f34, f_ring = (torch.zeros_like(film0) for _ in range(3))
+            qk = lt.lt_shade(u, sk, scene, f12)
+            q_ring = ring(lambda: lt.lt_shade(u, sk, scene, f_ring))
             q_own = lt.lt_shade_plain(u, sk, t.dense_tab, t.prim_tab,
                                       t.mat_tab, t.spec_tab, a)
             qp = lt.lt_shade_plain(u, sp, t.dense_tab, t.prim_tab, t.mat_tab,
@@ -1963,8 +1999,8 @@ def phase_lt_round(torch, dev, cases):
                                       unif.round(it, lt.NUSP, n, dev),
                                       unif.permutation(it, cells, dev))
 
-                def k34(st, q):
-                    return lt.lt_finalize_spawn(u, usp, st, q, scene)
+                def k34(st, q, film):
+                    return lt.lt_finalize_spawn(u, usp, st, q, scene, film)
 
                 def k34_plain(st, q):
                     return lt.lt_finalize_spawn_plain(
@@ -1973,55 +2009,70 @@ def phase_lt_round(torch, dev, cases):
             else:
                 feed = lt.spawn_feed_for(scene, settings, unif, it, n)
 
-                def k34(st, q):
-                    return lt.lt_finalize(u, st, q, feed, scene)
+                def k34(st, q, film):
+                    return lt.lt_finalize(u, st, q, feed, scene, film)
 
                 def k34_plain(st, q):
                     return lt.lt_finalize_plain(u, st, q, feed, t.dense_tab,
                                                 a)
-            ok, op = k34(sk, qk), k34_plain(sp, qp)
-            o_ring = ring(lambda: k34(sk, qk))
+            ok, op = k34(sk, qk, f34), k34_plain(sp, qp)
+            o_ring = ring(lambda: k34(sk, qk, f_ring))
             o_own = k34_plain(sk, qk)
             torch.cuda.synchronize()
-            f12, bad12, err12, rel12 = compare_rows(
+            m12, bad12, err12, rel12 = compare_rows(
                 torch, qk, qp, q_disc, range(qk.shape[0]))
-            f34, bad34, err34, rel34 = compare_rows(
+            m34, bad34, err34, rel34 = compare_rows(
                 torch, ok, op, o_disc, range(ok.shape[0]))
+            ref12 = lt_splat_film(torch, lt, film0, cs, v2, q=q_own)
+            ref34 = lt_splat_film(torch, lt, film0, cs, v2, out=o_own,
+                                  feed=feed)
+            film_err = dict(k12=film_rel_err(torch, f12, ref12),
+                            k34=film_rel_err(torch, f34, ref34),
+                            ring=film_rel_err(torch, f_ring, ref12 + ref34))
+            check(all(e <= 1e-5 for e in film_err.values()),
+                  f"{recipe} cs {cs} round {it}: the kernels' film splat "
+                  f"is off the index_add_ of the twins' rows: {film_err}")
             splats = (qk[lt.Q_HIT_XYZ + 1] > 0).sum() + sum(
                 (ok[lt.K4_CONN + 4 * ci + 2] > 0).sum() for ci in range(cs))
             rounds.append(dict(
-                k12=dict(match_frac=f12, bad_rows=bad12, max_abs_err=err12,
+                k12=dict(match_frac=m12, bad_rows=bad12, max_abs_err=err12,
                          max_rel_err_bad=rel12,
                          equal=bool(torch.equal(qk, q_own)),
                          ring_equal=bool(torch.equal(q_ring, q_own))),
-                k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
+                k34=dict(match_frac=m34, bad_rows=bad34, max_abs_err=err34,
                          max_rel_err_bad=rel34,
                          equal=bool(torch.equal(ok, o_own)),
                          ring_equal=bool(torch.equal(o_ring, o_own))),
+                film_max_rel_err=film_err,
+                film_y=float((ref12 + ref34)[:, 1].sum()),
                 alive=float(ok[lt.LS_ALIVE].sum()),
                 walking=float(qk[lt.Q_ALIVE].sum()),
                 spawned=float(ok[aux["resp"]].sum()), splats=int(splats)))
             if it == 1:
                 inputs = (u, usp, feed, sk, qk, ok)
             sk, sp = ok[:lt.NS_LT], op[:lt.NS_LT]
+        check(sum(r["film_y"] for r in rounds) > 0,
+              f"{recipe} cs {cs}: the rounds splat nothing")
         u, usp, feed, s1, q1, o1 = inputs
+        film = torch.zeros_like(film0)  # the timed kernels' splats
         rec = dict(
             lanes=n, prims=int(t.dense_tab.shape[0]), camera_samples=cs,
             sweep_rows=rows, ring_budget_rows=rows - 1,
             route="v2" if v2 else "v1", rounds=rounds,
-            lt_shade_ms=cuda_ms(torch, lambda: lt.lt_shade(u, s1, scene), 10),
+            lt_shade_ms=cuda_ms(torch, lambda: lt.lt_shade(
+                u, s1, scene, film), 10),
             lt_shade_plain_ms=cuda_ms(torch, lambda: lt.lt_shade_plain(
                 u, s1, t.dense_tab, t.prim_tab, t.mat_tab, t.spec_tab, a), 2))
         if v2:
             rec["finalize_ms"] = cuda_ms(torch, lambda: lt.lt_finalize_spawn(
-                u, usp, s1, q1, scene), 10)
+                u, usp, s1, q1, scene, film), 10)
             rec["finalize_plain_ms"] = cuda_ms(
                 torch, lambda: lt.lt_finalize_spawn_plain(
                     u, usp, s1, q1, t.dense_tab, t.light_tab, t.spec_tab,
                     scene.lcdf_tab, a), 2)
         else:
             rec["finalize_ms"] = cuda_ms(torch, lambda: lt.lt_finalize(
-                u, s1, q1, feed, scene), 10)
+                u, s1, q1, feed, scene, film), 10)
             rec["finalize_plain_ms"] = cuda_ms(
                 torch, lambda: lt.lt_finalize_plain(u, s1, q1, feed,
                                                     t.dense_tab, a), 2)
@@ -2035,7 +2086,7 @@ def phase_lt_round(torch, dev, cases):
                    shadow_rays_swept_free=rays)
         res[f"{recipe}_{'v2' if v2 else 'v1'}_cs{cs}"] = rec
         del sk, sp, ok, op, qk, qp, q_ring, q_own, o_ring, o_own, inputs, \
-            s1, q1, o1
+            s1, q1, o1, film0, film, f12, f34, f_ring, ref12, ref34
         torch.cuda.empty_cache()
     emit("lt_round", **res)
     for key, r in res.items():

@@ -128,16 +128,17 @@ _SIGNATURES = {
     "sweep_any_rows_launch": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P],
     # (u, state, k2, blk, out, n, args*, stream)
     "finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _P],
-    # (u, state, q, n, sweep, p_rows, resident_rows, prim, p_pad, mat, spec,
+    # (u, state, q, film, n, sweep, p_rows, resident_rows, prim,
+    #  p_pad, mat, spec, args*, stream)
+    "lt_shade_launch": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
+                        _P],
+    # (u, usp, state, q, out, film, n, sweep, p_rows, resident_rows,
+    #  light, spec, lcdf, args*, stream)
+    "lt_finalize_spawn_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+                                 _P, _P, _P, _P],
+    # (u, state, q, feed, out, film, n, sweep, p_rows, resident_rows,
     #  args*, stream)
-    "lt_shade_launch": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
-    # (u, usp, state, q, out, n, sweep, p_rows, resident_rows, light, spec,
-    #  lcdf, args*, stream)
-    "lt_finalize_spawn_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
-                                 _P, _P, _P],
-    # (u, state, q, feed, out, n, sweep, p_rows, resident_rows, args*,
-    #  stream)
-    "lt_finalize_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
+    "lt_finalize_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
     # (c_lanes, regs*, local_bytes*, static_shared_bytes*, blocks_per_sm*);
     # (which: 0 K12, 1 K34, 2 K2, 3 K1, 4 K4, 5 K3; + 8 for the medium
     # instantiation of K12, K34, K2, K4; c_lanes, regs*, local_bytes*);

@@ -15,9 +15,12 @@
 // ratio, ok, new origin and direction), and per camera sample the lens
 // connection's shadow ray, splat and validity. K34-LT writes the new state
 // [16, n], the resolved connection splats and counter rows; v2 also the
-// light vertex's resolved splat. The film scatter-add stays outside the
-// kernels (one index_add_ per round), so every row can be held against the
-// twin's.
+// light vertex's resolved splat. Every splat is written as a row (zeros
+// where it is not valid), so each row can be held against the twin's; the
+// kernel that settles a valid splat also adds it to the film [width *
+// height, 3] with one atomicAdd a component (the direct hit in K12-LT; the
+// unblocked connections and the light vertex in K34-LT), and skips the rest,
+// which would add +0.0.
 //
 // One thread runs one lane. All three kernels walk the compact sweep table
 // (kernels/dense.py:pack_sweep_np, MegaScene.sweep_tab) from shared memory
@@ -138,6 +141,16 @@ __device__ __forceinline__ V3 lens_point_for(const LtArgs& a, float u1,
             co[2] + lx * a.cam_u[2] + ly * a.cam_v[2]};
 }
 
+// a valid splat's XYZ added to film pixel `pid` (an f32 pixel id, exact
+// below 2^24)
+__device__ __forceinline__ void splat(float* __restrict__ film, float pid,
+                                      float x, float y, float z) {
+  float* px = film + 3 * (size_t)pid;
+  atomicAdd(px, x);
+  atomicAdd(px + 1, y);
+  atomicAdd(px + 2, z);
+}
+
 // the lens importance focal² / (cos³θ · A_film)
 __device__ __forceinline__ float lens_we(const LtArgs& a, float cos_cam) {
   const float x = pt::maxf(cos_cam, 1e-6f);
@@ -168,10 +181,10 @@ __device__ __forceinline__ float emission_dir_pdf(float mtype, float side,
 
 __global__ void __launch_bounds__(BLOCK) lt_shade_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
-    float* __restrict__ q, int n, const float* __restrict__ sweep,
-    int p_rows, int resident_rows, const float* __restrict__ prim, int p_pad,
-    const float* __restrict__ mat, const float* __restrict__ spec,
-    const LtArgs a) {
+    float* __restrict__ q, float* __restrict__ film, int n,
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
+    const float* __restrict__ prim, int p_pad, const float* __restrict__ mat,
+    const float* __restrict__ spec, const LtArgs a) {
   extern __shared__ __align__(128) float walk_rows[];
   __shared__ uint64_t walk_bars[walk::RING_STAGES];
   walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
@@ -229,10 +242,13 @@ __global__ void __launch_bounds__(BLOCK) lt_shade_kernel(
     hit_ok = on_film_h && isfinite(e_hit) && e_hit > 0.0f;
   }
   const float eh = hit_ok ? e_hit : 0.0f;
+  const float hx = eh * pt::x_bar(lam), hy = eh * pt::y_bar(lam);
+  const float hz = eh * pt::z_bar(lam);
   Q(Q_HIT_PID, hit_ok ? fpid_h : 0.0f);
-  Q(Q_HIT_XYZ, eh * pt::x_bar(lam));
-  Q(Q_HIT_XYZ + 1, eh * pt::y_bar(lam));
-  Q(Q_HIT_XYZ + 2, eh * pt::z_bar(lam));
+  Q(Q_HIT_XYZ, hx);
+  Q(Q_HIT_XYZ + 1, hy);
+  Q(Q_HIT_XYZ + 2, hz);
+  if (hit_ok) splat(film, fpid_h, hx, hy, hz);
   const bool alive = kind != 2.0f;
 
   // ---- shading frame and material
@@ -392,10 +408,12 @@ __device__ __forceinline__ bool conn_ray(const float* __restrict__ k2,
   return alive0 && *tmax > walk::T_MIN;
 }
 
-// connection ci's verdict: its splat rows into out (a lane < n), and 1 if
-// it counts as an unblocked ray of a lane alive at the round's start
+// connection ci's verdict: its splat rows into out and, if it is valid and
+// unblocked, its splat into the film (a lane < n); -> 1 if it counts as an
+// unblocked ray of a lane alive at the round's start
 __device__ __forceinline__ float conn_out(const float* __restrict__ k2,
-                                          float* __restrict__ out, size_t N,
+                                          float* __restrict__ out,
+                                          float* __restrict__ film, size_t N,
                                           int i, int ci, bool in, bool alive0,
                                           bool blocked) {
   if (in) {
@@ -403,8 +421,12 @@ __device__ __forceinline__ float conn_out(const float* __restrict__ k2,
     const int b = Q_CONN + CONN_ROWS * ci;
     const bool ok = K(b + 11) > 0.5f && !blocked;
     const int o = K4_CONN + 4 * ci;
-    for (int k = 0; k < 4; ++k)
-      out[(o + k) * N + i] = ok ? K(b + 7 + k) : 0.0f;
+    float v[4];
+    for (int k = 0; k < 4; ++k) {
+      v[k] = ok ? K(b + 7 + k) : 0.0f;
+      out[(o + k) * N + i] = v[k];
+    }
+    if (ok) splat(film, v[0], v[1], v[2], v[3]);
   }
   return (alive0 && !blocked) ? 1.0f : 0.0f;
 }
@@ -413,13 +435,14 @@ __device__ __forceinline__ float conn_out(const float* __restrict__ k2,
 // connection rays and its light vertex's lens connection (lv_want false
 // where it has none). CS = cs (1 or 2): all cs + 1 rays in one walk of the
 // table, each row tested against all of them; CS = 0 (any other cs): one
-// ray a walk. Writes the connections' splat rows; -> the unblocked
-// connections of a lane alive at the round's start
+// ray a walk. Writes the connections' splat rows and adds their valid
+// splats to the film; -> the unblocked connections of a lane alive at the
+// round's start
 template <int CS>
 __device__ __forceinline__ float shadow_walks(
     walk::Table& T, const float* __restrict__ k2, float* __restrict__ out,
-    size_t N, int i, bool in, bool alive0, int cs, bool lv_want, V3 lv_o,
-    V3 lv_d, float lv_tmax, bool* lv_blocked) {
+    float* __restrict__ film, size_t N, int i, bool in, bool alive0, int cs,
+    bool lv_want, V3 lv_o, V3 lv_d, float lv_tmax, bool* lv_blocked) {
   float conn_ct = 0.0f;
   if constexpr (CS > 0) {
     bool want[CS + 1], blocked[CS + 1];
@@ -435,7 +458,7 @@ __device__ __forceinline__ float shadow_walks(
     walk::any_hit<CS + 1>(T, want, so, sd, tmax, blocked);
 #pragma unroll
     for (int ci = 0; ci < CS; ++ci)
-      conn_ct += conn_out(k2, out, N, i, ci, in, alive0, blocked[ci]);
+      conn_ct += conn_out(k2, out, film, N, i, ci, in, alive0, blocked[ci]);
     *lv_blocked = blocked[CS];
   } else {
     for (int ci = 0; ci < cs; ++ci) {
@@ -444,7 +467,7 @@ __device__ __forceinline__ float shadow_walks(
       bool blocked;
       const bool want = conn_ray(k2, N, i, ci, alive0, &so, &sd, &tmax);
       walk::any_hit<1>(T, &want, &so, &sd, &tmax, &blocked);
-      conn_ct += conn_out(k2, out, N, i, ci, in, alive0, blocked);
+      conn_ct += conn_out(k2, out, film, N, i, ci, in, alive0, blocked);
     }
     walk::any_hit<1>(T, &lv_want, &lv_o, &lv_d, &lv_tmax, lv_blocked);
   }
@@ -628,10 +651,10 @@ template <int CS>
 __global__ void __launch_bounds__(BLOCK, 6) lt_finalize_spawn_kernel(
     const float* __restrict__ u, const float* __restrict__ usp,
     const float* __restrict__ state, const float* __restrict__ k2,
-    float* __restrict__ out, int n, const float* __restrict__ sweep,
-    int p_rows, int resident_rows, const float* __restrict__ light,
-    const float* __restrict__ spec, const float* __restrict__ lcdf,
-    const LtArgs a) {
+    float* __restrict__ out, float* __restrict__ film, int n,
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
+    const float* __restrict__ light, const float* __restrict__ spec,
+    const float* __restrict__ lcdf, const LtArgs a) {
   extern __shared__ __align__(128) float walk_rows[];
   __shared__ uint64_t walk_bars[walk::RING_STAGES];
   // cs >= 1 (args_ok): a walk always follows
@@ -656,14 +679,15 @@ __global__ void __launch_bounds__(BLOCK, 6) lt_finalize_spawn_kernel(
   const bool lv_want = in && w.hw && sp.lv_valid;
   bool lv_blocked;
   const float conn_ct =
-      shadow_walks<CS>(T, k2, out, N, i, in, alive0, cs, lv_want, sp.so_lv,
-                       sp.dir_lv, sp.tmax_lv, &lv_blocked);
+      shadow_walks<CS>(T, k2, out, film, N, i, in, alive0, cs, lv_want,
+                       sp.so_lv, sp.dir_lv, sp.tmax_lv, &lv_blocked);
   if (!in) return;
   auto O = [&](int r, float v) { out[r * N + i] = v; };
   const bool lv_gate = lv_want && !lv_blocked;
   const int base = K4_CONN + 4 * cs;
   O(base, lv_gate ? sp.lv_pid : 0.0f);
   for (int k = 0; k < 3; ++k) O(base + 1 + k, lv_gate ? sp.lv_xyz[k] : 0.0f);
+  if (lv_gate) splat(film, sp.lv_pid, sp.lv_xyz[0], sp.lv_xyz[1], sp.lv_xyz[2]);
   O(base + 4, w.hw ? 1.0f : 0.0f);
   O(base + 5, w.cp ? 1.0f : 0.0f);
   O(base + 6, conn_ct);
@@ -673,12 +697,15 @@ __global__ void __launch_bounds__(BLOCK, 6) lt_finalize_spawn_kernel(
 
 // K34-LT v1: the respawn copied from the spawn feed's rows; one shadow ray
 // a walk (shadow_walks<0>): the joint walk's registers cost v1 a block an
-// SM, and on the H100 it ran 1-2% slower than this
-__global__ void __launch_bounds__(BLOCK) lt_finalize_kernel(
+// SM, and on the H100 it ran 1-2% slower than this. Capped at eight blocks
+// an SM: uncapped, nvcc gives it the same 64 registers and 8 blocks with a
+// larger stack frame, and on the H100 it ran 3.8% slower with the film splat
+__global__ void __launch_bounds__(BLOCK, 8) lt_finalize_kernel(
     const float* __restrict__ u, const float* __restrict__ state,
     const float* __restrict__ k2, const float* __restrict__ feed,
-    float* __restrict__ out, int n, const float* __restrict__ sweep,
-    int p_rows, int resident_rows, const LtArgs a) {
+    float* __restrict__ out, float* __restrict__ film, int n,
+    const float* __restrict__ sweep, int p_rows, int resident_rows,
+    const LtArgs a) {
   extern __shared__ __align__(128) float walk_rows[];
   __shared__ uint64_t walk_bars[walk::RING_STAGES];
   walk::Table T = walk::open_table(sweep, p_rows, resident_rows, true,
@@ -706,12 +733,15 @@ __global__ void __launch_bounds__(BLOCK) lt_finalize_kernel(
     tmax = F(F_LV + 6);
   }
   bool lv_blocked;
-  const float conn_ct = shadow_walks<0>(T, k2, out, N, i, in, alive0, cs,
-                                        lv_want, so, sd, tmax, &lv_blocked);
+  const float conn_ct = shadow_walks<0>(T, k2, out, film, N, i, in, alive0,
+                                        cs, lv_want, so, sd, tmax,
+                                        &lv_blocked);
   if (!in) return;
   auto O = [&](int r, float v) { out[r * N + i] = v; };
   const int base = K4_CONN + 4 * cs;
-  O(base, (lv_want && !lv_blocked) ? 1.0f : 0.0f);
+  const bool lv_gate = lv_want && !lv_blocked;
+  if (lv_gate) splat(film, F(F_LV + 7), F(F_LV + 8), F(F_LV + 9), F(F_LV + 10));
+  O(base, lv_gate ? 1.0f : 0.0f);
   O(base + 1, w.hw ? 1.0f : 0.0f);
   O(base + 2, w.cp ? 1.0f : 0.0f);
   O(base + 3, conn_ct);
@@ -761,12 +791,13 @@ bool args_ok(const LtArgs* a, int p_rows, int resident_rows) {
 
 extern "C" {
 
-// K12-LT: u [>= 2 cs + 4, n], state [16, n] -> q [q2_rows(cs), n]; tables
-// as baked by kernels/megakernel.py:bake_mega_scene, sweep [p_rows, 16] its
-// compact sweep table, resident in shared memory where p_rows <=
+// K12-LT: u [>= 2 cs + 4, n], state [16, n] -> q [q2_rows(cs), n], and the
+// valid direct-hit splats added to film [width * height, 3];
+// tables as baked by kernels/megakernel.py:bake_mega_scene, sweep [p_rows,
+// 16] its compact sweep table, resident in shared memory where p_rows <=
 // resident_rows. Returns a cudaError_t.
-int lt_shade_launch(const float* u, const float* state, float* q, int n,
-                    const float* sweep, int p_rows, int resident_rows,
+int lt_shade_launch(const float* u, const float* state, float* q, float* film,
+                    int n, const float* sweep, int p_rows, int resident_rows,
                     const float* prim, int p_pad, const float* mat,
                     const float* spec, const LtArgs* args,
                     cudaStream_t stream) {
@@ -777,42 +808,45 @@ int lt_shade_launch(const float* u, const float* state, float* q, int n,
   int rc = walk::allow_shared((const void*)lt_shade_kernel, smem);
   if (rc != 0) return rc;
   int grid = (n + BLOCK - 1) / BLOCK;
-  lt_shade_kernel<<<grid, BLOCK, smem, stream>>>(u, state, q, n, sweep,
+  lt_shade_kernel<<<grid, BLOCK, smem, stream>>>(u, state, q, film, n, sweep,
                                                  p_rows, resident_rows, prim,
                                                  p_pad, mat, spec, *args);
   return (int)cudaGetLastError();
 }
 
-// K34-LT v2: u, usp [16, n], state, q -> out [k4_rows_v2(cs), n]; light
-// [16, 128], spec, lcdf [520, 128] (kernels/lt_mega.py:bake_lt_spawn_tab);
-// sweep as K12-LT's
+// K34-LT v2: u, usp [16, n], state, q -> out [k4_rows_v2(cs), n], and the
+// valid connection and light-vertex splats added to film;
+// light [16, 128], spec, lcdf [520, 128]
+// (kernels/lt_mega.py:bake_lt_spawn_tab); sweep as K12-LT's
 int lt_finalize_spawn_launch(const float* u, const float* usp,
                              const float* state, const float* q, float* out,
-                             int n, const float* sweep, int p_rows,
+                             float* film, int n, const float* sweep,
+                             int p_rows,
                              int resident_rows, const float* light,
                              const float* spec, const float* lcdf,
                              const LtArgs* args, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (!args_ok(args, p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
-  void* kargs[] = {&u,      &usp,           &state, &q,
-                   &out,    &n,             &sweep, &p_rows,
-                   &resident_rows,          &light, &spec,
-                   &lcdf,   const_cast<LtArgs*>(args)};
+  void* kargs[] = {&u,      &usp,   &state,         &q,
+                   &out,    &film,  &n,             &sweep,
+                   &p_rows, &resident_rows,         &light,
+                   &spec,   &lcdf,  const_cast<LtArgs*>(args)};
   return launch(finalize_fn(true, args->cs), n,
                 walk::shared_bytes(p_rows, resident_rows), kargs, stream);
 }
 
 // K34-LT v1: u, state, q, feed [24, n] (kernels/lt_mega.py:lt_spawn_feed)
-// -> out [k4_rows(cs), n]; sweep as K12-LT's
+// -> out [k4_rows(cs), n], and the valid splats added to film as v2's;
+// sweep as K12-LT's
 int lt_finalize_launch(const float* u, const float* state, const float* q,
-                       const float* feed, float* out, int n,
+                       const float* feed, float* out, float* film, int n,
                        const float* sweep, int p_rows, int resident_rows,
                        const LtArgs* args, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (!args_ok(args, p_rows, resident_rows)) return (int)cudaErrorInvalidValue;
   void* kargs[] = {&u,      &state,         &q,     &feed,
-                   &out,    &n,             &sweep, &p_rows,
-                   &resident_rows,          const_cast<LtArgs*>(args)};
+                   &out,    &film,          &n,     &sweep,
+                   &p_rows, &resident_rows, const_cast<LtArgs*>(args)};
   return launch(finalize_fn(false, args->cs), n,
                 walk::shared_bytes(p_rows, resident_rows), kargs, stream);
 }

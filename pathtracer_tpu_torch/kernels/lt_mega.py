@@ -22,13 +22,16 @@ A round takes every lane one bounce further in two kernels:
   (`integrator/lt.py:spawn_particles` and `_connect_to_camera_values`).
 
 Both write the new state `[NS_LT, N]` and the resolved splat and counter
-rows; the round then adds every splat (direct hits, connections, light
-vertex) to the film with one `index_add_`. The three kernels are
-`csrc/lt_round.cu`; each wrapper launches its kernel on CUDA tensors and
-runs its plain torch twin (`lt_shade_plain`, `lt_finalize_spawn_plain`,
-`lt_finalize_plain`) on CPU tensors. The kernels walk the scene's compact
-`sweep_tab` from shared memory (`csrc/walk.cuh`), K34-LT every shadow ray
-of a lane in one walk; the twins read `dense_tab`.
+rows, and each adds the valid splats it settles to the film: K12-LT the
+direct hits, K34-LT the unblocked connections and the light vertex. The
+three kernels are `csrc/lt_round.cu`; each wrapper launches its kernel on
+CUDA tensors, which adds each valid splat with an `atomicAdd` and skips the
+empty ones, and runs its plain torch twin (`lt_shade_plain`,
+`lt_finalize_spawn_plain`, `lt_finalize_plain`) on CPU tensors, then adds
+the twin's splat rows with one `index_add_` (an empty row adds +0.0 to
+pixel 0). The kernels walk the scene's compact `sweep_tab` from shared
+memory (`csrc/walk.cuh`), K34-LT every shadow ray of a lane in one walk;
+the twins read `dense_tab`.
 
 Uniforms come from a uniform source (`megakernel.TorchUniforms`, or a
 test's replay of the JAX draws): per round the `[nu_lt(cs), N]` block of
@@ -908,12 +911,15 @@ def _lib():
     return lib
 
 
-def _check(scene: LtScene, u, state, rows: dict):
+def _check(scene: LtScene, u, state, film, rows: dict):
     """The round's tensors: f32, contiguous, 2-D, on one device, with the
-    row counts the kernels read and write."""
+    row counts the kernels read and write; the film [width * height, 3]."""
     t = scene.tabs
-    mk._check_tensors(u=u, state=state, dense_tab=t.dense_tab,
+    mk._check_tensors(u=u, state=state, film=film, dense_tab=t.dense_tab,
                       **{k: v for k, (v, _) in rows.items()})
+    if film.shape != (int(scene.a.width) * int(scene.a.height), 3):
+        raise ValueError(f"film must be [width * height, 3], got "
+                         f"{tuple(film.shape)}")
     n = state.shape[1]
     if state.shape[0] != NS_LT:
         raise ValueError(f"state must be [{NS_LT}, N], got "
@@ -931,20 +937,32 @@ def _check(scene: LtScene, u, state, rows: dict):
         raise NotImplementedError(_NOT_IN_GATE)
 
 
-def lt_shade(u, state, scene: LtScene):
-    """K12-LT -> Q rows [q2_rows(cs), N]: the CUDA kernel on CUDA tensors,
-    the plain twin on CPU tensors. The kernel walks the scene's compact
-    `sweep_tab`, resident in shared memory up to
-    `megakernel.SWEEP_RESIDENT_ROWS` rows, else through the ring of tiles."""
+def _splat(film, pid_rows, xyz_rows):
+    """One scatter-add of splat families' rows into the film (the twins'
+    splat; an empty row adds +0.0 to pixel 0)."""
+    pid = torch.cat(pid_rows).long()
+    xyz = torch.stack([torch.cat([r[i] for r in xyz_rows]) for i in range(3)],
+                      dim=-1)
+    film.index_add_(0, pid, xyz)
+
+
+def lt_shade(u, state, scene: LtScene, film):
+    """K12-LT -> Q rows [q2_rows(cs), N], and the direct lens-hit splats
+    added to `film` [width * height, 3]: the CUDA kernel on CUDA tensors, the plain twin and its rows' `index_add_` on CPU tensors. The
+    kernel walks the scene's compact `sweep_tab`, resident in shared memory
+    up to `megakernel.SWEEP_RESIDENT_ROWS` rows, else through the ring of
+    tiles."""
     global SHADE_LAUNCHES
     t, a = scene.tabs, scene.a
-    _check(scene, u, state, {})
+    _check(scene, u, state, film, {})
     mk._check_tensors(state=state, prim_tab=t.prim_tab, mat_tab=t.mat_tab,
                       spec_tab=t.spec_tab)
     sweep = mk._sweep_tab(t)
     if state.device.type == "cpu":
-        return lt_shade_plain(u, state, t.dense_tab, t.prim_tab, t.mat_tab,
-                              t.spec_tab, a)
+        q = lt_shade_plain(u, state, t.dense_tab, t.prim_tab, t.mat_tab,
+                           t.spec_tab, a)
+        _splat(film, [q[Q_HIT_PID]], [q[Q_HIT_XYZ:Q_HIT_XYZ + 3]])
+        return q
     lib = _lib()
     n = state.shape[1]
     q = torch.empty((q2_rows(a.cs), n), dtype=torch.float32,
@@ -952,8 +970,8 @@ def lt_shade(u, state, scene: LtScene):
     cargs = _c_args(a)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.lt_shade_launch(
-        mk._ptr(u), mk._ptr(state), mk._ptr(q), n, mk._ptr(sweep),
-        sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
+        mk._ptr(u), mk._ptr(state), mk._ptr(q), mk._ptr(film), n,
+        mk._ptr(sweep), sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
         mk._ptr(t.prim_tab), t.prim_tab.shape[1],
         mk._ptr(t.mat_tab), mk._ptr(t.spec_tab), ctypes.byref(cargs),
         ctypes.c_void_p(stream))
@@ -962,22 +980,30 @@ def lt_shade(u, state, scene: LtScene):
     return q
 
 
-def lt_finalize_spawn(u, usp, state, k2, scene: LtScene):
-    """K34-LT v2 -> [k4_rows_v2(cs), N]: the CUDA kernel on CUDA tensors,
-    the plain twin on CPU tensors. The kernel walks the sweep table as
-    `lt_shade` does, every shadow ray of a lane in one walk."""
+def lt_finalize_spawn(u, usp, state, k2, scene: LtScene, film):
+    """K34-LT v2 -> [k4_rows_v2(cs), N], and the unblocked connections' and
+    the light vertices' splats added to `film`: the CUDA kernel on
+    CUDA tensors, the plain twin and its rows' `index_add_` on CPU tensors.
+    The kernel walks the sweep table as `lt_shade` does, every shadow ray
+    of a lane in one walk."""
     global FINALIZE_SPAWN_LAUNCHES
     t, a = scene.tabs, scene.a
     if scene.lcdf_tab is None:
         raise ValueError("the scene was baked for the spawn feed (v1)")
-    _check(scene, u, state, dict(usp=(usp, NUSP), k2=(k2, q2_rows(a.cs))))
+    _check(scene, u, state, film,
+           dict(usp=(usp, NUSP), k2=(k2, q2_rows(a.cs))))
     mk._check_tensors(state=state, light_tab=t.light_tab, spec_tab=t.spec_tab,
                       lcdf_tab=scene.lcdf_tab)
     sweep = mk._sweep_tab(t)
     if state.device.type == "cpu":
-        return lt_finalize_spawn_plain(u, usp, state, k2, t.dense_tab,
-                                       t.light_tab, t.spec_tab,
-                                       scene.lcdf_tab, a)
+        out = lt_finalize_spawn_plain(u, usp, state, k2, t.dense_tab,
+                                      t.light_tab, t.spec_tab,
+                                      scene.lcdf_tab, a)
+        rows = [K4_CONN + 4 * ci for ci in range(a.cs)] + [
+            k4_aux_v2(a.cs)["lv_pid"]]
+        _splat(film, [out[b] for b in rows],
+               [out[b + 1:b + 4] for b in rows])
+        return out
     lib = _lib()
     n = state.shape[1]
     out = torch.empty((k4_rows_v2(a.cs), n), dtype=torch.float32,
@@ -986,24 +1012,33 @@ def lt_finalize_spawn(u, usp, state, k2, scene: LtScene):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.lt_finalize_spawn_launch(
         mk._ptr(u), mk._ptr(usp), mk._ptr(state), mk._ptr(k2), mk._ptr(out),
-        n, mk._ptr(sweep), sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
-        mk._ptr(t.light_tab), mk._ptr(t.spec_tab), mk._ptr(scene.lcdf_tab),
-        ctypes.byref(cargs), ctypes.c_void_p(stream))
+        mk._ptr(film), n, mk._ptr(sweep), sweep.shape[0],
+        mk.SWEEP_RESIDENT_ROWS, mk._ptr(t.light_tab), mk._ptr(t.spec_tab),
+        mk._ptr(scene.lcdf_tab), ctypes.byref(cargs), ctypes.c_void_p(stream))
     mk._raise_on(rc, "lt_finalize_spawn")
     FINALIZE_SPAWN_LAUNCHES += 1
     return out
 
 
-def lt_finalize(u, state, k2, feed, scene: LtScene):
-    """K34-LT v1 -> [k4_rows(cs), N] from the spawn feed's rows: the CUDA
-    kernel on CUDA tensors, the plain twin on CPU tensors. The kernel walks
-    the sweep table as `lt_finalize_spawn` does."""
+def lt_finalize(u, state, k2, feed, scene: LtScene, film):
+    """K34-LT v1 -> [k4_rows(cs), N] from the spawn feed's rows, and the
+    splats added to `film` as `lt_finalize_spawn` adds them (the
+    light vertex's from the feed's rows): the CUDA kernel on CUDA tensors,
+    the plain twin and its rows' `index_add_` on CPU tensors. The kernel
+    walks the sweep table as `lt_finalize_spawn` does."""
     global FINALIZE_LAUNCHES
     a = scene.a
-    _check(scene, u, state, dict(k2=(k2, q2_rows(a.cs)), feed=(feed, NF)))
+    _check(scene, u, state, film,
+           dict(k2=(k2, q2_rows(a.cs)), feed=(feed, NF)))
     sweep = mk._sweep_tab(scene.tabs)
     if state.device.type == "cpu":
-        return lt_finalize_plain(u, state, k2, feed, scene.tabs.dense_tab, a)
+        out = lt_finalize_plain(u, state, k2, feed, scene.tabs.dense_tab, a)
+        gate = out[k4_aux(a.cs)["lv_ok"]]
+        conns = [K4_CONN + 4 * ci for ci in range(a.cs)]
+        _splat(film, [out[b] for b in conns] + [feed[F_LV + 7] * gate],
+               [out[b + 1:b + 4] for b in conns]
+               + [feed[F_LV + 8:F_LV + 11] * gate])
+        return out
     lib = _lib()
     n = state.shape[1]
     out = torch.empty((k4_rows(a.cs), n), dtype=torch.float32,
@@ -1012,8 +1047,8 @@ def lt_finalize(u, state, k2, feed, scene: LtScene):
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.lt_finalize_launch(
         mk._ptr(u), mk._ptr(state), mk._ptr(k2), mk._ptr(feed), mk._ptr(out),
-        n, mk._ptr(sweep), sweep.shape[0], mk.SWEEP_RESIDENT_ROWS,
-        ctypes.byref(cargs), ctypes.c_void_p(stream))
+        mk._ptr(film), n, mk._ptr(sweep), sweep.shape[0],
+        mk.SWEEP_RESIDENT_ROWS, ctypes.byref(cargs), ctypes.c_void_p(stream))
     mk._raise_on(rc, "lt_finalize")
     FINALIZE_LAUNCHES += 1
     return out
@@ -1068,17 +1103,30 @@ def lt_spawn_feed(world, camera, settings, u0, uc, width, height,
 # ----------------------------------------------------------- the rounds
 
 
-def _splat(film, pid_rows, xyz_rows):
-    """One scatter-add of every splat family of a round into the film."""
-    pid = torch.cat(pid_rows).long()
-    xyz = torch.stack([torch.cat([r[i] for r in xyz_rows]) for i in range(3)],
-                      dim=-1)
-    film.index_add_(0, pid, xyz)
+def _count_splats(slot, *rows):
+    """Sum into the f64 device scalar `slot` a round's valid splats: the
+    entries of the splat rows `rows` (each [4 k, N]: pixel id, X, Y, Z of k
+    families) whose pixel id or XYZ is not zero. An empty entry is all
+    zeros, a pixel id is >= 0 and a valid splat's Y is > 0, so an entry is
+    valid where its largest value is above 0: one `amax` a tensor, then one
+    compare and one sum."""
+    n = rows[0].shape[1]
+    top = torch.empty((sum(r.shape[0] for r in rows) // 4, n),
+                      dtype=rows[0].dtype, device=rows[0].device)
+    i = 0
+    for r in rows:
+        k = r.shape[0] // 4
+        torch.amax(r.view(k, 4, n), 1, out=top[i:i + k])
+        i += k
+    torch.sum(top > 0.0, (0, 1), dtype=torch.float64, out=slot)
 
 
-def lt_round_v2(state, scene: LtScene, settings, uniforms, it: int, film):
-    """One v2 round: K12-LT, then K34-LT with in-kernel spawning, then the
-    splats -> (out [k4_rows_v2(cs), N], q rows, counter row sums)."""
+def lt_round_v2(state, scene: LtScene, settings, uniforms, it: int, film,
+                added=None):
+    """One v2 round: K12-LT, then K34-LT with in-kernel spawning, each
+    adding its valid splats to the film -> (out [k4_rows_v2(cs), N], q
+    rows, counter row sums). `added` (tracing only): the f64 device scalar
+    that gets the round's valid splats."""
     a = scene.a
     n_pad, dev = state.shape[1], state.device
     u = uniforms.round(it, nu_lt(a.cs), n_pad, dev, stream=STREAM_U)
@@ -1087,35 +1135,36 @@ def lt_round_v2(state, scene: LtScene, settings, uniforms, it: int, film):
         cells = settings.strata_uv ** 2 * settings.strata_lam
         usp = stratify_usp(settings, usp, uniforms.permutation(
             it, cells, dev, stream=STREAM_SPAWN))
-    q = lt_shade(u, state, scene)
-    out = lt_finalize_spawn(u, usp, state, q, scene)
+    q = lt_shade(u, state, scene, film)
+    out = lt_finalize_spawn(u, usp, state, q, scene, film)
     aux = k4_aux_v2(a.cs)
-    conns = [K4_CONN + 4 * ci for ci in range(a.cs)] + [aux["lv_pid"]]
-    _splat(film, [q[Q_HIT_PID]] + [out[b] for b in conns],
-           [q[Q_HIT_XYZ:Q_HIT_XYZ + 3]] + [out[b + 1:b + 4] for b in conns])
+    if added is not None:
+        _count_splats(added, q[Q_HIT_PID:Q_HIT_XYZ + 3],
+                      out[K4_CONN:aux["lv_xyz"] + 3])
     counts = torch.stack([out[aux["bounce"]],
                           out[aux["conn_ct"]] + out[aux["lv_ct"]],
                           out[aux["resp"]]])
     return out, q, counts
 
 
-def lt_round_v1(state, scene: LtScene, settings, uniforms, it: int, film):
+def lt_round_v1(state, scene: LtScene, settings, uniforms, it: int, film,
+                added=None):
     """One v1 round: K12-LT, the torch spawn feed, K34-LT from the feed,
-    then the splats -> (out [k4_rows(cs), N], q rows, counter row sums)."""
+    each kernel adding its valid splats to the film -> (out [k4_rows(cs),
+    N], q rows, counter row sums); `added` as `lt_round_v2`'s."""
     a = scene.a
     n_pad, dev = state.shape[1], state.device
     u = uniforms.round(it, nu_lt(a.cs), n_pad, dev, stream=STREAM_U)
-    q = lt_shade(u, state, scene)
+    q = lt_shade(u, state, scene, film)
     with prof.span("feed"):
         feed = spawn_feed_for(scene, settings, uniforms, it, n_pad)
-    out = lt_finalize(u, state, q, feed, scene)
+    out = lt_finalize(u, state, q, feed, scene, film)
     aux = k4_aux(a.cs)
     gate = out[aux["lv_ok"]]
-    conns = [K4_CONN + 4 * ci for ci in range(a.cs)]
-    _splat(film, [q[Q_HIT_PID]] + [out[b] for b in conns]
-           + [feed[F_LV + 7] * gate],
-           [q[Q_HIT_XYZ:Q_HIT_XYZ + 3]] + [out[b + 1:b + 4] for b in conns]
-           + [feed[F_LV + 8:F_LV + 11] * gate])
+    if added is not None:
+        _count_splats(added, q[Q_HIT_PID:Q_HIT_XYZ + 3],
+                      out[K4_CONN:K4_CONN + 4 * a.cs],
+                      feed[F_LV + 7:F_LV + 11] * gate)
     counts = torch.stack([out[aux["bounce"]], out[aux["conn_ct"]] + gate,
                           out[aux["resp"]]])
     return out, q, counts
@@ -1182,13 +1231,15 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
     step = lt_round_v2 if scene.spawn_inkernel else lt_round_v1
     max_iters = int((b_each + 1) * settings.max_bounces * 4 + 64)
     live = mk.live_lanes(max_iters, device)
+    added = None if live is None else torch.zeros_like(live)
     it = 0
     while it < max_iters:
         for _ in range(ALIVE_CHECK_EVERY):
             if live is not None:
                 torch.sum(state[LS_ALIVE] > 0.5, 0, dtype=torch.float64,
                           out=live[it])
-            out, _, counts = step(state, scene, settings, uniforms, it, film)
+            out, _, counts = step(state, scene, settings, uniforms, it, film,
+                                  None if added is None else added[it])
             state = out[:NS_LT]
             counters.index_add_(0, slots,
                                 counts.sum(dim=1, dtype=torch.float64))
@@ -1198,6 +1249,11 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
         if not alive:
             break
     mk.count_lanes(live, it, state.shape[1])
+    if added is not None:
+        # the entries the round's splat would take with every empty row,
+        # and the valid splats the kernels add
+        prof.count("splat_slots", [(scene.a.cs + 2) * state.shape[1]] * it)
+        prof.count("splats_added", added[:it])
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + it
         stats["lt_round"] = "v2" if scene.spawn_inkernel else "v1"

@@ -480,7 +480,8 @@ def bench_dense(dev, smi, reps):
 
 
 def bench_lt(dev, smi, reps):
-    """K12-LT and K34-LT on a second round's inputs at 2^20 lanes."""
+    """K12-LT and K34-LT on a second round's inputs at 2^20 lanes, each
+    adding its splats to a film as on the render's path."""
     from pathtracer_tpu_torch.integrator.lt import LTSettings
     from pathtracer_tpu_torch.kernels import lt_mega as lt
 
@@ -498,26 +499,28 @@ def bench_lt(dev, smi, reps):
         state[lt.LS_BUDGET] = 2.0
         unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(41))
         cells = s.strata_uv ** 2 * s.strata_lam
+        film = torch.zeros((width * width, 3), device=dev)
 
         def finalize(it, u, st, q):
             if v2:
                 usp = lt.stratify_usp(s, unif.round(it, lt.NUSP, lanes, dev),
                                       unif.permutation(it, cells, dev))
-                return lambda: lt.lt_finalize_spawn(u, usp, st, q, scene)
+                return lambda: lt.lt_finalize_spawn(u, usp, st, q, scene,
+                                                    film)
             feed = lt.spawn_feed_for(scene, s, unif, it, lanes)
-            return lambda: lt.lt_finalize(u, st, q, feed, scene)
+            return lambda: lt.lt_finalize(u, st, q, feed, scene, film)
 
         u = unif.round(0, lt.nu_lt(cs), lanes, dev)
-        state = finalize(0, u, state, lt.lt_shade(u, state, scene))()[
+        state = finalize(0, u, state, lt.lt_shade(u, state, scene, film))()[
             :lt.NS_LT].contiguous()
         u = unif.round(1, lt.nu_lt(cs), lanes, dev)
-        q = lt.lt_shade(u, state, scene)
+        q = lt.lt_shade(u, state, scene, film)
         fin = finalize(1, u, state, q)
         rec = dict(case=f"lt_{recipe}_cs{cs}", lanes=lanes, card=smi,
                    route="v2" if v2 else "v1",
                    walking=int((state[lt.LS_ALIVE] > 0.5).sum()),
-                   lt_shade_ms=cuda_ms(lambda: lt.lt_shade(u, state, scene),
-                                       reps),
+                   lt_shade_ms=cuda_ms(
+                       lambda: lt.lt_shade(u, state, scene, film), reps),
                    finalize_ms=cuda_ms(fin, reps))
         for key, which in (("lt_shade", 0),
                            ("finalize", 1 if v2 else 2)):

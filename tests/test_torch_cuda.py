@@ -36,7 +36,11 @@ the any-hit sweep's `live` mask. `World.intersect` / `intersect_any` on a
 CUDA world launch them and give the CPU twin's hit record, and a regen
 render launches them once a round and once a round per light sample; the
 light-tracing wavefront and BDPT launch them on every bounce and every
-strategy family, and match CPU runs of the same uniforms. With tracing on
+strategy family, and match CPU runs of the same uniforms. K12-LT and K34-LT
+add the LT megakernel's valid splats to the film themselves: each
+kernel's splats, and a render's film, equal the `index_add_` of the splat
+rows written within rtol 1e-5 (v2 at 1 and 2 camera samples, v1). With
+tracing on
 (utils/profile.py), the megakernel routes render the film and counters of
 tracing off and count their lanes on the card."""
 
@@ -650,9 +654,14 @@ def test_lt_shade_resident_and_ring_match_plain(dev, monkeypatch, cs):
     lanes die mid-warp and respawn: with the table resident in shared memory
     and through the ring (the budget one row under the table: one short
     tile), their rows equal the twins' bit for bit on every row of the
-    kernels' own state, on an odd lane count."""
+    kernels' own state, on an odd lane count, and the splats they add to
+    the film equal the `index_add_` of the twins' splat rows within rtol
+    1e-5."""
+    from lt_splat_helpers import splat_film
+
     lt, s, scene, state = _lt_setup(dev, "chip_lens", "CHIP_LENS_CAMERA", cs,
                                     True)
+    film0 = torch.zeros((128 * 128, 3), device=dev)
     unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(10))
     t, a = scene.tabs, scene.a
     n = state.shape[1] - 91
@@ -663,12 +672,14 @@ def test_lt_shade_resident_and_ring_match_plain(dev, monkeypatch, cs):
     for it in range(3):
         u = unif.round(it, lt.nu_lt(cs), n, dev)
         usp = unif.round(it, lt.NUSP, n, dev)
-        qs, outs = [], []
+        qs, outs, films = [], [], []
         for budget in budgets:
             monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
             launches = (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES)
-            qs.append(lt.lt_shade(u, sk, scene))
-            outs.append(lt.lt_finalize_spawn(u, usp, sk, qs[0], scene))
+            films.append(torch.zeros_like(film0))
+            qs.append(lt.lt_shade(u, sk, scene, films[-1]))
+            outs.append(lt.lt_finalize_spawn(u, usp, sk, qs[0], scene,
+                                             films[-1]))
             assert (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES) == (
                 launches[0] + 1, launches[1] + 1)
         qp = lt.lt_shade_plain(u, sk, t.dense_tab, t.prim_tab, t.mat_tab,
@@ -678,6 +689,9 @@ def test_lt_shade_resident_and_ring_match_plain(dev, monkeypatch, cs):
                                         scene.lcdf_tab, a)
         assert all(torch.equal(q, qp) for q in qs)
         assert all(torch.equal(o, op) for o in outs)
+        ref = splat_film(film0, [(qp, op, None)], cs, True)
+        for f in films:
+            torch.testing.assert_close(f, ref, rtol=1e-5, atol=0)
         walking += float(qp[lt.Q_ALIVE].sum())
         if it > 0:
             respawned += float(op[lt.k4_aux_v2(cs)["resp"]].sum())
@@ -709,9 +723,14 @@ def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
     feed) against their twins over three chained rounds from a state of
     dead lanes with budget, each side on its own state, on an odd lane
     count; and K34-LT on the kernels' state equal to its twin on every row,
-    its sweep table resident and through the ring. Three camera samples
-    take the instantiation that walks one shadow ray at a time."""
+    its sweep table resident and through the ring; the splats each kernel
+    adds to the film equal the `index_add_` of its splat rows within rtol
+    1e-5. Three camera samples take the instantiation that walks one shadow
+    ray at a time."""
+    from lt_splat_helpers import splat_film
+
     lt, s, scene, state = _lt_setup(dev, recipe, cam, cs, v2)
+    film0 = torch.zeros((128 * 128, 3), device=dev)
     unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(9))
     t, a = scene.tabs, scene.a
     n = state.shape[1] - 91
@@ -725,16 +744,21 @@ def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
         u = unif.round(it, lt.nu_lt(cs), n, dev)
         launches = (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES,
                     lt.FINALIZE_LAUNCHES)
-        qk = lt.lt_shade(u, sk, scene)
+        f12 = torch.zeros_like(film0)
+        qk = lt.lt_shade(u, sk, scene, f12)
         qp = lt.lt_shade_plain(u, sp, t.dense_tab, t.prim_tab, t.mat_tab,
                                t.spec_tab, a)
         frac, close = match_rows(qk, qp, q_disc)
         assert frac >= 0.9999 and close
+        torch.testing.assert_close(
+            f12, splat_film(film0, [(qk, None, None)], cs, v2), rtol=1e-5,
+            atol=0)
+        fk = None
         if v2:
             usp = unif.round(it, lt.NUSP, n, dev)
 
-            def kernel():
-                return lt.lt_finalize_spawn(u, usp, sk, qk, scene)
+            def kernel(film):
+                return lt.lt_finalize_spawn(u, usp, sk, qk, scene, film)
 
             def twin(st, q):
                 return lt.lt_finalize_spawn_plain(u, usp, st, q, t.dense_tab,
@@ -743,15 +767,16 @@ def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
         else:
             fk = lt.spawn_feed_for(scene, s, unif, it, n)
 
-            def kernel():
-                return lt.lt_finalize(u, sk, qk, fk, scene)
+            def kernel(film):
+                return lt.lt_finalize(u, sk, qk, fk, scene, film)
 
             def twin(st, q):
                 return lt.lt_finalize_plain(u, st, q, fk, t.dense_tab, a)
-        outs = []
+        outs, films = [], []
         for budget in budgets:
             monkeypatch.setattr(mk, "SWEEP_RESIDENT_ROWS", budget)
-            outs.append(kernel())
+            films.append(torch.zeros_like(film0))
+            outs.append(kernel(films[-1]))
         ok, op = outs[0], twin(sp, qp)
         assert (lt.SHADE_LAUNCHES, lt.FINALIZE_SPAWN_LAUNCHES,
                 lt.FINALIZE_LAUNCHES) == (launches[0] + 1,
@@ -759,12 +784,68 @@ def test_lt_kernels_match_plain(dev, monkeypatch, recipe, cam, cs, v2):
                                           launches[2] + 2 * int(not v2))
         own = twin(sk, qk)
         assert all(torch.equal(o, own) for o in outs)
+        ref = splat_film(film0, [(None, own, fk)], cs, v2)
+        for f in films:
+            torch.testing.assert_close(f, ref, rtol=1e-5, atol=0)
         frac, close = match_rows(ok, op, o_disc)
         assert frac >= 0.9999 and close
         sk, sp = ok[:lt.NS_LT], op[:lt.NS_LT]
         spawned += float(ok[aux["resp"]].sum())
     assert spawned == n
     assert np.isfinite(sk.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("recipe,cam,cs", [
+    ("gem_cornell", "CORNELL_CAMERA", 1),
+    ("gem_cornell", "CORNELL_CAMERA", 2),
+    ("hdri_blob", "SPHERE_CAMERA", 1)])
+def test_lt_film_splat_in_the_kernels(dev, monkeypatch, recipe, cam, cs):
+    """`lt_trace_mega` on the card (the gem by v2 at 1 and 2 camera samples,
+    the HDR blob by v1): K12-LT and K34-LT add the valid splats to the film
+    themselves, and the film equals the `index_add_` of every splat row the
+    rounds wrote within rtol 1e-5 (atomics add in any order); nothing
+    index-adds into the film; `splats_added` counts the rows' non-zero
+    entries and `splat_slots` every entry."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pathtracer_tpu_torch.integrator.lt import LTSettings
+    from pathtracer_tpu_torch.kernels import lt_mega as lt
+    from pathtracer_tpu_torch.utils import profile
+
+    from lt_splat_helpers import record_rounds, splat_entries
+
+    class IndexAdds(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.targets = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "index_add" in str(func.overloadpacket):
+                self.targets.append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    w = 128
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    camera = make_projective_camera(**getattr(scenes, cam), device=dev)
+    s = LTSettings(max_bounces=8, camera_samples=cs, stratified=True)
+    unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(15))
+    rounds, stats = record_rounds(monkeypatch), {}
+    with profile.tracing() as rec, IndexAdds() as adds:
+        film, _ = lt.lt_trace_mega(world, camera, s, w, w, w * w * 4, unif,
+                                   device=dev, stats=stats)
+        torch.cuda.synchronize()
+    rec.resolve()
+    v2 = recipe == "gem_cornell"
+    assert stats["lt_round"] == ("v2" if v2 else "v1")
+    assert (w * w, 3) not in adds.targets and len(rounds) == stats["rounds"]
+    pid, xyz = splat_entries(rounds, cs, v2)
+    every = torch.zeros_like(film).index_add_(0, pid.long(), xyz)
+    torch.testing.assert_close(film, every, rtol=1e-5, atol=0)
+    valid = (pid != 0) | (xyz != 0).any(1)
+    assert rec.total("splats_added") == int(valid.sum()) > 0
+    assert rec.total("splat_slots") == pid.shape[0] == (
+        (cs + 2) * rounds[0][1].shape[1] * len(rounds))
+    assert float(film[:, 1].sum()) > 0
 
 
 @pytest.mark.parametrize("recipe", ["gem_cornell", "light_grid_cornell"])
@@ -909,8 +990,8 @@ def test_bdpt_trace_launches_dense_sweeps(dev):
 def test_tracing_on_the_card_changes_no_film(dev, integrator):
     """The textured box path-traced (the texture-feed round) and the gem
     light-traced (the LT megakernel v2), with tracing off and on: the same
-    counters and film (bit for bit in PT; the LT splat's atomics add in
-    any order), and the lane counters of every round."""
+    counters and film (bit for bit in PT; the LT kernels' splat atomics
+    add in any order), and the lane counters of every round."""
     import collections
 
     from pathtracer_tpu_torch.integrator.lt import LTSettings
@@ -941,7 +1022,7 @@ def test_tracing_on_the_card_changes_no_film(dev, integrator):
     assert prof0 == prof1
     if integrator == "pt":
         assert torch.equal(film0, film1)
-    else:  # the splat's index_add_ adds in the order its atomics land
+    else:  # the kernels' splat atomics add in the order they land
         torch.testing.assert_close(film1, film0, rtol=1e-4, atol=1e-7)
     r = stats["rounds"]
     names = collections.Counter(sp.name for sp in rec.spans)

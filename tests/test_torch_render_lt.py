@@ -159,7 +159,8 @@ def test_gate_refuses_with_roadmap_item(what):
 
 def test_wrappers_take_plain_twins_on_cpu():
     """On CPU tensors the three wrappers run their twins and count no
-    launch; a route's wrapper refuses the other route's scene."""
+    launch; a route's wrapper refuses the other route's scene, and every
+    wrapper a film of another size than the scene's."""
     _, tw, _, tc = both_worlds("hdri")
     _, ts = both_lt_settings()
     scene = tlt.build_lt_scene(tw, tc, ts, 16, 16, "cpu")
@@ -172,16 +173,22 @@ def test_wrappers_take_plain_twins_on_cpu():
     launches = (tlt.SHADE_LAUNCHES, tlt.FINALIZE_SPAWN_LAUNCHES,
                 tlt.FINALIZE_LAUNCHES)
     calls = tlt.PLAIN_CALLS
-    q = tlt.lt_shade(u, state, scene)
+    film = torch.zeros((16 * 16, 3))
+    q = tlt.lt_shade(u, state, scene, film)
     assert q.shape == (tlt.q2_rows(1), 4096) and not q.any()
     feed = tlt.spawn_feed_for(scene, ts, unif, 0, 4096)
-    out = tlt.lt_finalize(u, state, q, feed, scene)
+    out = tlt.lt_finalize(u, state, q, feed, scene, film)
     assert out[tlt.k4_aux(1)["resp"]].sum() == 4096
     assert (tlt.SHADE_LAUNCHES, tlt.FINALIZE_SPAWN_LAUNCHES,
             tlt.FINALIZE_LAUNCHES) == launches
     assert tlt.PLAIN_CALLS == calls + 2
     with pytest.raises(ValueError):
         tlt.lt_finalize_spawn(u, torch.zeros((tlt.NUSP, 4096)), state, q,
-                              scene)
+                              scene, film)
     with pytest.raises(ValueError):
-        tlt.lt_finalize(u, state, q[:8], feed, scene)
+        tlt.lt_finalize(u, state, q[:8], feed, scene, film)
+    for wrong in (film[:-1], torch.zeros((16, 16, 3))):
+        with pytest.raises(ValueError, match="film"):
+            tlt.lt_shade(u, state, scene, wrong)
+        with pytest.raises(ValueError, match="film"):
+            tlt.lt_finalize(u, state, q, feed, scene, wrong)

@@ -247,12 +247,14 @@ def test_wrappers_refuse_a_bad_sweep_tab(lt_scenes, wrapper, how):
     k2 = torch.zeros((lt.q2_rows(cs), n))
     stale = dataclasses.replace(scene, tabs=dataclasses.replace(
         scene.tabs, sweep_tab=bad_sweep(scene.tabs.sweep_tab, how)))
+    film = torch.zeros((int(scene.a.width) * int(scene.a.height), 3))
     with pytest.raises((ValueError, TypeError), match="sweep_tab"):
         if v2:
             lt.lt_finalize_spawn(u, torch.zeros((lt.NUSP, n)), state, k2,
-                                 stale)
+                                 stale, film)
         else:
-            lt.lt_finalize(u, state, k2, torch.zeros((lt.NF, n)), stale)
+            lt.lt_finalize(u, state, k2, torch.zeros((lt.NF, n)), stale,
+                           film)
 
 
 def test_pack_sweep_all_types_and_degenerate_rects():

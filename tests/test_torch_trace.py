@@ -231,7 +231,8 @@ def _one_frame(shift=0.0):
               (7.5 + shift, 7.6 + shift, "Memcpy DtoH (Device -> Pageable)"),
               (9.2, 9.8, "Memcpy DtoH (Device -> Pageable)")]
     return _Run([(1.0, 9.0, 10.0)], spans, device,
-                dict(lanes_launched=8192, lanes_live=2048.0))
+                dict(lanes_launched=8192, lanes_live=2048.0,
+                     splat_slots=3 * 8192, splats_added=2457.6))
 
 
 def test_idle_goes_to_the_innermost_span():
@@ -255,6 +256,7 @@ def test_idle_goes_to_the_innermost_span():
     assert tc.per_frame_ms(run, "wait") == pytest.approx(2000.0)
     assert tc.per_frame_ms(run, "feed") == 0.0
     assert tc.live_lane_share(run) == pytest.approx(25.0)
+    assert tc.splat_share(run) == pytest.approx(10.0)
 
 
 def test_clock_check():
@@ -298,6 +300,7 @@ def test_readers_without_program_spans_read_nothing():
     run.program_spans, run.program_counters = [], {}
     assert tc.per_frame_ms(run, "bake") is None
     assert tc.live_lane_share(run) is None
+    assert tc.splat_share(run) is None
     by, _, after = tc.idle_by_span(run)
     assert not after
     assert set(by) == {"between_frames", "render_call", "film_copy"}
@@ -319,6 +322,7 @@ def test_cpu_window_spans_inside_their_calls():
     assert s["spans_per_frame"]["render"] == 1.0
     assert s["spans_per_frame"]["gate"] == 3.0
     assert s["bake_ms_per_frame"] > 0 and 0 < s["live_lane_share"] <= 100
+    assert s["splat_share"] is None  # a PT cell splats nothing
     rounds = run.frames[0]["rounds"]
     assert run.program_counters["lanes_launched"] == pytest.approx(
         sum(f["rounds"] for f in run.frames) * mk.TILE)

@@ -598,12 +598,13 @@ def chained_lt(recipe, lt_kw, spawn_inkernel, rounds=3, lanes=2048,
     state0 = np.zeros((tlt.NS_LT, lanes), np.float32)
     state0[tlt.LS_BUDGET] = budget
     jstate, tstate = jnp.asarray(state0), torch.as_tensor(state0)
+    film = torch.zeros((width * height, 3))
     out = []
     for it in range(rounds):
         u = replay.round(it, tlt.nu_lt(cs), lanes, "cpu", 0)
         ju = jnp.asarray(u.numpy())
         jq = k12(ju, jstate)
-        q = tlt.lt_shade(u, tstate, scene)
+        q = tlt.lt_shade(u, tstate, scene, film)
         rec = dict(jin=np.asarray(jstate), tin=tstate.numpy().copy(),
                    jq=np.asarray(jq), q=q.numpy())
         if spawn_inkernel:
@@ -619,14 +620,14 @@ def chained_lt(recipe, lt_kw, spawn_inkernel, rounds=3, lanes=2048,
             rec["usp_equal"] = bool(np.array_equal(np.asarray(jusp),
                                                    usp.numpy()))
             jo = k34v2(ju, jusp, jstate, jq)
-            o = tlt.lt_finalize_spawn(u, usp, tstate, q, scene)
+            o = tlt.lt_finalize_spawn(u, usp, tstate, q, scene, film)
         else:
             jfeed = jlt._lt_spawn_feed(jw, jsettings, key, jnp.int32(it),
                                        lanes, jc, width, height)
             feed = tlt.spawn_feed_for(scene, lt_settings, replay, it, lanes)
             rec.update(jfeed=np.asarray(jfeed), feed=feed.numpy())
             jo = k34v1(ju, jstate, jq, jfeed)
-            o = tlt.lt_finalize(u, tstate, q, feed, scene)
+            o = tlt.lt_finalize(u, tstate, q, feed, scene, film)
         rec.update(jout=np.asarray(jo), out=o.numpy())
         out.append(rec)
         jstate, tstate = jo[:tlt.NS_LT], o[:tlt.NS_LT]

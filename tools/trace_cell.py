@@ -11,7 +11,9 @@ with `pathtracer_tpu_torch.utils.profile.tracing()` around the window's
 frame loop (`--recorder 0` leaves it off: the same window, for the cost of
 the recorder), and prints one JSON line: the window's rate, the device's
 idle share, the per-frame times of the program's spans, the live-lane
-share of the megakernel rounds, the idle time by innermost span (program
+share of the megakernel rounds, the LT megakernel's splat share (the valid
+splats its kernels add over the entries an `index_add_` of every splat row
+would take), the idle time by innermost span (program
 spans `gate`, `bake`, `feed`, `wait`, `render` for the call outside its
 child spans, split too by the child span it follows; harness spans
 `render_call` for the call outside `render`, `film_copy`,
@@ -113,6 +115,16 @@ def live_lane_share(run):
     if not c.get("lanes_launched"):
         return None
     return 100.0 * c["lanes_live"] / c["lanes_launched"]
+
+
+def splat_share(run):
+    """100 x the valid splats the LT megakernel's kernels added over the
+    splat rows' entries (camera samples + 2 a lane a round), or None
+    without the counters (a PT cell)."""
+    c = getattr(run, "program_counters", None) or {}
+    if not c.get("splat_slots"):
+        return None
+    return 100.0 * c["splats_added"] / c["splat_slots"]
 
 
 def frame_renders(run):
@@ -317,6 +329,7 @@ def summary(run):
             feed_ms_per_frame=per_frame_ms(run, "feed"),
             render_self_ms_per_frame=per_frame_ms(run, "render"),
             live_lane_share=live_lane_share(run),
+            splat_share=splat_share(run),
             spans_per_frame={n: sum(1 for s in run.program_spans
                                     if s[2] == n) / len(run.frames)
                              for n in PROGRAM},
