@@ -1,7 +1,9 @@
 """The program under test, driven from the benchmark's data: the scene of a
 configuration built through `pathtracer_tpu_torch`'s SceneBuilder and curve
-classes, and one frame of a traffic mix (one call of the renderer's entry,
-then the film copied to the host)."""
+classes (its media with `add_medium_hg` / `add_medium_rayleigh`, named by
+GGX boundaries as their inner and outer medium), and one frame of a
+traffic mix (one call of the renderer's entry, then the film copied to the
+host)."""
 
 from __future__ import annotations
 
@@ -46,6 +48,17 @@ def build_scene(data, width, height, device):
             for n, s in data.curves.items()}
     tidx = {n: b.add_texture([(w, cidx[c]) for w, c in layers], name=n)
             for n, layers in data.textures.items()}
+    medidx = {}  # the builder's medium ids; 0 is vacuum
+    for n, m in data.mediums.items():
+        k = m["kind"]
+        if k == "hg":  # the builder's g curve is the asymmetry itself
+            medidx[n] = b.add_medium_hg(cidx[m["g"]], cidx[m["sigma_s"]],
+                                        cidx[m["sigma_a"]], name=n)
+        elif k == "rayleigh":
+            medidx[n] = b.add_medium_rayleigh(
+                cidx[m["ior"]], float(m["corrective_factor"]), name=n)
+        else:
+            raise ValueError(f"unknown medium kind {k!r}")
     midx = {}
     for n, m in data.materials.items():
         k = m["kind"]
@@ -54,7 +67,12 @@ def build_scene(data, width, height, device):
         elif k == "ggx":
             midx[n] = b.add_ggx(float(m["alpha"]), cidx[m["eta"]],
                                 cidx[m["eta_outer"]], cidx[m["kappa"]],
-                                permeability=float(m["permeability"]), name=n)
+                                permeability=float(m["permeability"]),
+                                inner_medium=medidx.get(m.get("inner_medium"),
+                                                        0),
+                                outer_medium=medidx.get(m.get("outer_medium"),
+                                                        0),
+                                name=n)
         elif k == "diffuse_light":
             midx[n] = b.add_diffuse_light(cidx[m["emission"]],
                                           cidx[m["bounce"]], SIDES[m["side"]],

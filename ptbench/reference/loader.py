@@ -12,11 +12,21 @@ right, value: value * exp(-|lam - center| / taper)), `blackbody`
 and `cauchy` (a + b / lam^2); textures as lists of layers, each a weight
 map times a curve (`texels` given inline, or a `png` plane: `r`, `g`, `b`,
 `a` or `rgb_mean`, sRGB-linearised where `srgb`); materials `lambertian`
-(texture), `ggx` (alpha, eta, eta_outer, kappa, permeability) and
-`diffuse_light` (emission, bounce, side); prims `rect` (center, half-edges
-u and v; normal u x v), `sphere`, `disk` (center, normal, radius) and
-`mesh` (a generator and its params; normal (v1 - v0) x (v2 - v0)); a
-constant environment; a projective camera.
+(texture), `ggx` (alpha, eta, eta_outer, kappa, permeability, and
+optionally `inner_medium` and `outer_medium`, each a medium's name: the
+media on the side against and along the geometric normal, vacuum where
+absent) and `diffuse_light` (emission, bounce, side); mediums `hg`
+(curves g, the Henyey-Greenstein asymmetry itself, sigma_s and sigma_a)
+and `rayleigh` (an `ior` curve and a `corrective_factor` number), as
+rust-pathtracer's MediumData; prims `rect` (center, half-edges u and v;
+normal u x v), `sphere` (center, radius; normal outward), `disk` (center,
+normal, radius) and `mesh` (a generator and its params; normal (v1 - v0) x
+(v2 - v0)); a constant environment; a projective camera.
+
+Every spec dict is checked against its kind's keys, and every name it
+gives against the section it names: an unknown kind, an unknown or missing
+key, or a name that is not there raises `ValueError`, so nothing a scene
+file says is dropped on either side.
 """
 
 from __future__ import annotations
@@ -45,6 +55,105 @@ class SceneData:
     environment: dict
     camera: dict
     precision: str
+    mediums: dict = dataclasses.field(default_factory=dict)  # name -> spec
+
+
+# kind -> (required keys, optional keys) of each section's spec dicts, the
+# key "kind" aside; a name given under a key is checked against a section
+CURVES = {"flat": ({"value"}, set()),
+          "spike": ({"center", "left", "right", "value"}, set()),
+          "blackbody": ({"temperature", "value"}, set()),
+          "cauchy": ({"a", "b"}, set())}
+MATERIALS = {"lambertian": ({"texture"}, set()),
+             "ggx": ({"alpha", "eta", "eta_outer", "kappa", "permeability"},
+                     {"inner_medium", "outer_medium"}),
+             "diffuse_light": ({"emission", "bounce", "side"}, set())}
+MEDIUMS = {"hg": ({"g", "sigma_s", "sigma_a"}, set()),
+           "rayleigh": ({"ior", "corrective_factor"}, set())}
+PRIMS = {"rect": ({"center", "u", "v", "material"}, set()),
+         "sphere": ({"center", "radius", "material"}, set()),
+         "disk": ({"center", "normal", "radius", "material"}, set()),
+         "mesh": ({"generator", "params", "material"}, set())}
+ENVIRONMENTS = {"constant": ({"curve", "strength", "sampling_probability"},
+                             set())}
+CAMERA_KEYS = {"look_from", "look_at", "v_up", "vfov_degrees",
+               "focal_distance", "aperture_diameter"}
+LAYERS = {"texels": ({"texels", "curve"}, set()),
+          "png": ({"png", "plane", "curve"}, {"srgb"})}
+PLANES = ("r", "g", "b", "a", "rgb_mean")
+SIDES = ("forward", "reverse", "dual")
+SECTIONS = {"curves", "textures", "materials", "mediums", "prims",
+            "environment", "camera"}
+# what a configuration file says of itself beside the scene
+ABOUT = {"name", "source", "reduced", "assumed", "precision"}
+NAMED = {"texture": "textures", "eta": "curves", "eta_outer": "curves",
+         "kappa": "curves", "emission": "curves", "bounce": "curves",
+         "inner_medium": "mediums", "outer_medium": "mediums",
+         "g": "curves", "sigma_s": "curves", "sigma_a": "curves",
+         "ior": "curves", "material": "materials", "curve": "curves"}
+
+
+def _keys(where, spec, required, optional=frozenset()):
+    if not isinstance(spec, dict):
+        raise ValueError(f"{where}: expected an object, got {spec!r}")
+    missing = sorted(required - set(spec))
+    unknown = sorted(set(spec) - required - set(optional))
+    if missing or unknown:
+        raise ValueError(f"{where}: missing keys {missing}, unknown keys "
+                         f"{unknown}")
+
+
+def _kind(where, spec, kinds):
+    kind = spec.get("kind") if isinstance(spec, dict) else None
+    if kind not in kinds:
+        raise ValueError(f"{where}: unknown kind {kind!r} (known: "
+                         f"{sorted(kinds)})")
+    required, optional = kinds[kind]
+    _keys(where, spec, required | {"kind"}, optional)
+
+
+def validate(doc: dict) -> None:
+    """Raise ValueError on anything in a scene file that the loader, the
+    program's builder or the reference would not take as it is written."""
+    _keys("scene", doc, {"name", "curves", "textures", "materials", "prims",
+                         "environment", "camera"}, SECTIONS | ABOUT)
+    names = {s: set(doc.get(s, {})) for s in SECTIONS
+             if isinstance(doc.get(s, {}), dict)}
+
+    def refs(where, spec):
+        for key, section in NAMED.items():
+            if key in spec and spec[key] not in names[section]:
+                raise ValueError(f"{where}: {key} {spec[key]!r} is not in "
+                                 f"{section}")
+
+    for n, c in doc["curves"].items():
+        _kind(f"curve {n!r}", c, CURVES)
+    for n, layers in doc["textures"].items():
+        if not isinstance(layers, list) or not layers:
+            raise ValueError(f"texture {n!r}: expected a list of layers")
+        for i, layer in enumerate(layers):
+            where = f"texture {n!r} layer {i}"
+            _keys(where, layer, *LAYERS["png" if "png" in layer
+                                        else "texels"])
+            if "plane" in layer and layer["plane"] not in PLANES:
+                raise ValueError(f"{where}: unknown plane {layer['plane']!r}")
+            refs(where, layer)
+    for section, kinds in (("materials", MATERIALS), ("mediums", MEDIUMS)):
+        for n, m in doc.get(section, {}).items():
+            where = f"{section[:-1]} {n!r}"
+            _kind(where, m, kinds)
+            if m.get("side", SIDES[0]) not in SIDES:
+                raise ValueError(f"{where}: unknown side {m['side']!r}")
+            refs(where, m)
+    for i, p in enumerate(doc["prims"]):
+        _kind(f"prim {i}", p, PRIMS)
+        refs(f"prim {i}", p)
+    _kind("environment", doc["environment"], ENVIRONMENTS)
+    refs("environment", doc["environment"])
+    _keys("camera", doc["camera"], CAMERA_KEYS)
+    if doc.get("precision", "float32") != "float32":
+        raise ValueError(f"precision {doc['precision']!r}: both sides "
+                         f"render in float32")
 
 
 def srgb_to_linear(x):
@@ -82,6 +191,7 @@ def load(config_dir: str, root: str) -> SceneData:
     are relative to the checkout `root`."""
     with open(os.path.join(config_dir, "scene.json")) as f:
         doc = json.load(f)
+    validate(doc)
     textures = {}
     for name, layers in doc["textures"].items():
         out = []
@@ -102,7 +212,8 @@ def load(config_dir: str, root: str) -> SceneData:
         prims.append(p)
     return SceneData(doc["name"], doc["curves"], textures, doc["materials"],
                      prims, doc["environment"], doc["camera"],
-                     doc.get("precision", "float32"))
+                     doc.get("precision", "float32"),
+                     doc.get("mediums", {}))
 
 
 def triangles(mesh: dict) -> np.ndarray:

@@ -20,6 +20,11 @@ scaled by (eta_from / eta_to)^2 for radiance), sampled through Heitz's
 visible normals. Rays leave a surface offset by 1e-3 along its geometric
 normal, shadow rays stop at 0.99 of the distance to the light sample.
 
+Under medium-aware settings, a scene's participating media are tracked
+path by path (`media`: free flights, scatter vertices with next-event
+estimation through the phase function, Beer-Lambert shadow rays); without
+them, or in a scene without media, the surfaces are all there is.
+
 Paths are traced in passes of `lanes` pixel samples; a pass compacts its
 live paths every bounce. Every float of the path arithmetic is in `dtype`
 (float32 as the configurations state; bfloat16 is the lower-precision
@@ -34,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from . import spectra
+from . import media, spectra
 from .loader import SceneData, triangles
 
 PI = math.pi
@@ -54,6 +59,7 @@ class Settings:
     min_bounces: int = 1
     light_samples: int = 2
     russian_roulette: bool = True
+    medium_aware: bool = False
 
 
 def _v(rows, dev, dt):
@@ -133,6 +139,7 @@ class Scene:
         self.m_perm = torch.tensor(cols[5], dtype=dt, device=dev)
         self.m_emit, self.m_bounce, self.m_side = ii(cols[6]), ii(cols[7]), \
             ii(cols[8])
+        self.media = media.Media(data, cidx, mnames, dev)
 
         groups = {K_RECT: [], K_SPHERE: [], K_DISK: []}
         tris, meshes = [], []
@@ -697,6 +704,7 @@ def render(scene: Scene, width: int, height: int, spp: int,
     cnt = torch.zeros(3, dtype=torch.float64, device=dev)
     span = spectra.LAMBDA_HI - spectra.LAMBDA_LO
     ls = settings.light_samples
+    med = scene.media if settings.medium_aware and scene.media.count else None
 
     def rand(n, k):
         return torch.rand((n, k), generator=generator, device=dev).to(dt)
@@ -713,6 +721,8 @@ def render(scene: Scene, width: int, height: int, spp: int,
         live = torch.arange(n, device=dev)
         beta = torch.ones((n,), dtype=dt, device=dev)
         prev_pdf = torch.zeros((n,), dtype=dt, device=dev)
+        if med is not None:  # the media each path is in, by medium
+            inside = torch.zeros((n, med.count), dtype=torch.long, device=dev)
         cnt[0] += n
         for bounce in range(settings.max_bounces):
             if live.numel() == 0:
@@ -721,11 +731,21 @@ def render(scene: Scene, width: int, height: int, spp: int,
             lam = lam_all[live]
             t, kind, idx, bu, bv = scene.closest(o, d)
             hit = torch.isfinite(t)
+            t_surface = t
             t = torch.where(hit, t, 0.0)
             p, gn, uv, mat = scene.surface(o, d, t, kind, idx, bu, bv)
             cv = scene.curves_at(lam)
             mk = scene.m_kind[mat]
             add = torch.zeros((m,), dtype=dt, device=dev)
+            on_surface = at_vertex = hit
+            if med is not None:
+                # the free flight: a scatter before the surface, and the
+                # absorption of the distance flown either way
+                fl = med.fly(inside, cv, lam, t_surface, rand(m, 4))
+                scat = fl.scattered
+                on_surface, at_vertex = hit & ~scat, hit | scat
+                beta = beta * fl.absorption
+                sp = o + fl.travel[:, None] * d
 
             # a light hit, weighted against next-event estimation
             cos_l = _dot(gn, -d)
@@ -733,7 +753,8 @@ def render(scene: Scene, width: int, height: int, spp: int,
             gate = torch.where(side == 2, cos_l != 0,
                                torch.where(side == 0, cos_l > 0, cos_l < 0))
             spd = torch.gather(cv, 1, scene.m_emit[mat][:, None])[:, 0]
-            le = torch.where(hit & (mk == M_LIGHT) & gate, spd / PI, 0.0)
+            le = torch.where(on_surface & (mk == M_LIGHT) & gate, spd / PI,
+                             0.0)
             area = scene.prim_area(kind, idx)
             hyp = (1.0 / len(scene.lights)) * (t * t) / (cos_l.abs() * area)
             hyp = torch.where(cos_l.abs() * area != 0, hyp, 0.0)
@@ -752,7 +773,8 @@ def render(scene: Scene, width: int, height: int, spp: int,
                 u = rand(m, 3)
                 lp, ln, inv_area, lmat, nl = scene.sample_light(
                     u[:, 0], u[:, 1], u[:, 2])
-                to_l = lp - p
+                src = p if med is None else torch.where(scat[:, None], sp, p)
+                to_l = lp - src
                 dist2 = torch.clamp(_dot(to_l, to_l), min=1e-12)
                 dist = torch.sqrt(dist2)
                 wl = to_l / dist[:, None]
@@ -768,9 +790,15 @@ def render(scene: Scene, width: int, height: int, spp: int,
                 wo = torch.stack([_dot(wl, tt), _dot(wl, bt), _dot(wl, gn)], -1)
                 f, pdf_b = sh.eval(wo)
                 thr = f * wo[:, 2].abs()
-                worth = hit & (le_n > 0) & (pdf_l > 1e-12) & (thr > 0)
+                if med is not None:  # at a scatter, the phase function
+                    ph = media.phase(fl, _dot(d, wl))
+                    thr = torch.where(scat, ph, thr)
+                    pdf_b = torch.where(scat, ph, pdf_b)
+                worth = at_vertex & (le_n > 0) & (pdf_l > 1e-12) & (thr > 0)
                 so = p + gn * (NORMAL_OFFSET * torch.sign(
                     _dot(gn, wl) + 1e-9))[:, None]
+                if med is not None:  # no offset at a scatter point
+                    so = torch.where(scat[:, None], sp, so)
                 wk = torch.nonzero(worth).squeeze(1)
                 clear = torch.zeros((m,), dtype=torch.bool, device=dev)
                 clear[wk] = ~scene.blocked(so[wk], wl[wk], (dist * 0.99)[wk])
@@ -779,6 +807,11 @@ def render(scene: Scene, width: int, height: int, spp: int,
                                   1.0)
                 contrib = beta * thr * le_n * torch.where(
                     pdf_l != 0, w_n / pdf_l, 0.0) / ls
+                if med is not None:  # through the media on the ray's side
+                    side = torch.where(scat[:, None], inside, med.cross(
+                        inside, mat, wi[:, 2], wo[:, 2]))
+                    contrib = contrib * media.transmittance(
+                        side, fl.sigma_t_k, dist)
                 add = add + torch.where(clear, contrib, 0.0)
                 cnt[2] += wk.numel()
             rad[live] += add
@@ -786,23 +819,36 @@ def render(scene: Scene, width: int, height: int, spp: int,
             # the BSDF sample and Russian roulette
             u = rand(m, 4)
             wo, pdf_s, weight = sh.sample(u)
+            d_new = _normalize(tt * wo[:, 0:1] + bt * wo[:, 1:2]
+                               + gn * wo[:, 2:3])
+            o_new = p + gn * (NORMAL_OFFSET * torch.sign(
+                _dot(gn, d_new)))[:, None]
+            if med is not None:
+                # a scatter continues along the phase sample, weight 1; a
+                # surface vertex moves the media across a boundary
+                d_ph, pdf_ph = media.sample_phase(fl, (*_basis(d), d))
+                d_new = torch.where(scat[:, None], d_ph, d_new)
+                o_new = torch.where(scat[:, None], sp, o_new)
+                pdf_s = torch.where(scat, pdf_ph, pdf_s)
+                weight = torch.where(scat, 1.0, weight)
+                inside_new = torch.where(scat[:, None], inside, med.cross(
+                    inside, mat, wi[:, 2], wo[:, 2]))
             ok = (pdf_s > 1e-12) & (weight > 0)
             if settings.russian_roulette and bounce >= settings.min_bounces:
                 p_cont = torch.clamp(weight, 0.05, 1.0)
             else:
                 p_cont = torch.ones_like(weight)
             beta_next = beta * torch.where(ok, weight / p_cont, 0.0)
-            go = (hit & ok & (u[:, 3] < p_cont) & torch.isfinite(beta_next)
+            go = (at_vertex & ok & (u[:, 3] < p_cont)
+                  & torch.isfinite(beta_next)
                   & (bounce + 1 < settings.max_bounces))
-            d_new = _normalize(tt * wo[:, 0:1] + bt * wo[:, 1:2]
-                               + gn * wo[:, 2:3])
-            o_new = p + gn * (NORMAL_OFFSET * torch.sign(
-                _dot(gn, d_new)))[:, None]
             keep = torch.nonzero(go).squeeze(1)
             cnt[1] += keep.numel()
             live = live[keep]
             o, d = o_new[keep], d_new[keep]
             beta, prev_pdf = beta_next[keep], pdf_s[keep]
+            if med is not None:
+                inside = inside_new[keep]
         xyz = spectra.cmf(lam_all.float()) * (rad.float() * span)[:, None]
         film.index_add_(0, pix, xyz)
     counters = dict(zip(("camera_rays", "bounce_rays", "shadow_rays"),

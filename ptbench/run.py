@@ -14,8 +14,10 @@ program's state, renders the plain reference (`ptbench/reference/`) and
 compares (`check.py`, limits in `ptbench/limits/<workload>.json`).
 
 With `--trace 1` the window runs under torch.profiler, tracing the device
-alone, and the result carries the per-layer metrics, `busy_s`, `window_s`
-and a `breakdown`; with `--trace 0` the end-to-end metrics.
+alone, with the program's own recorder on (its spans and counters,
+`pathtracer_tpu_torch.utils.profile.tracing()`, read by `spans`), and the
+result carries the per-layer metrics, `busy_s`, `window_s` and a
+`breakdown`; with `--trace 0` the end-to-end metrics, the recorder off.
 
 The last line of standard output is one JSON object (correct, attempted,
 failed, metrics, device, [breakdown], checks); the numbers compared are
@@ -107,7 +109,8 @@ class Cell:
 class Run:
     """What a window leaves for the metric readers: the frames (their host
     spans, route, rounds and counters), the window and set-up seconds, the
-    peak memory, and with a trace the device spans on the host clock."""
+    peak memory, and with a trace the device spans on the host clock and
+    the program's own spans and counter totals (`spans.attach`)."""
 
     def __init__(self, traffic):
         self.traffic = traffic
@@ -118,17 +121,8 @@ class Run:
         self.build_s = 0.0  # the kernel library's build or load, in setup_s
         self.peak_bytes = self.device_peak_bytes = 0
         self.device_spans = None  # [(start s, end s, name)] or None
-
-    @property
-    def host_spans(self):
-        """(start, end, what) of the harness's own spans in the window."""
-        out, prev = [], self.window_start
-        for f in self.frames:
-            out += [(prev, f["t_call"], "between_frames"),
-                    (f["t_call"], f["t_return"], "render_call"),
-                    (f["t_return"], f["t_host"], "film_copy")]
-            prev = f["t_host"]
-        return out
+        self.program_spans = None  # [(start s, end s, name, parent, render)]
+        self.program_counters = None  # {name: total}
 
 
 def frame(render, world, camera, settings, traffic, seed, device):
@@ -197,9 +191,23 @@ def run_window(cell: Cell, seed: int, seconds: float, trace: bool, device,
         run.window_s = run.frames[-1]["t_host"] - w0
 
     if trace:
-        from ptbench import tracing
+        from pathtracer_tpu_torch.utils import profile
+        from ptbench import spans, tracing
 
-        run.device_spans = tracing.traced(loop, run)
+        recorded = []
+
+        def recorded_loop():
+            if profile.recorder() is not None:
+                # a caller records around the window itself (tools/
+                # trace_cell.py), and recorders do not nest
+                return loop()
+            with profile.tracing() as rec:
+                loop()
+            recorded.append(rec)
+
+        run.device_spans = tracing.traced(recorded_loop, run)
+        for rec in recorded:  # the device is done: traced synchronised
+            spans.attach(run, rec.resolve())
     else:
         loop()
     if cuda:
@@ -220,6 +228,47 @@ def metric_values(cell: Cell, run: Run, trace: bool) -> dict:
     return out
 
 
+# what a traffic mix may say: its top-level keys, and the settings of each
+# integrator that the reference renders as the program does (the LT
+# strata change how the program samples, not what it estimates)
+TRAFFIC_KEYS = {"why", "integrator", "entry", "use_megakernel",
+                "sample_counter", "bounce_counters", "width", "height",
+                "samples", "settings", "check"}
+SETTINGS = {"pt": {"max_bounces", "min_bounces", "light_samples",
+                   "russian_roulette", "hwss", "medium_aware"},
+            "lt": {"max_bounces", "min_bounces", "camera_samples",
+                   "russian_roulette", "stratified", "strata_uv",
+                   "strata_lam"}}
+
+
+def reference_settings(traffic):
+    """The reference's (render, Settings) of a traffic mix. Raises
+    NotImplementedError on whatever the traffic says that the reference
+    does not model, rather than render without it."""
+    from ptbench.reference import lt, pt
+
+    unknown = sorted(set(traffic) - TRAFFIC_KEYS)
+    if unknown:
+        raise NotImplementedError(f"traffic keys the harness does not "
+                                  f"take: {unknown}")
+    kind, s = traffic["integrator"], traffic["settings"]
+    if kind not in SETTINGS:
+        raise NotImplementedError(f"integrator {kind!r}")
+    unknown = sorted(set(s) - SETTINGS[kind])
+    if unknown:
+        raise NotImplementedError(f"{kind} settings the reference does not "
+                                  f"model: {unknown}")
+    if s.get("hwss"):
+        raise NotImplementedError("the reference traces one wavelength a "
+                                  "path")
+    if kind == "pt":
+        return pt.render, pt.Settings(
+            s["max_bounces"], s["min_bounces"], s["light_samples"],
+            s["russian_roulette"], bool(s.get("medium_aware", False)))
+    return lt.render, lt.Settings(s["max_bounces"], s["min_bounces"],
+                                  s["camera_samples"], s["russian_roulette"])
+
+
 def reference_side(data, traffic, seed, device, dtype=None, frames=None):
     """The plain reference's side of the comparison: `reference_batches`
     batches of the check's `reference_spp` in all, or with `frames` that
@@ -227,21 +276,11 @@ def reference_side(data, traffic, seed, device, dtype=None, frames=None):
     import torch
 
     from ptbench import check
-    from ptbench.reference import lt, pt
+    from ptbench.reference import pt
 
-    c, s = traffic["check"], traffic["settings"]
+    c = traffic["check"]
+    render, settings = reference_settings(traffic)
     scene = pt.Scene(data, device, dtype or torch.float32)
-    if traffic["integrator"] == "pt":
-        if s.get("hwss"):
-            raise NotImplementedError("the reference traces one wavelength "
-                                      "a path")
-        render, settings = pt.render, pt.Settings(
-            s["max_bounces"], s["min_bounces"], s["light_samples"],
-            s["russian_roulette"])
-    else:
-        render, settings = lt.render, lt.Settings(
-            s["max_bounces"], s["min_bounces"], s["camera_samples"],
-            s["russian_roulette"])
     if frames is None:
         n, spp = c["reference_batches"], c["reference_spp"] \
             // c["reference_batches"]
@@ -342,11 +381,18 @@ def main(argv=None) -> int:
     result = dict(correct=out["correct"], attempted=out["attempted"],
                   failed=out["failed"], metrics=out["metrics"], device=device)
     if args.trace:
-        from ptbench import tracing
+        from ptbench import spans, tracing
 
         device["busy_s"] = tracing.busy_seconds(run.device_spans)
         device["window_s"] = run.window_s
         result["breakdown"] = tracing.breakdown(run)
+        if run.program_spans:
+            fixed = spans.anchored(run)
+            log(f"clock check {spans.clock_check(run)!r} (anchored: "
+                f"{spans.clock_check(fixed) if fixed else None!r}), host - "
+                f"device at the anchors {spans.clock_offsets_us(run)!r} us, "
+                f"program spans inside their calls "
+                f"{spans.inside_calls(run)!r}")
     result["checks"] = out["checks"]
     for name, c in out["checks"].items():
         print(f"check {name} = {c['value']!r} (limit {c['limit']!r})",

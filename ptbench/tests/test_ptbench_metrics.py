@@ -72,3 +72,85 @@ def test_readers_without_a_trace_read_nothing():
     assert read("peak_mem_gib", run) is None
     run.peak_bytes = 2 ** 31
     assert read("peak_mem_gib", run) == 2.0
+
+
+# ------------------------------------------- the program's spans and counters
+
+
+def one_frame(shift=0.0):
+    """A frame (call 1-9 s, film 9-10 s) whose render (1.1-8.9) holds a
+    gate (1.2-1.4), a bake (2-4, holding a gate 2.5-3), a feed (4.2-4.5)
+    and a wait (6-8); the device busy 4-6, the counters' copy 7.5-7.6
+    (moved by `shift`) and the film's 9.2-9.8."""
+    run = make_run([(1.0, 8.0, 1.0)], start=0.0)
+    run.program_spans = [(1.1, 8.9, "render", None, 0),
+                         (1.2, 1.4, "gate", 0, 0), (2.0, 4.0, "bake", 0, 0),
+                         (2.5, 3.0, "gate", 2, 0), (4.2, 4.5, "feed", 0, 0),
+                         (6.0, 8.0, "wait", 0, 0)]
+    run.program_counters = dict(lanes_launched=8192, lanes_live=2048.0,
+                                splat_slots=3 * 8192, splats_added=2457.6)
+    run.device_spans = [(4.0, 6.0, "kernel"),
+                        (7.5 + shift, 7.6 + shift, "Memcpy DtoH (Device)"),
+                        (9.2, 9.8, "Memcpy DtoH (Device)")]
+    return run
+
+
+def test_program_span_and_counter_readers():
+    run = one_frame()
+    assert read("bake_ms_per_frame", run) == pytest.approx(1500.0)
+    assert read("host_wait_ms_per_frame", run) == pytest.approx(2000.0)
+    assert read("feed_ms_per_frame.host_bound", run) == pytest.approx(300.0)
+    assert read("live_lane_share", run) == pytest.approx(25.0)
+    assert read("splat_share", run) == pytest.approx(10.0)
+    for name in ("bake_ms_per_frame", "host_wait_ms_per_frame",
+                 "live_lane_share"):
+        assert read(name + ".host_bound", run) == read(name, run)
+    run.program_counters = {"lanes_launched": 8192, "lanes_live": 100.0}
+    assert read("splat_share", run) is None  # a PT window splats nothing
+    run.program_spans = run.program_counters = None  # a --trace 0 run
+    for name in ("bake_ms_per_frame", "host_wait_ms_per_frame",
+                 "feed_ms_per_frame.host_bound", "live_lane_share",
+                 "splat_share"):
+        assert read(name, run) is None
+
+
+def test_breakdown_files_idle_under_the_innermost_span():
+    b = tracing.breakdown(one_frame())
+    gaps = dict((k, v) for k, v in b["idle_gaps"] if not k.startswith("long"))
+    # the gaps 0-4, 6-7.5, 7.6-9.2 and 9.8-10 s, cut by the innermost span
+    assert gaps == pytest.approx({
+        "between_frames": 1.0, "render_call": 0.2, "render": 0.7 + 0.9,
+        "gate": 0.2 + 0.5, "bake": 0.5 + 1.0, "wait": 1.5 + 0.4,
+        "film_copy": 0.4})
+    assert b["idle_gaps"][len(gaps)] == ["longest gap, in bake",
+                                         pytest.approx(4.0)]
+
+
+def test_breakdown_reads_the_anchored_trace():
+    """Ten frames a second apart whose device trace the profiler maps 30 ms
+    x t early for t from 2 to 5: on the anchored trace the kernel's idle
+    time falls where the host was, as in the frames that did not slip."""
+    run = make_run([(0.05, 0.9, 0.05)] * 10, start=0.0)
+    run.program_spans, run.device_spans = [], []
+    for t in range(10):
+        r = len(run.program_spans)
+        run.program_spans += [(t + 0.1, t + 0.9, "render", None, r),
+                              (t + 0.5, t + 0.6, "wait", r, r)]
+        d = 0.03 * t if 2 <= t <= 5 else 0.0
+        run.device_spans += [
+            (t + 0.2 - d, t + 0.45 - d, "kernel"),
+            (t + 0.59997 - d, t + 0.59998 - d, "Memcpy DtoH (Device)"),
+            (t + 0.96 - d, t + 0.99 - d, "Memcpy DtoH (Device)")]
+    from ptbench import spans
+
+    fixed = spans.anchored(run)
+    assert spans.clock_check(run) == 0.8 and spans.clock_check(fixed) == 1.0
+    b = dict(tracing.breakdown(run)["idle_gaps"])
+    want, _, _ = spans.idle_by_span(fixed)
+    for label, s in want.items():
+        assert b[label] == pytest.approx(s)
+    # every frame's render has 0.45 s of idle own time (0.1-0.2, 0.45-0.5,
+    # 0.6-0.9); the slipped frames misfile part of it on the trace as
+    # mapped, and less of it once anchored
+    raw, _, _ = spans.idle_by_span(run)
+    assert abs(b["render"] - 4.5) < 0.5 * abs(raw["render"] - 4.5)

@@ -2,7 +2,8 @@
 (tracing every host op of a torch-chain render slows its wall by more than
 half), its activities read from the profiler's kineto results, placed on
 the host's `time.perf_counter` clock, and reduced to busy time and the
-breakdown."""
+breakdown (the idle time by the innermost span, the program's own spans
+among them: `spans`)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ def traced(loop, run):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if not torch.cuda.is_available():  # a CPU run (the tests): no trace
+        loop()
+        return []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         loop()
@@ -90,33 +94,22 @@ def idle_gaps(busy, lo, hi):
 
 
 def breakdown(run):
-    """The device operations that took most time, and the idle time by the
-    harness span in which it falls, then the longest single gaps."""
-    spans = run.device_spans or []
-    lo, hi = run.window_start, run.window_start + run.window_s
+    """The device operations that took most time; the idle time by the
+    innermost span it falls in, the program's spans inside the harness's
+    (`render_call`, `film_copy`, `between_frames`); then the longest single
+    gaps by the span most of each falls in. With the program's spans the
+    device trace is first moved onto each frame's counters' copy
+    (`spans.anchored`), so that the slip of its mapping onto the host's
+    clock files no gap under a neighbouring span; where there is nothing to
+    anchor to, the mapping stands."""
+    from ptbench import spans as sp
+
     by_name = {}
-    for a, b, n in spans:
+    for a, b, n in run.device_spans or []:
         by_name[n[:120]] = by_name.get(n[:120], 0.0) + (b - a)
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    gaps = idle_gaps(busy_intervals(spans, lo, hi), lo, hi)
-    host = run.host_spans
-    by_what, longest = {}, []
-    j = 0
-    for a, b in gaps:
-        while j < len(host) and host[j][1] <= a:
-            j += 1
-        k = j
-        part = {}
-        while k < len(host) and host[k][0] < b:
-            ov = min(b, host[k][1]) - max(a, host[k][0])
-            if ov > 0:
-                part[host[k][2]] = part.get(host[k][2], 0.0) + ov
-            k += 1
-        for w, s in part.items():
-            by_what[w] = by_what.get(w, 0.0) + s
-        if part:
-            longest.append((b - a, max(part, key=part.get)))
+    fixed = sp.anchored(run) if run.program_spans else None
+    by_what, longest, _ = sp.idle_by_span(fixed or run)
     out = sorted(([w, s] for w, s in by_what.items()), key=lambda x: -x[1])
-    longest.sort(reverse=True)
     out += [[f"longest gap, in {w}", s] for s, w in longest[:10 - len(out)]]
     return {"device_ops": [[n, s] for n, s in ops], "idle_gaps": out[:10]}
