@@ -335,6 +335,9 @@ def phase_build(torch):
             check(rc == 0, f"lt_round_attrs: CUDA error {rc}")
             lt_round.setdefault(name, {})[f"cs{cs}"] = dict(
                 regs=regs.value, local_bytes=local.value)
+    rc = lib.tex_feed_attrs(ctypes.byref(regs), ctypes.byref(local))
+    check(rc == 0, f"tex_feed_attrs: CUDA error {rc}")
+    tex_feed = dict(regs=regs.value, local_bytes=local.value)
     log = _build.BUILD_INFO.get("log", "")
     usage = [ln.strip() for ln in log.splitlines()
              if "registers" in ln.lower() or "spill" in ln.lower()
@@ -344,7 +347,7 @@ def phase_build(torch):
               "w") as f:
         f.write(log)
     emit("build", seconds=round(secs, 2), flags=_build.NVCC_FLAGS,
-         fused_round=attrs, **two_prog, **lt_round,
+         fused_round=attrs, **two_prog, **lt_round, tex_feed=tex_feed,
          resident_rows=mk.SWEEP_RESIDENT_ROWS, walk_shared=walk_shared,
          resource_usage=usage[:90])
 
@@ -890,14 +893,30 @@ def phase_walk_ring(torch, dev, width):
     return res
 
 
+def tex_feed_bound(mk, feed, tp, c):
+    """The texture feed: every lane's t and prim id rows and its
+    tf_rows(C) out rows; a lane that hit reads its o, d and C λ rows; the
+    uv tables once, and of the pair table at most the 8 B a λ a hit lane
+    gathers."""
+    n = tp.shape[1]
+    hit = int((tp[1] >= 0).sum())
+    tables = (feed.uvtab.numel() + feed.mat2tex.numel()
+              + feed.lut["meta"].numel())
+    pairs = min(feed.lut["pairs"].numel(), 2 * c * hit)
+    return bound(0, F32 * ((2 + mk.tf_rows(c)) * n + (6 + c) * hit + tables
+                           + pairs))
+
+
 def phase_texfeed(torch, dev, width):
     """Three chained texture-feed rounds of textured_cornell at C = 1 and 4:
-    K1, K2 and K34 against their twins (each route chained on its own state
-    from one camera spawn, each fed by the torch texture feed of its own
-    hit rows), K1's rows also equal to the twin's on the kernel's own state
-    bit for bit, its sweep table resident and with the budget one row under
-    it; then the kernels', the twins' and the feed's times on the first
-    round's inputs, and the device kernels one round launches."""
+    K1, the texture feed's kernel, K2 and K34 against their twins (each
+    route chained on its own state from one camera spawn, the kernels' fed
+    by the feed's kernel, the twins' by `tex_feed_plain`, each of its own
+    hit rows), K1's rows and the feed's kernel's also equal to their twins'
+    on the kernels' own inputs bit for bit, K1's sweep table resident and
+    with the budget one row under it; then the kernels', the twins' and the
+    feed's times on the first round's inputs, and the device kernels one
+    feed and one round launch."""
     from pathtracer_tpu_torch.kernels import dense
     from pathtracer_tpu_torch.kernels import megakernel as mk
 
@@ -947,7 +966,8 @@ def phase_texfeed(torch, dev, width):
             tpk, tpp = k1(sk), k1_plain(sp)
             tp_own, tp_ring = k1_plain(sk), k1_ring(sk)
             tfk = mk.tex_feed(scene.tex, sk, tpk, c)
-            tfp = mk.tex_feed(scene.tex, sp, tpp, c)
+            tfp = mk.tex_feed_plain(scene.tex, sp, tpp, c)
+            tf_own = mk.tex_feed_plain(scene.tex, sk, tpk, c)
             k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk)
             k2p = k2_plain(u12, sp, tpp, tfp)
             ok = mk.finalize_sweep(u34, sk, k2k, scene, a)
@@ -963,7 +983,7 @@ def phase_texfeed(torch, dev, width):
                         hit_frac=float((tpk[1] >= 0).float().mean()),
                         equal=bool(torch.equal(tpk, tp_own)),
                         ring_equal=bool(torch.equal(tp_ring, tp_own))),
-                tf_equal=bool(torch.equal(tfk, tfp)),
+                tf_equal=bool(torch.equal(tfk, tf_own)),
                 k2=dict(match_frac=f2, bad_rows=bad2, max_abs_err=err2,
                         max_rel_err_bad=rel2),
                 k34=dict(match_frac=f34, bad_rows=bad34, max_abs_err=err34,
@@ -993,26 +1013,33 @@ def phase_texfeed(torch, dev, width):
                 plain_ms=cuda_ms(torch, lambda: mk.finalize_sweep_plain(
                     u34, state0, k2_0, scene.dense_tab, a), 2),
                 **k34_bound(torch, mk, dense, k2_0, state0, scene, a)))
-        tex_feed_ms = cuda_ms(torch, lambda: mk.tex_feed(scene.tex, state0,
-                                                         tp0, c), 10)
-        # device kernels of one tex_feed call and of one whole round
+        kernels["tex_feed"] = dict(
+            ms=cuda_ms(torch, lambda: mk.tex_feed(scene.tex, state0, tp0, c),
+                       10),
+            plain_ms=cuda_ms(torch, lambda: mk.tex_feed_plain(
+                scene.tex, state0, tp0, c), 10),
+            **tex_feed_bound(mk, scene.tex, tp0, c))
+        # device kernels of one feed (the kernel, the chain) and of one
+        # whole round
         unif = mk.TorchUniforms(torch.Generator(device=dev).manual_seed(1))
         launches = {}
         for what, fn in (("tex_feed", lambda: mk.tex_feed(scene.tex, state0,
                                                           tp0, c)),
+                         ("tex_feed_plain", lambda: mk.tex_feed_plain(
+                             scene.tex, state0, tp0, c)),
                          ("round", lambda: mk.texfeed_round(
                              state0, scene, a, unif, 0))):
             launches[what] = device_kernels(torch, fn)
         res[f"C{c}"] = dict(lanes=n_pad, live=int(
             (state0[mk.S_ALIVE] > 0.5).sum()), rounds=rounds,
-            tex_feed_ms=tex_feed_ms, device_kernels=launches, **kernels)
-        del sk, sp, ok, op, k2k, k2p, first, k2_0, tp_own, tp_ring
+            device_kernels=launches, **kernels)
+        del sk, sp, ok, op, k2k, k2p, first, k2_0, tp_own, tp_ring, tf_own
         torch.cuda.empty_cache()
     emit("texfeed_round", **res)
     for key, r in res.items():
         for i, rd in enumerate(r["rounds"]):
-            check(rd["tf_equal"], f"tex_feed {key} #{i}: the two routes' "
-                  "feeds differ")
+            check(rd["tf_equal"], f"tex_feed {key} #{i}: the kernel's rows "
+                  "differ from tex_feed_plain's on the same inputs")
             check(rd["k1"]["equal"] and rd["k1"]["ring_equal"],
                   f"K1 {key} #{i}: the rows (resident: {rd['k1']['equal']}, "
                   f"ring: {rd['k1']['ring_equal']}) differ from the twin's "
@@ -1091,6 +1118,7 @@ def busy_profile(torch, fn, prefixes=()):
 def reset_counts(mk, dense, lt=None):
     mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
     mk.K2_LAUNCHES = mk.K4_LAUNCHES = mk.PLAIN_CALLS = 0
+    mk.TEX_FEED_LAUNCHES = 0
     dense.CLOSEST_LAUNCHES = dense.ANY_LAUNCHES = 0
     dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
     dense.ANY_ROWS_LAUNCHES = dense.ANY_ROWS_PLAIN_CALLS = 0
@@ -1705,15 +1733,16 @@ def phase_render_textured(torch, dev, width, spp):
     stats = {}
     film, profile, elapsed = render(2026, stats)
     counts = dict(sweep_closest_rows=dense.ROWS_LAUNCHES,
+                  tex_feed=mk.TEX_FEED_LAUNCHES,
                   shade=mk.K2_LAUNCHES, finalize_sweep=mk.FINALIZE_LAUNCHES,
                   shade_sweep=mk.SHADE_LAUNCHES,
                   fused_round=mk.FUSED_LAUNCHES,
                   plain_calls=mk.PLAIN_CALLS + dense.ROWS_PLAIN_CALLS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rounds = stats["rounds"]
-    check(counts["sweep_closest_rows"] == counts["shade"]
-          == counts["finalize_sweep"] == rounds > 0,
-          f"textured: K1/K2/K34 launches {counts} != rounds {rounds}")
+    check(counts["sweep_closest_rows"] == counts["tex_feed"]
+          == counts["shade"] == counts["finalize_sweep"] == rounds > 0,
+          f"textured: K1/feed/K2/K34 launches {counts} != rounds {rounds}")
     check(counts["shade_sweep"] == counts["fused_round"]
           == counts["plain_calls"] == 0,
           f"textured: K12, fused or plain rounds ran on the main path: "
@@ -2811,6 +2840,13 @@ def main():
              medium_launches=fog["split"]["shade"],
              max_abs_err=max(tex_err("k2"), med_err("k2")),
              **timed(tex1["shade"])),
+        dict(name="tex_feed", route="cuda", source=src + "tex_feed.cu",
+             replaces=None, twin="pathtracer_tpu_torch/kernels/"
+             "megakernel.py:tex_feed_plain",
+             launches=textured["tex_feed"], max_abs_err=0.0,
+             c4_ms=tex["C4"]["tex_feed"]["ms"],
+             c4_plain_ms=tex["C4"]["tex_feed"]["plain_ms"],
+             **timed(tex1["tex_feed"])),
         dict(name="sweep_any_rows", route="cuda",
              source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/dense.py:742",

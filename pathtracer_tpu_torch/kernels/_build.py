@@ -99,6 +99,8 @@ def build():
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # (rays, n, sweep, p_rows, resident_rows, out, stream)
     "dense_sweep_closest": [_P, _I, _P, _I, _I, _P, _P],
@@ -153,6 +155,12 @@ _SIGNATURES = {
     # (which as lt_round_attrs's; camera samples; p_rows; resident_rows;
     #  static_bytes*, dynamic_bytes*, blocks_per_sm*)
     "lt_round_shared_bytes": [_I, _I, _I, _I, _P, _P, _P],
+    # (state, tp, n, uvtab, uv_stride, mat2tex, meta, pairs, n_pairs, res,
+    #  lam_lo, lam_span, res_m1, uu_hi, c_lanes, tf_rows, tf, stream)
+    "tex_feed_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _L, _I, _F, _F, _F,
+                        _F, _I, _I, _P, _P],
+    # (regs*, local_bytes*)
+    "tex_feed_attrs": [_P, _P],
     "round_args_size": [],
     "lt_args_size": [],
     "pt_error_string": [_I],

@@ -19,9 +19,9 @@
 // its worth and its contribution); K34 writes
 // the new state and counter rows ([40, n]). Scenes with uv-textured
 // lambertians split K12 in two, because the texture feed between them
-// (torch, kernels/megakernel.py:tex_feed) needs the hit: K1 writes [8, n]
-// rows (t, prim id | -1, zeros) and K2 the same K2 rows as K12, taking a
-// textured lambertian's reflectance from the feed's rows. The per-lane
+// (kernels/megakernel.py:tex_feed, csrc/tex_feed.cu) needs the hit: K1
+// writes [8, n] rows (t, prim id | -1, zeros) and K2 the same K2 rows as
+// K12, taking a textured lambertian's reflectance from the feed's rows. The per-lane
 // device code is round_common.cuh, shared with the fused round.
 //
 // K3 reads a sample's shadow ray and tmax in place from the K2 rows and

@@ -15,9 +15,9 @@ counter rows. A round takes one of three routes, as the JAX package's
   without uv-dependent surface textures;
 - the texture-feed round for scenes with uv-dependent lambertian
   reflectance: `dense.sweep_closest_rows` (K1: closest hit -> `[8, n_pad]`
-  rows t, prim id) -> `env_feed` (Sun and HDR only) -> `tex_feed` (torch:
-  each lane's uv and texture value at its λs) -> `shade` (K2: shading from
-  the hit rows) -> `finalize_sweep` (K34);
+  rows t, prim id) -> `env_feed` (Sun and HDR only) -> `tex_feed`
+  (`csrc/tex_feed.cu`: each lane's uv and texture value at its λs) ->
+  `shade` (K2: shading from the hit rows) -> `finalize_sweep` (K34);
 - the two-program round for every other scene in the gate (up to 8192
   prims; constant, Sun and HDR environments; medium-aware transport):
   `env_feed` (torch, Sun and HDR only) and `med_feed` (torch, medium-aware
@@ -194,13 +194,15 @@ _L_PTYPE, _L_AREA, _L_MAT, _L_MTYPE, _L_SIDE, _L_SHARP = 9, 10, 11, 12, 13, 14
 _NL_ROWS = 16
 
 # launches of the CUDA kernels (SHADE_LAUNCHES: K12, K2_LAUNCHES: K2,
-# FINALIZE_LAUNCHES: K34, K4_LAUNCHES: K4), and calls of any plain twin (the
-# K1 and K3 rows sweeps count in kernels/dense.py)
+# FINALIZE_LAUNCHES: K34, K4_LAUNCHES: K4, TEX_FEED_LAUNCHES: the texture
+# feed), and calls of any plain twin (the K1 and K3 rows sweeps count in
+# kernels/dense.py)
 FUSED_LAUNCHES = 0
 SHADE_LAUNCHES = 0
 K2_LAUNCHES = 0
 FINALIZE_LAUNCHES = 0
 K4_LAUNCHES = 0
+TEX_FEED_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _NOT_IN_GATE = ("the megakernel takes projective cameras, identity "
@@ -761,11 +763,46 @@ def env_feed(feed: EnvFeed, state, u, light_samples: int, c_lanes: int):
 
 def tex_feed(feed: TexFeed, state, tp, c_lanes: int):
     """The per-lane reflectance rows K2 reads for uv-textured lambertians ->
-    tf [tf_rows(C), n_pad] (the JAX package's `_tex_feed`, plain torch on
-    the lanes' device): from K1's hit rows tp (t, prim id), each lane's hit
-    point, its uv by prim type (triangle barycentrics, sphere equirect, rect
-    parametric, disk (0, 0)), the hit material's texture and its value at
-    each of the lane's λs; 0 where the lane hit nothing. The baked pair
+    tf [tf_rows(C), n_pad]: `csrc/tex_feed.cu` on CUDA tensors where the
+    bake produced the pair table (`feed.lut`), `tex_feed_plain` on CPU
+    tensors and without a table (the `eval_texture` chain). While tracing,
+    counts `tex_feeds` (calls) and `tex_feeds_kernel` (those the kernel
+    served)."""
+    global TEX_FEED_LAUNCHES
+    lut = feed.lut
+    kernel = state.device.type == "cuda" and lut is not None
+    prof.count("tex_feeds", 1)
+    prof.count("tex_feeds_kernel", int(kernel))
+    if not kernel:
+        return tex_feed_plain(feed, state, tp, c_lanes)
+    _check_tensors(state=state, tp=tp)
+    n = state.shape[1]
+    rows = tf_rows(c_lanes)
+    if state.shape[0] < S_LAM + c_lanes or tp.shape[0] < 2 \
+            or tp.shape[1] != n:
+        raise ValueError(f"state must be [>= {S_LAM + c_lanes}, N] and tp "
+                         f"[>= 2, N], got {tuple(state.shape)}, "
+                         f"{tuple(tp.shape)}")
+    pairs, res = lut["pairs"], lut["res"]
+    tf = torch.empty((rows, n), dtype=torch.float32, device=state.device)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    # the twin's scalars as it rounds them to f32 (ctypes' c_float)
+    rc = _lib().tex_feed_launch(
+        _ptr(state), _ptr(tp), n, _ptr(feed.uvtab), feed.uvtab.shape[1],
+        _ptr(feed.mat2tex), _ptr(lut["meta"]), _ptr(pairs), pairs.shape[0],
+        res, lut["lam_lo"], lut["lam_hi"] - lut["lam_lo"], res - 1,
+        res - 1 - 1e-4, c_lanes, rows, _ptr(tf), ctypes.c_void_p(stream))
+    _raise_on(rc, "tex_feed")
+    TEX_FEED_LAUNCHES += 1
+    return tf
+
+
+def tex_feed_plain(feed: TexFeed, state, tp, c_lanes: int):
+    """`tex_feed`'s plain twin (the JAX package's `_tex_feed`, plain torch
+    on the lanes' device): from K1's hit rows tp (t, prim id), each lane's
+    hit point, its uv by prim type (triangle barycentrics, sphere equirect,
+    rect parametric, disk (0, 0)), the hit material's texture and its value
+    at each of the lane's λs; 0 where the lane hit nothing. The baked pair
     table takes one meta and one pair gather per λ, else `eval_texture`."""
     t, pid = tp[0], tp[1]
     hit = pid >= 0.0

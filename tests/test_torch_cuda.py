@@ -39,7 +39,10 @@ light-tracing wavefront and BDPT launch them on every bounce and every
 strategy family, and match CPU runs of the same uniforms. K12-LT and K34-LT
 add the LT megakernel's valid splats to the film themselves: each
 kernel's splats, and a render's film, equal the `index_add_` of the splat
-rows written within rtol 1e-5 (v2 at 1 and 2 camera samples, v1). With
+rows written within rtol 1e-5 (v2 at 1 and 2 camera samples, v1). The
+texture feed's kernel equals `tex_feed_plain` on the card bit for bit, on
+every prim type at C = 1 and 4, and without a baked pair table the feed
+stays on the chain. With
 tracing on
 (utils/profile.py), the megakernel routes render the film and counters of
 tracing off and count their lanes on the card."""
@@ -480,24 +483,32 @@ def test_rows_sweep_kernel_matches_plain(dev, monkeypatch, table, budget):
         dense.sweep_closest_rows(state, tab, mk.S_O, mk.S_ALIVE)
 
 
-@pytest.mark.parametrize("c_lanes", [1, 4])
-@pytest.mark.parametrize("recipe", ["textured_cornell", "textured_fog"])
-def test_texfeed_kernels_match_plain(dev, recipe, c_lanes):
-    """K1, K2 and K34 of the texture-feed round against their twins over
-    three chained rounds of the textured Cornell box, each fed by the
-    texture feed of its own hit rows; `textured_fog` under medium-aware
-    settings, K2's and K34's medium instantiations fed the medium feed
-    too (its lanes scatter from the second round on)."""
+def _texfeed_scene(dev, recipe, c_lanes, width):
     medium = recipe == "textured_fog"
     world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
     cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device=dev)
     s = PTSettings(max_bounces=12, light_samples=2, hwss=c_lanes == 4,
                    medium_aware=medium)
     scene = mk.build_mega_scene(world, cam, dev, s)
+    a = mk.RoundArgs.make(scene.consts, s, width, width)
+    n_pad = -(-width * width // mk.TILE) * mk.TILE
+    return cam, scene, a, n_pad
+
+
+@pytest.mark.parametrize("c_lanes", [1, 4])
+@pytest.mark.parametrize("recipe", ["textured_cornell", "textured_fog"])
+def test_texfeed_kernels_match_plain(dev, recipe, c_lanes):
+    """K1, K2 and K34 of the texture-feed round against their twins over
+    three chained rounds of the textured Cornell box, each fed by the
+    texture feed of its own hit rows (the kernel's route by the texture
+    feed's kernel, the twins' by `tex_feed_plain`); `textured_fog` under
+    medium-aware
+    settings, K2's and K34's medium instantiations fed the medium feed
+    too (its lanes scatter from the second round on)."""
+    medium = recipe == "textured_fog"
+    cam, scene, a, n_pad = _texfeed_scene(dev, recipe, c_lanes, 128)
     assert scene.tex is not None and not mk.fused_ok(scene)
     assert (scene.med is not None) == medium
-    a = mk.RoundArgs.make(scene.consts, s, 128, 128)
-    n_pad = -(-128 * 128 // mk.TILE) * mk.TILE
     gen = torch.Generator(device=dev).manual_seed(4)
     state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
                                             device=dev), a, 128 * 128,
@@ -522,7 +533,7 @@ def test_texfeed_kernels_match_plain(dev, recipe, c_lanes):
         hit = tpk[1] >= 0
         assert torch.allclose(tpk[0][hit], tpp[0][hit], rtol=1e-5, atol=0.0)
         tfk = mk.tex_feed(scene.tex, sk, tpk, c_lanes)
-        tfp = mk.tex_feed(scene.tex, sp, tpp, c_lanes)
+        tfp = mk.tex_feed_plain(scene.tex, sp, tpp, c_lanes)
         mfk = mk.med_feed(scene.med, sk, u12, 2, c_lanes) if medium else None
         mfp = mk.med_feed(scene.med, sp, u12, 2, c_lanes) if medium else None
         k2k = mk.shade(u12, sk, tpk, scene, a, tf=tfk, mf=mfk)
@@ -546,6 +557,72 @@ def test_texfeed_kernels_match_plain(dev, recipe, c_lanes):
         sk, sp = ok[:mk.NS], op[:mk.NS]
     assert np.isfinite(sk.cpu().numpy()).all()
     assert (scattered > 0) == medium
+
+
+@pytest.mark.parametrize("c_lanes", [1, 4])
+@pytest.mark.parametrize("recipe", ["textured_cornell", "textured_fog"])
+def test_tex_feed_kernel_matches_plain(dev, recipe, c_lanes):
+    """tex_feed_kernel (csrc/tex_feed.cu) against `tex_feed_plain` run on
+    the card on the same state and hit rows, bit for bit (torch.equal, the
+    padding rows included), over three chained texture-feed rounds: lanes
+    on every prim type (the rects, the sphere, the icosahedron's triangles,
+    the disk), on the untextured walls and light (whose index wraps around
+    the pair table), lanes that missed and dead lanes; one launch a call."""
+    medium = recipe == "textured_fog"
+    cam, scene, a, n_pad = _texfeed_scene(dev, recipe, c_lanes, 128)
+    assert scene.tex is not None and scene.tex.lut is not None
+    gen = torch.Generator(device=dev).manual_seed(9)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 128 * 128,
+                            n_pad, 4)
+    uvtab, mat2tex = scene.tex.uvtab, scene.tex.mat2tex
+    meta = scene.tex.lut["meta"]
+    types, untextured, missed = set(), 0, 0
+    for _ in range(3):
+        u12 = torch.rand((mk.n_u_rows(2, medium), n_pad), generator=gen,
+                         device=dev)
+        u34 = torch.rand((mk.NU4, n_pad), generator=gen, device=dev)
+        tp = dense.sweep_closest_rows(state, scene.dense_tab, mk.S_O,
+                                      mk.S_ALIVE, scene.sweep_tab)
+        launches = mk.TEX_FEED_LAUNCHES
+        tf = mk.tex_feed(scene.tex, state, tp, c_lanes)
+        assert mk.TEX_FEED_LAUNCHES == launches + 1
+        assert torch.equal(tf, mk.tex_feed_plain(scene.tex, state, tp,
+                                                 c_lanes))
+        hit = tp[1] >= 0
+        pid = tp[1][hit].long()
+        types |= set(uvtab[pid, 9].tolist())
+        tw = meta[mat2tex[uvtab[pid, 10].long()].long(), 1]
+        untextured += int((tw == 0).sum())
+        missed += int(((state[mk.S_ALIVE] > 0.5) & ~hit).sum())
+        assert (tf[:c_lanes][:, hit] > 0).any()
+        assert not tf[:, ~hit].any() and not tf[c_lanes:].any()
+        mf = mk.med_feed(scene.med, state, u12, 2, c_lanes) if medium \
+            else None
+        k2 = mk.shade(u12, state, tp, scene, a, tf=tf, mf=mf)
+        state = mk.finalize_sweep(u34, state, k2, scene, a)[:mk.NS]
+    assert types == {0.0, 1.0, 2.0, 3.0}
+    assert untextured > 0 and missed > 0
+
+
+def test_tex_feed_without_a_table_stays_on_the_chain(dev, monkeypatch):
+    """Over TEX_LUT_MAX_TEXELS texels the bake leaves the pair table out,
+    and the feed runs `tex_feed_plain`'s `eval_texture` chain: no kernel
+    launch."""
+    monkeypatch.setattr(mk, "TEX_LUT_MAX_TEXELS", 0)
+    cam, scene, a, n_pad = _texfeed_scene(dev, "textured_cornell", 1, 64)
+    assert scene.tex.lut is None
+    gen = torch.Generator(device=dev).manual_seed(10)
+    state, _ = mk.mega_init(cam, torch.rand((n_pad, 5), generator=gen,
+                                            device=dev), a, 64 * 64, n_pad,
+                            1)
+    tp = dense.sweep_closest_rows(state, scene.dense_tab, mk.S_O, mk.S_ALIVE,
+                                  scene.sweep_tab)
+    launches = mk.TEX_FEED_LAUNCHES
+    tf = mk.tex_feed(scene.tex, state, tp, 1)
+    assert mk.TEX_FEED_LAUNCHES == launches
+    assert torch.equal(tf, mk.tex_feed_plain(scene.tex, state, tp, 1))
+    assert (tf[0] > 0).any()
 
 
 @pytest.mark.parametrize("recipe,cam,c_lanes,medium,budget", [
@@ -1029,6 +1106,9 @@ def test_tracing_on_the_card_changes_no_film(dev, integrator):
     assert names["render"] == 1 and names["bake"] == 1
     assert names["wait"] == -(-r // mk.ALIVE_CHECK_EVERY) + 1
     assert names["feed"] == (r if integrator == "pt" else 0)
+    # every texture feed of the PT render served by the kernel
+    assert rec.total("tex_feeds") == rec.total("tex_feeds_kernel") == (
+        r if integrator == "pt" else 0)
     live, launched = rec.values("lanes_live"), rec.values("lanes_launched")
     assert len(live) == len(launched) == r
     assert all(0 <= a <= b for a, b in zip(live, launched))

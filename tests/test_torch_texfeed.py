@@ -20,6 +20,10 @@ Tolerances, and why:
   and atan2/arccos amplify an ulp near the poles; a lane whose uv lands on
   a texel edge within that error would pick the neighbouring texel;
 - K2: check_k2 (test_torch_two_prog.py).
+
+On CPU tensors `tex_feed` is its plain twin `tex_feed_plain` (equal, no
+kernel launched), and a traced render counts one `tex_feeds` a round and
+no `tex_feeds_kernel`; untraced, it records nothing.
 """
 
 import os
@@ -33,12 +37,16 @@ from pathtracer_tpu.parsing.images import load_png_rgba as jax_load_png
 from pathtracer_tpu.parsing.images import srgb_to_linear as jax_srgb
 from pathtracer_tpu.tonemap.io_png import read_png as jax_read_png
 from pathtracer_tpu_torch import scenes
+from pathtracer_tpu_torch.camera import make_projective_camera
 from pathtracer_tpu_torch.core import spectral
+from pathtracer_tpu_torch.integrator.pt import PTSettings
 from pathtracer_tpu_torch.kernels import dense as tdense
 from pathtracer_tpu_torch.kernels import megakernel as tm
 from pathtracer_tpu_torch.parsing import SceneBuilder
 from pathtracer_tpu_torch.parsing.images import load_png_rgba, srgb_to_linear
+from pathtracer_tpu_torch.renderer.persistent import render_regen
 from pathtracer_tpu_torch.tonemap.io_png import read_png
+from pathtracer_tpu_torch.utils import profile
 
 from torch_ref_helpers import (
     NEE_SETTINGS,
@@ -199,3 +207,51 @@ def test_k2_matches_jax(rounds, r):
     assert x["k2"][tm.O_AT_SURF].sum() > 0
     if a.medium and r == 1:
         assert x["k2"][tm.O_SCAT].sum() > 0
+
+
+@pytest.mark.parametrize("r", [0, 1], ids=["round1", "round2"])
+def test_tex_feed_on_cpu_is_the_plain_twin(rounds, r):
+    x = rounds[r]
+    state, tp = torch.as_tensor(x["jin"]), torch.as_tensor(x["jtp"])
+    c = x["a"].c_lanes
+    launches = tm.TEX_FEED_LAUNCHES
+    tf = tm.tex_feed(x["scene"].tex, state, tp, c)
+    assert torch.equal(tf, tm.tex_feed_plain(x["scene"].tex, state, tp, c))
+    assert tm.TEX_FEED_LAUNCHES == launches
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["traced", "off"])
+def test_texture_feed_counts(traced, monkeypatch):
+    """A traced CPU render of the textured box counts a texture feed a
+    round, none of them served by the kernel; untraced, nothing reaches a
+    recorder."""
+    seen = []
+    count = profile.Recorder.count
+
+    def spy(self, name, value):
+        seen.append(name)
+        count(self, name, value)
+
+    monkeypatch.setattr(profile.Recorder, "count", spy)
+    world = scenes.textured_cornell(SceneBuilder(), spectral).build("cpu")
+    cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device="cpu")
+    stats = {}
+
+    def render():
+        render_regen(world, cam, PTSettings(light_samples=1), 16, 16, 1,
+                     generator=torch.Generator().manual_seed(5), stats=stats)
+
+    launches = tm.TEX_FEED_LAUNCHES
+    if traced:
+        with profile.tracing() as rec:
+            render()
+        rec.resolve()
+        assert stats["route"] == "megakernel" and stats["rounds"] > 0
+        assert rec.values("tex_feeds") == [1] * stats["rounds"]
+        assert rec.total("tex_feeds_kernel") == 0
+        assert len(rec.values("tex_feeds_kernel")) == stats["rounds"]
+    else:
+        render()
+        assert stats["rounds"] > 0 and profile.recorder() is None
+        assert seen == []
+    assert tm.TEX_FEED_LAUNCHES == launches
