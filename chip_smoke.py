@@ -1505,7 +1505,7 @@ def phase_render_regen(torch, dev, gem_mega, width, gem_spp, grid_spp,
     res["gem_cornell"] = dict(gem, megakernel_film_mean=gem_mega["film_mean"])
     # the light grid (25 lights: outside the gate) against cornell_box
     grid = scenes.light_grid_cornell(SceneBuilder(), spectral, 5).build(dev)
-    check(not mk.mega_available(grid, camera, settings),
+    check(mk.gate_refusal(grid, camera, settings) is not None,
           "light_grid_cornell(n=5) is inside the megakernel's gate")
     res["light_grid_cornell"] = regen_case("light_grid_cornell", grid, camera,
                                            settings, width, grid_spp, None)
@@ -1573,7 +1573,7 @@ def phase_lt_trace(torch, dev, width, ppp, lens_width, lens_ppp):
     res = {}
     world, camera, settings = _lt_scene(dev, "textured_cornell",
                                         "TEXTURED_CAMERA", 1)
-    check(not lt.lt_mega_available(world, camera, settings),
+    check(lt.lt_gate_refusal(world, camera, settings) is not None,
           "textured_cornell is inside the LT megakernel's gate")
     n_paths = width * width * ppp
     tex = wavefront_render(

@@ -47,13 +47,10 @@ from pathtracer_tpu_torch.core.sampling import (
 )
 from pathtracer_tpu_torch.geometry.soa import sample_surface
 from pathtracer_tpu_torch.integrator.pt import _frame_arrays
-from pathtracer_tpu_torch.integrator.pt_regen import (
-    ALIVE_CHECK_EVERY,
-    _host_scalars,
-    _stacked,
-)
+from pathtracer_tpu_torch.integrator.pt_regen import _host_scalars, _stacked
 from pathtracer_tpu_torch.kernels import cmath
 from pathtracer_tpu_torch.kernels.cmath import V3, fdiv
+from pathtracer_tpu_torch.kernels.megakernel import ALIVE_CHECK_EVERY
 from pathtracer_tpu_torch.materials.tables import (
     MAT_SHARP_LIGHT,
     bsdf_eval,

@@ -42,6 +42,7 @@ from pathtracer_tpu_torch.integrator.pt import (
     camera_ray_hwss,
 )
 from pathtracer_tpu_torch.kernels.cmath import V3
+from pathtracer_tpu_torch.kernels.megakernel import ALIVE_CHECK_EVERY
 from pathtracer_tpu_torch.materials.tables import (
     bsdf_eval,
     bsdf_sample,
@@ -67,7 +68,6 @@ from pathtracer_tpu_torch.world.environment import (
     env_sample_uv,
 )
 
-ALIVE_CHECK_EVERY = 4  # rounds between alive checks (one host fetch each)
 RND_START = 10  # the uniform cursor of the first round, as in the JAX carry
 
 

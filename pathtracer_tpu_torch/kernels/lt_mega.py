@@ -75,7 +75,7 @@ from pathtracer_tpu_torch.prelude import (
     TransportMode,
 )
 from pathtracer_tpu_torch.utils import profile as prof
-from pathtracer_tpu_torch.world.environment import ENV_CONSTANT, ENV_HDR
+from pathtracer_tpu_torch.world.environment import ENV_CONSTANT
 
 # ---- LT state rows [NS_LT, N]
 LS_O = 0          # 3
@@ -129,7 +129,6 @@ _NSP_ROWS = 520
 STREAM_U, STREAM_SPAWN, STREAM_LENS = 0, 2, 3
 
 LT_MAX_LIGHTS = 128
-ALIVE_CHECK_EVERY = 4
 
 # launches of the CUDA kernels, and calls of any plain twin
 SHADE_LAUNCHES = 0
@@ -195,34 +194,8 @@ def lt_gate_refusal(world, camera, settings):
     """Why the LT megakernel does not render this scene, or None if it
     does (the JAX package's `lt_mega_available`, with the light cap its
     table bake needs), recorded as a `gate` span."""
-    from pathtracer_tpu_torch.camera.projective import ProjectiveCamera
-
-    with prof.span("gate"):
-        w = world
-        if not isinstance(camera, ProjectiveCamera) \
-                or int(w.prims.xf_inv.shape[0]) != 1 \
-                or w.prims.count > mk.MEGA_MAX_PRIMS \
-                or int(w.mats.count) > 24 \
-                or int(w.n_lights) > LT_MAX_LIGHTS \
-                or int(w.bank.values.shape[1]) != mk.SPEC_RES:
-            return _NOT_IN_GATE
-        t = w.tex
-        lc, lstart = mk._np(t.layer_count), mk._np(t.layer_start)
-        lw, lh = mk._np(t.layer_w), mk._np(t.layer_h)
-        tex_ok = np.ones(lc.shape[0], bool)
-        layer_ok = np.ones(lw.shape[0], bool)
-        if int(w.env.kind) == ENV_HDR:
-            tid = int(w.env.tex_id)
-            tex_ok[tid] = False
-            layer_ok[int(lstart[tid]):int(lstart[tid]) + int(lc[tid])] = False
-        if not (lc[tex_ok] == 1).all() or not (
-                (lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
-            return _NOT_IN_GATE
-        return None
-
-
-def lt_mega_available(world, camera, settings) -> bool:
-    return lt_gate_refusal(world, camera, settings) is None
+    return mk.scene_refusal(world, camera, _NOT_IN_GATE,
+                            max_lights=LT_MAX_LIGHTS, textured=False)
 
 
 def lt_mega_spawn_inkernel(world) -> bool:
@@ -409,6 +382,13 @@ def build_lt_scene(world, camera, settings, width, height, device=None,
     why = lt_gate_refusal(world, camera, settings)
     if why is not None:
         raise NotImplementedError(why)
+    return _bake_lt_scene(world, camera, settings, width, height, device,
+                          spawn_inkernel)
+
+
+def _bake_lt_scene(world, camera, settings, width, height, device,
+                   spawn_inkernel) -> LtScene:
+    """`build_lt_scene` of a scene that its gate has taken."""
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
     tabs = mk.bake_mega_scene(world, camera, device, feeds=False)
@@ -1214,47 +1194,50 @@ def lt_trace_mega(world, camera, settings, width: int, height: int,
     `spawn_inkernel` False forces the spawn-feed route (v1) on a scene that
     v2 takes. A `stats` dict, if given, gets "rounds" and "lt_round" (the
     K34-LT route, "v2" or "v1")."""
+    why = lt_gate_refusal(world, camera, settings)
+    if why is not None:
+        raise NotImplementedError(why)
+    return _lt_trace_mega(world, camera, settings, width, height, n_paths,
+                          uniforms, device, spawn_inkernel, stats)
+
+
+def _lt_trace_mega(world, camera, settings, width, height, n_paths,
+                   uniforms, device, spawn_inkernel, stats):
+    """`lt_trace_mega` on a scene that its gate has taken
+    (`render_splatted` evaluates the gate once a call)."""
     if width * height >= (1 << 24):
         raise ValueError("the film's pixel ids ride f32 rows: width * height "
                          "must be below 2^24")
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
     with prof.span("bake"):
-        scene = build_lt_scene(world, camera, settings, width, height,
+        scene = _bake_lt_scene(world, camera, settings, width, height,
                                device, spawn_inkernel)
     state, b_each = lt_init(n_paths, device)
     film = torch.zeros((width * height, 3), dtype=torch.float32,
                        device=device)
     counters = torch.zeros(prof.N_COUNTERS, dtype=torch.float64,
                            device=device)
-    slots = torch.tensor(_SLOTS, device=device)
-    step = lt_round_v2 if scene.spawn_inkernel else lt_round_v1
+    lt_round = lt_round_v2 if scene.spawn_inkernel else lt_round_v1
     max_iters = int((b_each + 1) * settings.max_bounces * 4 + 64)
-    live = mk.live_lanes(max_iters, device)
-    added = None if live is None else torch.zeros_like(live)
-    it = 0
-    while it < max_iters:
-        for _ in range(ALIVE_CHECK_EVERY):
-            if live is not None:
-                torch.sum(state[LS_ALIVE] > 0.5, 0, dtype=torch.float64,
-                          out=live[it])
-            out, _, counts = step(state, scene, settings, uniforms, it, film,
+    added = mk.per_round(max_iters, device)  # the valid splats of each round
+
+    def step(it):
+        nonlocal state
+        out, _, counts = lt_round(state, scene, settings, uniforms, it, film,
                                   None if added is None else added[it])
-            state = out[:NS_LT]
-            counters.index_add_(0, slots,
-                                counts.sum(dim=1, dtype=torch.float64))
-            it += 1
-        with prof.span("wait"):
-            alive = bool(((state[LS_ALIVE] + state[LS_BUDGET]) > 0.5).any())
-        if not alive:
-            break
-    mk.count_lanes(live, it, state.shape[1])
+        state = out[:NS_LT]
+        return counts
+
+    rounds = mk.run_rounds(
+        step, lambda: state[LS_ALIVE] > 0.5,
+        lambda: (state[LS_ALIVE] + state[LS_BUDGET]) > 0.5, counters, _SLOTS,
+        max_iters, stats)
     if added is not None:
         # the entries the round's splat would take with every empty row,
         # and the valid splats the kernels add
-        prof.count("splat_slots", [(scene.a.cs + 2) * state.shape[1]] * it)
-        prof.count("splats_added", added[:it])
+        prof.count("splat_slots", [(scene.a.cs + 2) * state.shape[1]] * rounds)
+        prof.count("splats_added", added[:rounds])
     if stats is not None:
-        stats["rounds"] = stats.get("rounds", 0) + it
         stats["lt_round"] = "v2" if scene.spawn_inkernel else "v1"
     return film, counters

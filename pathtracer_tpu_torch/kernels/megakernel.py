@@ -54,7 +54,7 @@ the same input. Random numbers come from outside the kernels: the render
 loop draws uniform blocks per round from a uniform source
 (`TorchUniforms`, or a test's replay of the JAX draws).
 
-Scope (`mega_available`): projective camera, identity transforms, at most
+Scope (`gate_refusal`): projective camera, identity transforms, at most
 8192 prims, 24 materials and 16 lights; multi-texel textures only as a
 lambertian's reflectance or the HDR map; medium-aware settings with at
 most 16 media. `renderer/persistent.py:render_regen` renders every other
@@ -282,37 +282,38 @@ def _unpack_stack_rows(r0, r1):
 
 def gate_refusal(world, camera, settings):
     """Why the megakernel does not render this scene, or None if it does
-    (the JAX package's `mega_available`)."""
-    if settings.medium_aware and int(world.mediums.count) > MAX_MEDIA:
-        return _TOO_MANY_MEDIA
-    if not _mega_gate(world, camera):
-        return _NOT_IN_GATE
-    return None
+    (the JAX package's `mega_available`), recorded as a `gate` span.
+    `settings` None is surface transport."""
+    medium = settings is not None and settings.medium_aware
+    return scene_refusal(world, camera, _NOT_IN_GATE, max_lights=16,
+                         textured=True,
+                         max_media=MAX_MEDIA if medium else None)
 
 
-def mega_available(world, camera, settings) -> bool:
-    """Static scene/settings preconditions of the megakernel."""
-    return gate_refusal(world, camera, settings) is None
-
-
-def _mega_gate(world, camera) -> bool:
-    """The megakernel's scene gate, recorded as a `gate` span."""
+def scene_refusal(world, camera, why: str, max_lights: int, textured: bool,
+                  max_media: int | None = None):
+    """The megakernels' scene gate, recorded as a `gate` span -> `why` for
+    a scene outside it, `_TOO_MANY_MEDIA` for more than `max_media` media,
+    else None. It takes projective cameras, identity transforms, at most
+    MEGA_MAX_PRIMS prims, 24 materials and `max_lights` lights, curves of
+    SPEC_RES knots, and multi-texel or multi-layer textures only as the HDR
+    map (the environment feed) or, where `textured`, as a lambertian's
+    reflectance (the texture feed); any other texture is one 1x1 layer,
+    baked into the material tables. The path tracer's gate and the light
+    tracer's (`lt_mega.lt_gate_refusal`) differ only in what they pass."""
     from pathtracer_tpu_torch.camera.projective import ProjectiveCamera
 
     with prof.span("gate"):
-        if not isinstance(camera, ProjectiveCamera):
-            return False
         w = world
-        if int(w.prims.xf_inv.shape[0]) != 1:
-            return False
-        if w.prims.count > MEGA_MAX_PRIMS:
-            return False
-        if int(w.mats.count) > 24 or int(w.n_lights) > 16:
-            return False
-        # multi-texel or multi-layer textures only as a lambertian's
-        # reflectance (the texture feed) or as the HDR map (the environment
-        # feed); any other texture is one 1x1 layer, baked into the
-        # material tables
+        if max_media is not None and int(w.mediums.count) > max_media:
+            return _TOO_MANY_MEDIA
+        if not isinstance(camera, ProjectiveCamera) \
+                or int(w.prims.xf_inv.shape[0]) != 1 \
+                or w.prims.count > MEGA_MAX_PRIMS \
+                or int(w.mats.count) > 24 \
+                or int(w.n_lights) > max_lights \
+                or int(w.bank.values.shape[1]) != SPEC_RES:
+            return why
         t = w.tex
         lc, lstart = _np(t.layer_count), _np(t.layer_start)
         lw, lh = _np(t.layer_w), _np(t.layer_h)
@@ -325,15 +326,15 @@ def _mega_gate(world, camera) -> bool:
 
         if int(w.env.kind) == ENV_HDR:
             exempt(int(w.env.tex_id))
-        mtype, tex_id = _np(w.mats.mtype), _np(w.mats.tex_id)
-        for i in range(int(w.mats.count)):
-            if mtype[i] == MAT_LAMBERTIAN and tex_id[i] >= 0:
-                exempt(int(tex_id[i]))
-        if not (lc[tex_ok] == 1).all():
-            return False
-        if not ((lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
-            return False
-        return int(w.bank.values.shape[1]) == SPEC_RES
+        if textured:
+            mtype, tex_id = _np(w.mats.mtype), _np(w.mats.tex_id)
+            for i in range(int(w.mats.count)):
+                if mtype[i] == MAT_LAMBERTIAN and tex_id[i] >= 0:
+                    exempt(int(tex_id[i]))
+        if not (lc[tex_ok] == 1).all() or not (
+                (lw[layer_ok] == 1).all() and (lh[layer_ok] == 1).all()):
+            return why
+        return None
 
 
 def fused_ok(scene) -> bool:
@@ -415,12 +416,11 @@ def build_mega_scene(world, camera, device=None, settings=None) -> MegaScene:
     rows, which the port does not use), for a scene in the megakernel's
     gate. Medium-aware `settings` add the medium feed's tables and set
     `consts["medium"]`."""
-    if not _mega_gate(world, camera):
-        raise NotImplementedError(_NOT_IN_GATE)
-    medium = bool(settings is not None and settings.medium_aware)
-    if medium and int(world.mediums.count) > MAX_MEDIA:
-        raise NotImplementedError(_TOO_MANY_MEDIA)
-    return bake_mega_scene(world, camera, device, medium=medium)
+    why = gate_refusal(world, camera, settings)
+    if why is not None:
+        raise NotImplementedError(why)
+    return bake_mega_scene(world, camera, device, medium=bool(
+        settings is not None and settings.medium_aware))
 
 
 def bake_mega_scene(world, camera, device=None, feeds=True,
@@ -2269,23 +2269,49 @@ _TWO_PROG_SLOTS = (prof.BOUNCE_RAYS, prof.CAMERA_RAYS, prof.ENV_HITS,
                    prof.SHADOW_RAYS)
 
 
-def live_lanes(max_iters: int, device):
-    """While tracing is on, the f64 accumulator of a render's live lanes,
-    one slot a round (filled on the device, read by `Recorder.resolve`);
-    off, None."""
+def per_round(max_iters: int, device):
+    """While tracing is on, an f64 device accumulator with a slot for each
+    round a render can run (filled on the device, read by
+    `Recorder.resolve`); off, None."""
     if prof.recorder() is None:
         return None
     return torch.zeros(max_iters + ALIVE_CHECK_EVERY, dtype=torch.float64,
                        device=device)
 
 
-def count_lanes(live, rounds: int, n_pad: int):
-    """Record a render's `lanes_launched` (n_pad a round) and
-    `lanes_live` (the lanes alive at each round's start) while tracing is
-    on."""
+def run_rounds(step, alive, pending, counters, slots, max_iters: int,
+               stats=None) -> int:
+    """The megakernel drivers' round loop -> the rounds run. `step(it)`
+    runs round `it` on the driver's lane state and returns its counter
+    rows [len(slots), N], whose lane sums add to `counters` at `slots`.
+    Every ALIVE_CHECK_EVERY rounds the host fetches whether any lane is
+    `pending()` (a `wait` span) and stops where none is, or once
+    `max_iters` rounds have run. While tracing is on, each round counts its
+    lanes as `lanes_launched` and the lanes `alive()` at its start as
+    `lanes_live`. A `stats` dict gets the rounds added to "rounds". The
+    driver keeps the state and rebinds it in `step`, so each round's input
+    is freed once the next round has it."""
+    slots = torch.tensor(slots, device=counters.device)
+    live = per_round(max_iters, counters.device)
+    it = 0
+    while it < max_iters:
+        for _ in range(ALIVE_CHECK_EVERY):
+            if live is not None:
+                torch.sum(alive(), 0, dtype=torch.float64, out=live[it])
+            counts = step(it)
+            counters.index_add_(0, slots,
+                                counts.sum(dim=1, dtype=torch.float64))
+            it += 1
+        with prof.span("wait"):
+            more = bool(pending().any())
+        if not more:
+            break
     if live is not None:
-        prof.count("lanes_launched", [n_pad] * rounds)
-        prof.count("lanes_live", live[:rounds])
+        prof.count("lanes_launched", [counts.shape[1]] * it)
+        prof.count("lanes_live", live[:it])
+    if stats is not None:
+        stats["rounds"] = stats.get("rounds", 0) + it
+    return it
 
 
 def _k12_uniforms(state, scene: MegaScene, a: RoundArgs, uniforms, it: int):
@@ -2366,52 +2392,54 @@ def pt_trace_regen_mega(world, camera, settings, width, height, spp,
     apart).
     The kernels launch on a card, the plain twins run on the CPU. A `stats`
     dict, if given, gets the number of rounds added to "rounds"."""
-    if stepper not in (None, "split"):
-        raise ValueError(f"stepper must be None or 'split', got {stepper!r}")
     why = gate_refusal(world, camera, settings)
     if why is not None:
         raise NotImplementedError(why)
+    return _pt_trace_regen_mega(world, camera, settings, width, height, spp,
+                                uniforms, device, stats, stepper)
+
+
+def _pt_trace_regen_mega(world, camera, settings, width, height, spp,
+                         uniforms, device, stats, stepper):
+    """`pt_trace_regen_mega` on a scene that its gate has taken
+    (`render_regen` evaluates the gate once a call)."""
+    if stepper not in (None, "split"):
+        raise ValueError(f"stepper must be None or 'split', got {stepper!r}")
     device = torch.device(device) if device is not None \
         else world.prims.pa.device
     with prof.span("bake"):
-        scene = build_mega_scene(world, camera, device, settings)
+        scene = bake_mega_scene(world, camera, device,
+                                medium=bool(settings.medium_aware))
         cam = camera.to(device)
     a = RoundArgs.make(scene.consts, settings, width, height)
     n = width * height
     n_pad = -(-n // TILE) * TILE
-    fused = fused_ok(scene) and stepper is None
-    step = (split_round if stepper == "split" else
-            texfeed_round if scene.tex is not None else two_prog_round)
     state, counters = mega_init(cam, uniforms.init(n_pad, device), a, n,
                                 n_pad, spp)
-    slots = torch.tensor(_FUSED_SLOTS if fused else _TWO_PROG_SLOTS,
-                         device=device)
-    max_iters = int(spp * settings.max_bounces * 8 + 64)
-    live = live_lanes(max_iters, device)
-    it = 0
-    while it < max_iters:
-        for _ in range(ALIVE_CHECK_EVERY):
-            if live is not None:
-                torch.sum(state[S_ALIVE] > 0.5, 0, dtype=torch.float64,
-                          out=live[it])
-            if fused:
-                u = uniforms.round(it, nu_rows(a.light_samples), n_pad,
-                                   device)
-                out = fused_round(u, state, scene, a)
-                counts = out[O4_BOUNCE_CT:O4_ENV_CT + 1]
-            else:
-                out, k2 = step(state, scene, a, uniforms, it)
-                counts = torch.cat([out[O4_BOUNCE_CT:O4_CAMERA_CT + 1],
-                                    k2[O_ENV_CT:O_SHADOW_CT + 1]])
+    if fused_ok(scene) and stepper is None:
+        rows, slots = nu_rows(a.light_samples), _FUSED_SLOTS
+
+        def step(it):
+            nonlocal state
+            out = fused_round(uniforms.round(it, rows, n_pad, device), state,
+                              scene, a)
             state = out[:NS]
-            counters.index_add_(0, slots,
-                                counts.sum(dim=1, dtype=torch.float64))
-            it += 1
-        with prof.span("wait"):
-            alive = bool((state[S_ALIVE] > 0.5).any())
-        if not alive:
-            break
-    count_lanes(live, it, n_pad)
-    if stats is not None:
-        stats["rounds"] = stats.get("rounds", 0) + it
+            return out[O4_BOUNCE_CT:O4_ENV_CT + 1]
+    else:
+        round_ = (split_round if stepper == "split" else
+                  texfeed_round if scene.tex is not None else two_prog_round)
+        slots = _TWO_PROG_SLOTS
+
+        def step(it):
+            nonlocal state
+            out, k2 = round_(state, scene, a, uniforms, it)
+            state = out[:NS]
+            return torch.cat([out[O4_BOUNCE_CT:O4_CAMERA_CT + 1],
+                              k2[O_ENV_CT:O_SHADOW_CT + 1]])
+
+    def alive():
+        return state[S_ALIVE] > 0.5
+
+    run_rounds(step, alive, alive, counters, slots,
+               int(spp * settings.max_bounces * 8 + 64), stats)
     return state[S_ACC:S_ACC + 3, :n].T, counters

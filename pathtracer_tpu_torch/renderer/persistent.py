@@ -7,8 +7,8 @@ import torch
 
 from pathtracer_tpu_torch.integrator.pt_regen import pt_trace_regen
 from pathtracer_tpu_torch.kernels.megakernel import (
+    _pt_trace_regen_mega,
     gate_refusal,
-    pt_trace_regen_mega,
 )
 from pathtracer_tpu_torch.renderer.common import timed_render
 from pathtracer_tpu_torch.utils import profile as prof
@@ -47,9 +47,9 @@ def render_regen(world, camera, settings, width: int, height: int,
 
         def trace(device, uniforms):
             if mega:
-                acc, counters = pt_trace_regen_mega(
+                acc, counters = _pt_trace_regen_mega(
                     world, camera, settings, width, height, min_samples,
-                    uniforms, device=device, stats=stats, stepper=stepper)
+                    uniforms, device, stats, stepper)
             else:
                 acc, counters = pt_trace_regen(
                     world, camera, settings, width, height, min_samples,

@@ -11,7 +11,10 @@ from pathtracer_tpu_torch.integrator.lt import (
     check_camera,
     host_world,
 )
-from pathtracer_tpu_torch.kernels.lt_mega import lt_gate_refusal, lt_trace_mega
+from pathtracer_tpu_torch.kernels.lt_mega import (
+    _lt_trace_mega,
+    lt_gate_refusal,
+)
 from pathtracer_tpu_torch.renderer.common import timed_render
 from pathtracer_tpu_torch.utils import profile as prof
 
@@ -51,9 +54,9 @@ def render_splatted(world, camera, settings, width: int, height: int,
 
         def trace(device, uniforms):
             if mega:
-                film, counters = lt_trace_mega(world, camera, settings, width,
-                                               height, total_paths, uniforms,
-                                               device=device, stats=stats)
+                film, counters = _lt_trace_mega(world, camera, settings,
+                                                width, height, total_paths,
+                                                uniforms, device, None, stats)
                 film = film * (float(n_pix) / float(total_paths))
                 return film.reshape(height, width, 3), counters
             if device != world.prims.pa.device:

@@ -60,10 +60,10 @@ def test_mega_bake_matches_jax(worlds):
     if recipe == "light_grid":
         # 25 lights: both gates refuse it (the regen integrator's scene)
         assert not jax_mk.mega_available(jw, jc, js)
-        assert not torch_mk.mega_available(tw, tc, ts)
+        assert torch_mk.gate_refusal(tw, tc, ts) is not None
         return
     assert jax_mk.mega_available(jw, jc, js)
-    assert torch_mk.mega_available(tw, tc, ts)
+    assert torch_mk.gate_refusal(tw, tc, ts) is None
     ref = jax_mk.build_mega_scene(jw, jc, js)
     got = torch_mk.build_mega_scene(tw, tc)
     for name in ("prim_tab", "dense_tab", "mat_tab", "light_tab", "spec_tab"):
@@ -136,11 +136,11 @@ def test_gate_refuses_large_scene():
     w = scenes.random_prims(SceneBuilder(), torch_spectral, grid=8,
                             n_each=4).build("cpu")
     assert w.prims.count > 128
-    assert torch_mk.mega_available(w, cam, ts)
+    assert torch_mk.gate_refusal(w, cam, ts) is None
     assert not torch_mk.fused_ok(torch_mk.build_mega_scene(w, cam))
     big = scenes.random_prims(SceneBuilder(), torch_spectral, grid=64,
                               n_each=4).build("cpu")
     assert big.prims.count > torch_mk.MEGA_MAX_PRIMS
-    assert not torch_mk.mega_available(big, cam, ts)
+    assert torch_mk.gate_refusal(big, cam, ts) is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_mk.build_mega_scene(big, cam)

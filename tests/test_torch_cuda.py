@@ -1103,7 +1103,7 @@ def test_tracing_on_the_card_changes_no_film(dev, integrator):
         torch.testing.assert_close(film1, film0, rtol=1e-4, atol=1e-7)
     r = stats["rounds"]
     names = collections.Counter(sp.name for sp in rec.spans)
-    assert names["render"] == 1 and names["bake"] == 1
+    assert names["render"] == names["gate"] == names["bake"] == 1
     assert names["wait"] == -(-r // mk.ALIVE_CHECK_EVERY) + 1
     assert names["feed"] == (r if integrator == "pt" else 0)
     # every texture feed of the PT render served by the kernel

@@ -286,8 +286,8 @@ def test_gate_matches_jax():
         jw, tw, jc, tc = both_worlds(recipe)
         js, ts = both_lt_settings()
         assert jlt.lt_mega_available(jw, jc, js) == \
-            tlt.lt_mega_available(tw, tc, ts), recipe
+            (tlt.lt_gate_refusal(tw, tc, ts) is None), recipe
         assert jlt.lt_mega_spawn_inkernel(jw) == \
             tlt.lt_mega_spawn_inkernel(tw), recipe
-    assert not tlt.lt_mega_available(*both_worlds("textured")[1::2],
-                                     both_lt_settings()[1])
+    assert tlt.lt_gate_refusal(*both_worlds("textured")[1::2],
+                               both_lt_settings()[1]) is not None

@@ -169,7 +169,7 @@ def test_baked_tables_match_jax(media):
     assert tscene.med is not None and jscene.med_args is not None
     assert not tm.fused_ok(tscene)
     assert tm.build_mega_scene(tw, tc).med is None
-    assert tm.mega_available(tw, tc, ts)
+    assert tm.gate_refusal(tw, tc, ts) is None
 
 
 def test_table_functions_match_jax(media):

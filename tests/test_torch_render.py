@@ -196,9 +196,9 @@ def test_render_refuses_with_roadmap_item(what):
     if what == "medium":
         ts = type(ts)(**{**ts.__dict__, "medium_aware": True})
         world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
-        assert tm.mega_available(world, cam, ts)
+        assert tm.gate_refusal(world, cam, ts) is None
     world = _out_of_gate_world(what)
-    assert not tm.mega_available(world, cam, ts)
+    assert tm.gate_refusal(world, cam, ts) is not None
     with pytest.raises(NotImplementedError, match="render_regen renders"):
         render_regen(world, cam, ts, 8, 8, 1, use_megakernel=True)
     stats = {}

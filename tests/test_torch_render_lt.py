@@ -140,7 +140,7 @@ def test_gate_refuses_with_roadmap_item(what):
         world = scenes.cornell_box(SceneBuilder(), spectral).build("cpu")
         cam = object()
     settings = LTSettings(max_bounces=2)
-    assert not tlt.lt_mega_available(world, cam, settings)
+    assert tlt.lt_gate_refusal(world, cam, settings) is not None
     with pytest.raises(NotImplementedError, match="use_megakernel=True"):
         render_splatted(world, cam, settings, 8, 8, 1, use_megakernel=True)
     if what == "camera":
@@ -153,8 +153,8 @@ def test_gate_refuses_with_roadmap_item(what):
     assert stats["route"] == "lt_trace" and profile.light_rays == 64
     assert film.shape == (8, 8, 3) and bool(torch.isfinite(film).all())
     if what == "too_many_lights":
-        assert tlt.lt_mega_available(_many_lights(tlt.LT_MAX_LIGHTS), cam,
-                                     settings)
+        assert tlt.lt_gate_refusal(_many_lights(tlt.LT_MAX_LIGHTS), cam,
+                                   settings) is None
 
 
 def test_wrappers_take_plain_twins_on_cpu():

@@ -93,7 +93,8 @@ def absorbing():
     try:
         jw, tw, jc, tc = both_worlds("absorbing_sphere")
         js, ts = _settings(6)
-        assert jm.mega_available(jw, jc, js) and tm.mega_available(tw, tc, ts)
+        assert jm.mega_available(jw, jc, js)
+        assert tm.gate_refusal(tw, tc, ts) is None
         key = jax.random.PRNGKey(7)
         acc, counters = jm.pt_trace_regen_mega(jw, jc, js, W, H, spp, key,
                                                interpret=True)

@@ -117,7 +117,7 @@ def test_gate_takes_textures_where_jax_does():
     b = scenes.cornell_box(SceneBuilder(), spectral)
     b.add_texture([(np.ones((4, 4), np.float32), b.curve_index("white"))])
     w = b.build("cpu")
-    assert not tm.mega_available(w, tc, ts)
+    assert tm.gate_refusal(w, tc, ts) is not None
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
         tm.build_mega_scene(w, tc)
 

@@ -2,13 +2,13 @@
 (`pathtracer_tpu_torch/utils/profile.py`), on the CPU through the plain
 twins: the textured box path-traced (the texture-feed round) at 24x24 @ 2
 spp and the gem light-traced (the LT megakernel v2) at 16x16 @ 2 paths a
-pixel. Each `render` holds its gates, one bake, a feed a texture-feed round
+pixel. Each `render` holds one gate, one bake, a feed a texture-feed round
 and a wait per alive check plus the counters' fetch; spans nest; the lane
 counters add up; films and counters are bit-equal with tracing on and off;
 off records nothing and issues no extra torch op and no extra host sync.
-Then the arithmetic of `tools/trace_cell.py` on synthetic spans, and one
-CPU window of a benchmark cell with every program span inside its frame's
-call."""
+Then the benchmark's span arithmetic (`ptbench/spans.py`) on synthetic
+spans, and one CPU window of a benchmark cell through `tools/trace_cell.py`
+with every program span inside its frame's call."""
 
 import collections
 import importlib.util
@@ -29,6 +29,7 @@ from pathtracer_tpu_torch.parsing import SceneBuilder
 from pathtracer_tpu_torch.renderer.persistent import render_regen
 from pathtracer_tpu_torch.renderer.splatted import render_splatted
 from pathtracer_tpu_torch.utils import profile
+from ptbench import spans as sp
 
 torch.set_num_threads(2)
 
@@ -87,18 +88,20 @@ def test_textured_render_spans(textured):
     _, stats, rec = traced(textured)
     assert stats["route"] == "megakernel"
     r = stats["rounds"]
-    assert names(rec) == {"render": 1, "gate": 3, "bake": 1, "feed": r,
+    assert names(rec) == {"render": 1, "gate": 1, "bake": 1, "feed": r,
                           "wait": math.ceil(r / 4) + 1}
-    # the gate inside the bake is build_mega_scene's
+    # the one gate is the call's, ahead of the bake, which holds none
+    gate = next(i for i, s in enumerate(rec.spans) if s.name == "gate")
     bake = next(i for i, s in enumerate(rec.spans) if s.name == "bake")
-    assert sum(s.parent == bake for s in rec.spans) == 1
+    assert rec.spans[gate].parent == 0 and gate < bake
+    assert not any(s.parent == bake for s in rec.spans)
 
 
 def test_gem_lt_render_spans(gem):
     _, stats, rec = traced(gem)
     assert stats["route"] == "lt_mega" and stats["lt_round"] == "v2"
     r = stats["rounds"]
-    assert names(rec) == {"render": 1, "gate": 2, "bake": 1,
+    assert names(rec) == {"render": 1, "gate": 1, "bake": 1,
                           "wait": math.ceil(r / 4) + 1}
 
 
@@ -202,7 +205,7 @@ def test_resolve_turns_tensors_into_numbers():
     assert rec.total("a") == 8 and rec.values("b") == [1.0, 2.0, 4]
 
 
-# ------------------------------------------------ tools/trace_cell.py
+# ---------------------- ptbench/spans.py and tools/trace_cell.py
 
 
 class _Run:
@@ -236,9 +239,8 @@ def _one_frame(shift=0.0):
 
 
 def test_idle_goes_to_the_innermost_span():
-    tc = _tool()
     run = _one_frame()
-    by, top, after = tc.idle_by_span(run)
+    by, top, after = sp.idle_by_span(run)
     # the gaps 0-4, 6-7.5, 7.6-9.2 and 9.8-10 s, cut by the innermost span
     assert by == pytest.approx({
         "between_frames": 1.0, "render_call": 0.2, "render": 0.7 + 0.9,
@@ -251,26 +253,24 @@ def test_idle_goes_to_the_innermost_span():
     # render's own idle: 1.1-1.2 at its start, 1.4-2 after the first gate,
     # 4 s after the bake is busy, 8-8.9 after the wait
     assert after == pytest.approx({"start": 0.1, "gate": 0.6, "wait": 0.9})
-    assert tc.per_frame_ms(run, "bake") == pytest.approx(1500.0)
-    assert tc.per_frame_ms(run, "gate") == pytest.approx(700.0)
-    assert tc.per_frame_ms(run, "wait") == pytest.approx(2000.0)
-    assert tc.per_frame_ms(run, "feed") == 0.0
-    assert tc.live_lane_share(run) == pytest.approx(25.0)
-    assert tc.splat_share(run) == pytest.approx(10.0)
+    assert sp.per_frame_ms(run, "bake") == pytest.approx(1500.0)
+    assert sp.per_frame_ms(run, "gate") == pytest.approx(700.0)
+    assert sp.per_frame_ms(run, "wait") == pytest.approx(2000.0)
+    assert sp.per_frame_ms(run, "feed") == 0.0
+    assert sp.live_lane_share(run) == pytest.approx(25.0)
+    assert sp.splat_share(run) == pytest.approx(10.0)
 
 
 def test_clock_check():
-    tc = _tool()
-    assert tc.clock_check(_one_frame()) == 1.0
-    assert tc.clock_check(_one_frame(shift=0.45)) == 0.0
-    assert tc.inside_calls(_one_frame()) == 1.0
+    assert sp.clock_check(_one_frame()) == 1.0
+    assert sp.clock_check(_one_frame(shift=0.45)) == 0.0
+    assert sp.inside_calls(_one_frame()) == 1.0
 
 
 def test_anchors_undo_a_slipping_device_clock():
     # ten frames a second apart; each frame's counters' copy ends 20 us
     # before its last wait does (t + 0.5 to t + 0.6), but the trace maps
     # the device 30 ms x t early for t from 2 to 5
-    tc = _tool()
     frames, spans, device = [], [], []
     for t in range(10):
         frames.append((t + 0.05, t + 0.95, t + 1.0))
@@ -282,26 +282,25 @@ def test_anchors_undo_a_slipping_device_clock():
                    (t + 0.59997 - d, t + 0.59998 - d, "Memcpy DtoH (Device)"),
                    (t + 0.96 - d, t + 0.99 - d, "Memcpy DtoH (Device)")]
     run = _Run(frames, spans, device)
-    assert tc.clock_check(run) == 0.8  # t = 4, 5 start before the wait
+    assert sp.clock_check(run) == 0.8  # t = 4, 5 start before the wait
     # four anchors of ten read late: the median is a sound frame's 20 us
-    assert tc.clock_offsets_us(run) == pytest.approx((20.0, 20.0, 150020.0))
-    fixed = tc.anchored(run)
-    assert tc.clock_check(fixed) == 1.0
+    assert sp.clock_offsets_us(run) == pytest.approx((20.0, 20.0, 150020.0))
+    fixed = sp.anchored(run)
+    assert sp.clock_check(fixed) == 1.0
     assert fixed.device_spans[0] == pytest.approx((0.2, 0.3, "kernel"))
     assert fixed.device_spans[-3][:2] == pytest.approx((9.2, 9.3))
     # the same window slipped throughout by 1 ms: nothing to anchor to
     run.device_spans = [(a - 1e-3, b - 1e-3, n) for a, b, n in device]
-    assert tc.anchored(run) is None
+    assert sp.anchored(run) is None
 
 
 def test_readers_without_program_spans_read_nothing():
-    tc = _tool()
     run = _one_frame()
     run.program_spans, run.program_counters = [], {}
-    assert tc.per_frame_ms(run, "bake") is None
-    assert tc.live_lane_share(run) is None
-    assert tc.splat_share(run) is None
-    by, _, after = tc.idle_by_span(run)
+    assert sp.per_frame_ms(run, "bake") is None
+    assert sp.live_lane_share(run) is None
+    assert sp.splat_share(run) is None
+    by, _, after = sp.idle_by_span(run)
     assert not after
     assert set(by) == {"between_frames", "render_call", "film_copy"}
 
@@ -317,10 +316,10 @@ def test_cpu_window_spans_inside_their_calls():
     run, films, _ = tc.window(cell, 3000000123, float("inf"), "cpu",
                               max_frames=2)
     assert len(run.frames) == len(films) == 2
-    assert tc.inside_calls(run) == 1.0
+    assert sp.inside_calls(run) == 1.0
     s = tc.summary(run)
     assert s["spans_per_frame"]["render"] == 1.0
-    assert s["spans_per_frame"]["gate"] == 3.0
+    assert s["spans_per_frame"]["gate"] == 1.0
     assert s["bake_ms_per_frame"] > 0 and 0 < s["live_lane_share"] <= 100
     assert s["splat_share"] is None  # a PT cell splats nothing
     rounds = run.frames[0]["rounds"]
