@@ -9,9 +9,11 @@ icosahedron) at 1080x1080, 16 spp, through the fused bounce-round kernel;
 the two-program round (K12 `shade_sweep`, K34 `finalize_sweep`) on the
 multi-chunk gem stand-in at 1080x1080, 8 spp, the 5,120-triangle mesh at
 1080x1080, 2 spp, and the HDR blob environment at 512x512, 16 spp; and the
-texture-feed round (K1 `sweep_closest_rows`, the torch texture feed, K2
-`shade`, K34) on the uv-textured Cornell box at 1080x1080, 16 spp, whose
-checker wall must come out resolved. Then the regen integrator without
+texture-feed round (K1 `sweep_closest_rows`, the texture feed's kernel,
+K2 `shade`, K34) on the uv-textured Cornell box at 1080x1080, 16 spp, whose
+checker wall must come out resolved and whose bake writes the feed's pair
+table with one launch of `tex_lut_bake_kernel`, held beforehand to its
+numpy twin bit for bit. Then the regen integrator without
 kernels (`integrator/pt_regen.py`), whose closest-hit and shadow queries
 launch `dense_sweep.cu`'s two kernels (the shadow query with the samples'
 worth as its `live` mask): the gem at 1080x1080, 8 spp with
@@ -1054,6 +1056,89 @@ def phase_texfeed(torch, dev, width):
     return res
 
 
+def phase_tex_lut_bake(torch, dev):
+    """textured_cornell's bake launches tex_lut_bake_kernel once, and the
+    kernel's pair table and `meta` equal `_bake_tex_lut_plain`'s from the
+    same layout bit for bit (the f32 bits, so signed zeros too); then the
+    kernel's device time (torch.profiler, each of 20 bakes) against its
+    bound by bytes, and by CUDA events a whole bake of the table on each
+    route (the layout, its copy to the card and the launch; the numpy twin
+    and its copy of the table; and, for scale, the same sums as a chain of
+    torch ops on the card, whose bits are reported too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracer_tpu_torch.kernels import megakernel as mk
+
+    world, camera, _, scene = _scene(torch, dev, "textured_cornell",
+                                     "TEXTURED_CAMERA", 1)
+    bank, tex = world.bank, world.tex
+    texf = scene.mat_tab[mk._M_TEXF].cpu().numpy()
+    tex_id = world.mats.tex_id.cpu().numpy()
+    ids = sorted({max(int(tex_id[i]), 0) for i in range(int(world.mats.count))
+                  if texf[i]})
+    lay = mk._layer_tables(tex)
+    res = int(bank.values.shape[1])
+    plan = mk._tex_lut_plan(lay, ids, res)
+    check(plan is not None, "textured_cornell: the pair table was refused")
+    torch.cuda.synchronize()
+    mk.TEX_LUT_LAUNCHES = 0
+    got = mk.build_mega_scene(world, camera, dev).tex.lut
+    torch.cuda.synchronize()
+    launches = mk.TEX_LUT_LAUNCHES
+    want = mk._bake_tex_lut_plain(bank, tex, plan, dev)
+
+    def chain():
+        segs = []
+        for _, n, l0, nl in plan["texs"].tolist():
+            e = torch.zeros((n, res), device=dev)
+            for off, curve in plan["layers"][l0:l0 + nl].tolist():
+                e = e + tex.atlas[off:off + n, None] * bank.values[curve][None]
+            segs.append(torch.stack([e, torch.cat([e[:, 1:], e[:, -1:]], 1)],
+                                    -1).reshape(n * res, 2))
+        return torch.cat(segs)
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    equal = bool(torch.equal(bits(got["pairs"]), bits(want["pairs"])))
+    meta_equal = bool(torch.equal(got["meta"], want["meta"]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            mk._bake_tex_lut_kernel(bank, tex, plan)
+        torch.cuda.synchronize()
+    kernel_ms = sorted((t1 - t0) / 1e6 for t0, t1, name in
+                       device_spans(torch, prof) if "tex_lut_bake" in name)
+    check(len(kernel_ms) == 20, f"tex_lut_bake: {len(kernel_ms)} kernel "
+          "spans traced for 20 bakes")
+    n_pairs = plan["n_pairs"]
+    texels = int((plan["texs"][:, 1] * plan["texs"][:, 3]).sum())
+    rec = dict(
+        n_pairs=n_pairs, textures=len(ids),
+        layers=int(plan["layers"].shape[0]), launches=launches,
+        equal=equal, meta_equal=meta_equal,
+        ms=kernel_ms[len(kernel_ms) // 2], min_ms=kernel_ms[0],
+        max_ms=kernel_ms[-1],
+        route_ms=cuda_ms(torch, lambda: mk._bake_tex_lut(
+            bank, tex, ids, dev, lay), 20),
+        plain_ms=cuda_ms(torch, lambda: mk._bake_tex_lut_plain(
+            bank, tex, plan, dev), 5),
+        library_ms=cuda_ms(torch, chain, 20),
+        library_equal=bool(torch.equal(bits(chain()), bits(want["pairs"]))),
+        device_kernels=dict(
+            route=device_kernels(torch, lambda: mk._bake_tex_lut(
+                bank, tex, ids, dev, lay)),
+            library=device_kernels(torch, chain)),
+        # the table written once (8 B a pair), each layer's texel weights
+        # and curve knots read once
+        **bound(0, 2 * F32 * n_pairs
+                + F32 * (texels + int(plan["layers"].shape[0]) * res)))
+    emit("tex_lut_bake", **rec)
+    check(launches == 1, f"tex_lut_bake: {launches} launches for one bake")
+    check(equal and meta_equal, "tex_lut_bake: the kernel's table (pairs "
+          f"{equal}, meta {meta_equal}) differs from _bake_tex_lut_plain's")
+    return rec
+
+
 def device_spans(torch, prof):
     """(start ns, end ns, name) of every device activity (kernels, copies)
     of a finished torch.profiler run, read from the profiler's kineto
@@ -1118,7 +1203,7 @@ def busy_profile(torch, fn, prefixes=()):
 def reset_counts(mk, dense, lt=None):
     mk.FUSED_LAUNCHES = mk.SHADE_LAUNCHES = mk.FINALIZE_LAUNCHES = 0
     mk.K2_LAUNCHES = mk.K4_LAUNCHES = mk.PLAIN_CALLS = 0
-    mk.TEX_FEED_LAUNCHES = 0
+    mk.TEX_FEED_LAUNCHES = mk.TEX_LUT_LAUNCHES = 0
     dense.CLOSEST_LAUNCHES = dense.ANY_LAUNCHES = 0
     dense.ROWS_LAUNCHES = dense.ROWS_PLAIN_CALLS = 0
     dense.ANY_ROWS_LAUNCHES = dense.ANY_ROWS_PLAIN_CALLS = 0
@@ -1734,6 +1819,7 @@ def phase_render_textured(torch, dev, width, spp):
     film, profile, elapsed = render(2026, stats)
     counts = dict(sweep_closest_rows=dense.ROWS_LAUNCHES,
                   tex_feed=mk.TEX_FEED_LAUNCHES,
+                  tex_lut_bake=mk.TEX_LUT_LAUNCHES,
                   shade=mk.K2_LAUNCHES, finalize_sweep=mk.FINALIZE_LAUNCHES,
                   shade_sweep=mk.SHADE_LAUNCHES,
                   fused_round=mk.FUSED_LAUNCHES,
@@ -1743,6 +1829,8 @@ def phase_render_textured(torch, dev, width, spp):
     check(counts["sweep_closest_rows"] == counts["tex_feed"]
           == counts["shade"] == counts["finalize_sweep"] == rounds > 0,
           f"textured: K1/feed/K2/K34 launches {counts} != rounds {rounds}")
+    check(counts["tex_lut_bake"] == 1,
+          f"textured: {counts['tex_lut_bake']} pair-table bakes a render")
     check(counts["shade_sweep"] == counts["fused_round"]
           == counts["plain_calls"] == 0,
           f"textured: K12, fused or plain rounds ran on the main path: "
@@ -2715,6 +2803,7 @@ def main():
     two = phase_two_prog(torch, dev, TWO_PROG_CASES)
     ring = phase_walk_ring(torch, dev, 256)
     tex = phase_texfeed(torch, dev, WIDTH)
+    lut = phase_tex_lut_bake(torch, dev)
     main_path = phase_render(torch, dev, WIDTH, SPP)
     gem = phase_render_two_prog(torch, dev, "gem_cornell", "CORNELL_CAMERA",
                                 WIDTH, 8, 12, split_too=True)
@@ -2847,6 +2936,16 @@ def main():
              c4_ms=tex["C4"]["tex_feed"]["ms"],
              c4_plain_ms=tex["C4"]["tex_feed"]["plain_ms"],
              **timed(tex1["tex_feed"])),
+        dict(name="tex_lut_bake", route="cuda", source=src + "tex_feed.cu",
+             replaces=None, twin="pathtracer_tpu_torch/kernels/"
+             "megakernel.py:_bake_tex_lut_plain",
+             launches=textured["tex_lut_bake"], bake_launches=lut["launches"],
+             max_abs_err=0.0, n_pairs=lut["n_pairs"], min_ms=lut["min_ms"],
+             max_ms=lut["max_ms"], route_ms=lut["route_ms"],
+             ms=lut["ms"], plain_ms=lut["plain_ms"],
+             bound_ms=lut["bound_ms"], bound_by=lut["bound_by"],
+             library_ms=lut["library_ms"],
+             library_equal=lut["library_equal"]),
         dict(name="sweep_any_rows", route="cuda",
              source=src + "two_prog_round.cu",
              replaces="pathtracer_tpu/kernels/dense.py:742",

@@ -161,6 +161,8 @@ _SIGNATURES = {
                         _F, _I, _I, _P, _P],
     # (regs*, local_bytes*)
     "tex_feed_attrs": [_P, _P],
+    # (atlas, values, res, texs, n_tex, layers, n_pairs, pairs, stream)
+    "tex_lut_bake_launch": [_P, _P, _I, _P, _I, _P, _L, _P, _P],
     "round_args_size": [],
     "lt_args_size": [],
     "pt_error_string": [_I],

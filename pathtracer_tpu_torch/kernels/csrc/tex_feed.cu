@@ -34,6 +34,26 @@
 // 512 knots of a texel lie in 4 KB and whose whole (17 MB for the
 // benchmark's textured box) stays in the 50 MB L2. A few dozen flops a
 // lane do not matter.
+//
+// The pair table itself is written on the device too (tex_lut_bake_kernel),
+// in place of kernels/megakernel.py:_bake_tex_lut_plain's numpy body and its
+// pageable copy to the card, which every call's bake paid. One thread per E
+// element (texel, λ-knot) of the baked textures: element r = base + texel ·
+// res + knot is also the row of its pair. The thread sums weight(texel) ·
+// curve(knot) over its texture's layers in the twin's order, from +0.0f,
+// each term a rounded f32 multiply and then a rounded add, as numpy's
+// `e += a * v` on zeros does (signed zeros included), and writes the sum to
+// both slots that hold it: its own row's [0], the row before's [1] (knot >
+// 0) and, at the last knot, its own [1] (the twin's clamp). So the table
+// equals the twin's bit for bit. The host's tables say where each texture's
+// rows start and which layers it sums: per texture (row base, texel count,
+// first layer, layer count), per layer (atlas offset, curve row).
+//
+// What bounds it on the H100: bytes. It writes the whole table once, 8 B a
+// row and coalesced (thread r writes floats 2r - 1 and 2r): 16.25 MiB for
+// the benchmark's textured box (4,160 texels × 512 knots), and reads each
+// layer's texel weight (the atlas, about 66 KB) and curve knot (9 curves ×
+// 512 knots) through L1 and L2: about 5 µs at 3.35 TB/s.
 #include <cuda_runtime.h>
 
 #include "round_common.cuh"
@@ -140,6 +160,42 @@ __global__ void __launch_bounds__(BLOCK) tex_feed_kernel(
   for (; c < tf_rows; ++c) tf[c * N + i] = 0.0f;
 }
 
+// atlas f32[A], values f32[curves, res], texs i32[n_tex, 4] (row base,
+// texel count, first layer, layer count; bases ascending), layers i32[L, 2]
+// (atlas offset, curve row) -> pairs [n_pairs, 2]
+__global__ void __launch_bounds__(BLOCK) tex_lut_bake_kernel(
+    const float* __restrict__ atlas, const float* __restrict__ values,
+    int res, const int* __restrict__ texs, int n_tex,
+    const int* __restrict__ layers, long long n_pairs,
+    float* __restrict__ pairs) {
+  const long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (r >= n_pairs) return;
+  // the texture whose rows hold r: the last one whose base is <= r
+  int lo = 0, hi = n_tex - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(texs + 4 * mid) <= r)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const int* t = texs + 4 * lo;
+  const long long local = r - __ldg(t);
+  const long long texel = local / res;
+  const int knot = (int)(local - texel * res);
+  const int l0 = __ldg(t + 2), l1 = l0 + __ldg(t + 3);
+  float acc = 0.0f;
+  for (int l = l0; l < l1; ++l) {
+    const float w = __ldg(atlas + __ldg(layers + 2 * l) + texel);
+    const float v =
+        __ldg(values + (long long)__ldg(layers + 2 * l + 1) * res + knot);
+    acc = acc + w * v;
+  }
+  pairs[2 * r] = acc;
+  if (knot > 0) pairs[2 * r - 1] = acc;
+  if (knot == res - 1) pairs[2 * r + 1] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -173,6 +229,22 @@ int tex_feed_attrs(int* regs, int* local_bytes) {
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
   return 0;
+}
+
+// atlas f32[A], values f32[curves, res], texs i32[n_tex, 4], layers
+// i32[L, 2], as tex_lut_bake_kernel takes them -> pairs [n_pairs, 2],
+// n_pairs the texels of all the textures times res
+int tex_lut_bake_launch(const float* atlas, const float* values, int res,
+                        const int* texs, int n_tex, const int* layers,
+                        long long n_pairs, float* pairs,
+                        cudaStream_t stream) {
+  if (n_pairs <= 0) return 0;
+  const long long grid = (n_pairs + BLOCK - 1) / BLOCK;
+  if (n_tex < 1 || res < 1 || grid > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  tex_lut_bake_kernel<<<(unsigned)grid, BLOCK, 0, stream>>>(
+      atlas, values, res, texs, n_tex, layers, n_pairs, pairs);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -195,14 +195,15 @@ _NL_ROWS = 16
 
 # launches of the CUDA kernels (SHADE_LAUNCHES: K12, K2_LAUNCHES: K2,
 # FINALIZE_LAUNCHES: K34, K4_LAUNCHES: K4, TEX_FEED_LAUNCHES: the texture
-# feed), and calls of any plain twin (the K1 and K3 rows sweeps count in
-# kernels/dense.py)
+# feed, TEX_LUT_LAUNCHES: the bake of its pair table), and calls of any
+# plain twin (the K1 and K3 rows sweeps count in kernels/dense.py)
 FUSED_LAUNCHES = 0
 SHADE_LAUNCHES = 0
 K2_LAUNCHES = 0
 FINALIZE_LAUNCHES = 0
 K4_LAUNCHES = 0
 TEX_FEED_LAUNCHES = 0
+TEX_LUT_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _NOT_IN_GATE = ("the megakernel takes projective cameras, identity "
@@ -410,6 +411,14 @@ def _np(x):
         else np.asarray(x)
 
 
+def _layer_tables(tex):
+    """The textures' layer tables on the host: start and count a texture,
+    curve, offset, w and h a layer (numpy)."""
+    return SimpleNamespace(**{k: _np(getattr(tex, "layer_" + k)) for k in
+                              ("start", "count", "curve", "offset", "w",
+                               "h")})
+
+
 def build_mega_scene(world, camera, device=None, settings=None) -> MegaScene:
     """Host-side numpy bake of the round's tables, element for element the
     JAX package's `build_mega_scene` (without its chunk-AABB and fetch-table
@@ -493,12 +502,8 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
     # weight 1, a value no lane selects); lights reflect with their bounce
     # curve at weight 1
     tex = w.tex
-    layer_curve = _np(tex.layer_curve)
-    layer_start = _np(tex.layer_start)
-    layer_count = _np(tex.layer_count)
-    layer_w, layer_h = _np(tex.layer_w), _np(tex.layer_h)
+    lay = _layer_tables(tex)
     atlas = _np(tex.atlas)
-    layer_offset = _np(tex.layer_offset)
     mtype = hm["mtype"]
     tex_id = np.maximum(hm["tex_id"], 0)
     refl_curve = np.zeros(m, np.int64)
@@ -507,13 +512,12 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
     for i in range(m):
         if mtype[i] == MAT_LAMBERTIAN:
             ti = int(tex_id[i])
-            li = int(layer_start[ti])
-            refl_curve[i] = int(layer_curve[li])
-            if int(layer_count[ti]) > 1 or int(layer_w[li]) * int(
-                    layer_h[li]) > 1:
+            li = int(lay.start[ti])
+            refl_curve[i] = int(lay.curve[li])
+            if int(lay.count[ti]) > 1 or int(lay.w[li]) * int(lay.h[li]) > 1:
                 texf[i] = 1.0
             else:
-                refl_scale[i] = float(atlas[int(layer_offset[li])])
+                refl_scale[i] = float(atlas[int(lay.offset[li])])
         else:
             refl_curve[i] = int(hm["bounce_idx"][i])
     mt[_M_RSCALE, :m] = refl_scale
@@ -591,6 +595,7 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
     def dev(a):
         return torch.as_tensor(a, device=device)
 
+    tex_d, bank_d = _to(tex, device), _to(w.bank, device)
     env = None
     if feeds and consts["env_kind"] != ENV_CONSTANT:
         # scalars and matrices stay on the host (the feed reads them as
@@ -602,7 +607,7 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
             f.name: getattr(w.env, f.name).to(
                 "cpu" if f.name in host else device)
             for f in dataclasses.fields(w.env)})
-        env = EnvFeed(env=e, bank=_to(w.bank, device), tex=_to(w.tex, device),
+        env = EnvFeed(env=e, bank=bank_d, tex=tex_d,
                       lut=_bake_env_lut(w.env, w.bank, w.tex, device))
     tex_feed_ = None
     if feeds and texf.any():
@@ -615,11 +620,10 @@ def bake_mega_scene(world, camera, device=None, feeds=True,
         mat2tex = np.zeros(128, np.float32)
         mat2tex[:m] = tex_id
         tex_feed_ = TexFeed(
-            tex=_to(w.tex, device), bank=_to(w.bank, device),
-            mat2tex=dev(mat2tex), uvtab=dev(uvtab),
-            lut=_bake_tex_lut(w.bank, w.tex, sorted(
-                {int(tex_id[i]) for i in range(m) if texf[i]}), device))
-    med = (MedFeed(meds=_to(w.mediums, device), bank=_to(w.bank, device))
+            tex=tex_d, bank=bank_d, mat2tex=dev(mat2tex), uvtab=dev(uvtab),
+            lut=_bake_tex_lut(bank_d, tex_d, sorted(
+                {int(tex_id[i]) for i in range(m) if texf[i]}), device, lay))
+    med = (MedFeed(meds=_to(w.mediums, device), bank=bank_d)
            if medium else None)
     return MegaScene(prim_tab=dev(tab), dense_tab=dev(dense_tab),
                      mat_tab=dev(mt), light_tab=dev(lt), spec_tab=dev(st),
@@ -672,48 +676,108 @@ def _bake_env_lut(env, bank, tex, device):
 TEX_LUT_MAX_TEXELS = 65536  # the JAX package's cap of the surface bake
 
 
-def _bake_tex_lut(bank, tex, tex_ids, device):
+def _bake_tex_lut(bank, tex, tex_ids, device, lay):
     """`_bake_env_lut` for the surface textures the feed evaluates (the JAX
     package's `_bake_tex_lut`): per texture, E[texel, λ-knot] = Σ_layers
     weight(texel) · curve(knot), all textures in one flat pair table with a
-    (base, w, h, 0) row per texture id in `meta` i32[128, 4]. None where a
-    texture's layers differ in size or the textures hold more than
-    TEX_LUT_MAX_TEXELS texels in all (the feed then runs `eval_texture`)."""
-    layer_start, layer_count = _np(tex.layer_start), _np(tex.layer_count)
-    layer_w, layer_h = _np(tex.layer_w), _np(tex.layer_h)
-    layer_curve, layer_offset = _np(tex.layer_curve), _np(tex.layer_offset)
-    atlas, values = _np(tex.atlas), _np(bank.values)
-    res = values.shape[1]
-    total = 0
-    for t in tex_ids:
-        s = int(layer_start[t])
-        if int(layer_count[t]) < 1:
-            return None
-        w_, h_ = int(layer_w[s]), int(layer_h[s])
-        for k in range(int(layer_count[t])):
-            if int(layer_w[s + k]) != w_ or int(layer_h[s + k]) != h_:
-                return None
-        total += w_ * h_
-    if total > TEX_LUT_MAX_TEXELS:
+    (base, w, h, 0) row per texture id in `meta` i32[128, 4]. The layout
+    comes from the host layer tables `lay` (`_layer_tables`) through
+    `_tex_lut_plan`: None where it refuses (the feed then runs
+    `eval_texture`). The table is written by `_bake_tex_lut_kernel` on
+    CUDA, by `_bake_tex_lut_plain` elsewhere. While tracing, counts
+    `tex_lut_bakes` (1 a table baked) and `tex_lut_bakes_kernel` (1 where
+    the kernel baked it)."""
+    plan = _tex_lut_plan(lay, tex_ids, bank.values.shape[1])
+    if plan is None:
         return None
-    segs = []
+    kernel = torch.device(device).type == "cuda"
+    lut = (_bake_tex_lut_kernel if kernel else _bake_tex_lut_plain)(
+        bank, tex, plan, device)
+    prof.count("tex_lut_bakes", 1)
+    prof.count("tex_lut_bakes_kernel", int(kernel))
+    return lut
+
+
+def _tex_lut_plan(lay, tex_ids, res):
+    """The pair table's layout, from the host layer tables `lay`: None for
+    a texture without layers or with layers of unequal size, or more than
+    TEX_LUT_MAX_TEXELS texels in all; else `meta` i32[128, 4], `texs`
+    i32[T, 4] a baked texture in `tex_ids`' order (its first pair row,
+    texels, first row of `layers`, layer count), `layers` i32[L, 2] a layer
+    of theirs in order (atlas offset, curve row), and `n_pairs`."""
     meta = np.zeros((128, 4), np.int32)
+    texs, layers = [], []
     base = 0
     for t in tex_ids:
-        s = int(layer_start[t])
-        w_, h_ = int(layer_w[s]), int(layer_h[s])
-        e = np.zeros((h_ * w_, res), np.float32)
-        for li in range(s, s + int(layer_count[t])):
-            off = int(layer_offset[li])
-            e += (atlas[off:off + h_ * w_, None]
-                  * values[int(layer_curve[li])][None, :])
+        s, n = int(lay.start[t]), int(lay.count[t])
+        if n < 1:
+            return None
+        w_, h_ = int(lay.w[s]), int(lay.h[s])
+        if any(int(lay.w[li]) != w_ or int(lay.h[li]) != h_
+               for li in range(s, s + n)):
+            return None
+        meta[t] = (base, w_, h_, 0)
+        texs.append((base, w_ * h_, len(layers), n))
+        layers += [(int(lay.offset[li]), int(lay.curve[li]))
+                   for li in range(s, s + n)]
+        base += w_ * h_ * res
+    if base > TEX_LUT_MAX_TEXELS * res:
+        return None
+    return dict(meta=meta, texs=np.array(texs, np.int32).reshape(-1, 4),
+                layers=np.array(layers, np.int32).reshape(-1, 2),
+                n_pairs=base)
+
+
+def _bake_tex_lut_kernel(bank, tex, plan, device=None):
+    """The pair table of `plan` written on the card by
+    `csrc/tex_feed.cu:tex_lut_bake_kernel` from `tex.atlas` and
+    `bank.values` (CUDA tensors), with `meta` and the launch's tables
+    copied to the card in one."""
+    global TEX_LUT_LAUNCHES
+    values, atlas = bank.values, tex.atlas
+    res = values.shape[1]
+    meta, texs, layers = plan["meta"], plan["texs"], plan["layers"]
+    for name, x in (("atlas", atlas), ("values", values)):
+        if x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.device.type != "cuda":
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             "tensor")
+    ends = layers[:, 0].astype(np.int64) + np.repeat(texs[:, 1], texs[:, 3])
+    if ends.max() > atlas.numel() or layers[:, 1].max() >= values.shape[0]:
+        raise ValueError("the layer tables point outside the atlas or the "
+                         "curve bank")
+    tabs = torch.as_tensor(np.concatenate(
+        [meta.ravel(), texs.ravel(), layers.ravel()]), device=atlas.device)
+    pairs = torch.empty((plan["n_pairs"], 2), dtype=torch.float32,
+                        device=atlas.device)
+    stream = torch.cuda.current_stream(atlas.device).cuda_stream
+    rc = _lib().tex_lut_bake_launch(
+        _ptr(atlas), _ptr(values), res, _ptr(tabs[meta.size:]),
+        texs.shape[0], _ptr(tabs[meta.size + texs.size:]), plan["n_pairs"],
+        _ptr(pairs), ctypes.c_void_p(stream))
+    _raise_on(rc, "tex_lut_bake")
+    TEX_LUT_LAUNCHES += 1
+    return dict(pairs=pairs, meta=tabs[:meta.size].view(meta.shape), res=res,
+                lam_lo=float(bank.lam_lo), lam_hi=float(bank.lam_hi))
+
+
+def _bake_tex_lut_plain(bank, tex, plan, device):
+    """The pair table of `plan` in numpy, texture by texture: E from zeros,
+    `e += weight · curve` a layer, each row paired with the next knot's
+    value (the last knot with its own). The twin of
+    `tex_lut_bake_kernel`, and the bake on the CPU."""
+    atlas, values = _np(tex.atlas), _np(bank.values)
+    res = values.shape[1]
+    segs = []
+    for _, n, l0, nl in plan["texs"]:
+        e = np.zeros((n, res), np.float32)
+        for off, curve in plan["layers"][l0:l0 + nl]:
+            e += atlas[off:off + n, None] * values[curve][None, :]
         segs.append(np.stack([e, np.concatenate([e[:, 1:], e[:, -1:]],
                                                 axis=1)],
-                             axis=-1).reshape(h_ * w_ * res, 2))
-        meta[t] = (base, w_, h_, 0)
-        base += h_ * w_ * res
+                             axis=-1).reshape(n * res, 2))
     return dict(pairs=torch.as_tensor(np.concatenate(segs), device=device),
-                meta=torch.as_tensor(meta, device=device), res=res,
+                meta=torch.as_tensor(plan["meta"], device=device), res=res,
                 lam_lo=float(bank.lam_lo), lam_hi=float(bank.lam_hi))
 
 

@@ -404,6 +404,39 @@ def textured_sun(b, spectral):
     return b
 
 
+def textured_sizes(b, spectral):
+    """`cornell_box` holding four uv-textured lambertians of unequal sizes,
+    the pair-table bake's own cases: a 1 x 13 strip (one layer) on a
+    sphere, a 3 x 5 four-layer texture whose last layer has the flat-zero
+    curve (and whose first holds -0.0 and 0.0 weights) on the floor, a
+    9 x 7 two-layer texture on a disk and a single texel in two layers on a
+    second sphere."""
+    cornell_box(b, spectral)
+    white, red, green, zero = (b.curve_index(n) for n in
+                               ("white", "red", "green", "zero"))
+    rng = np.random.default_rng(21)
+
+    def weights(h, w):
+        return rng.uniform(0.05, 0.95, (h, w)).astype(np.float32)
+
+    quad = weights(3, 5)
+    quad[0, :2] = (-0.0, 0.0)
+    textures = [
+        [(weights(1, 13), white)],
+        [(quad, red), (weights(3, 5), green), (weights(3, 5), white),
+         (weights(3, 5), zero)],
+        [(weights(9, 7), green), (weights(9, 7), red)],
+        [(weights(1, 1), white), (weights(1, 1), red)]]
+    mats = [b.add_lambertian(b.add_texture(layers, name=f"sizes{i}"),
+                             name=f"sizes{i}")
+            for i, layers in enumerate(textures)]
+    b.add_sphere([0.3, 0.3, 0.2], 0.18, mats[0])
+    b.add_rect([0.5, 0.5, 2e-3], [0.45, 0, 0], [0, 0.45, 0], mats[1])
+    b.add_disk([0.95, 0.5, 0.5], [-1.0, 0.0, 0.0], 0.3, mats[2])
+    b.add_sphere([0.65, 0.7, 0.25], 0.2, mats[3])
+    return b
+
+
 def checker_tiles(film_y, camera):
     """Whether `textured_cornell`'s checker wall is resolved in a film (the
     JAX package's tests/test_render_textured.py check): each pixel's centre

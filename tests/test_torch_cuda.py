@@ -42,7 +42,9 @@ kernel's splats, and a render's film, equal the `index_add_` of the splat
 rows written within rtol 1e-5 (v2 at 1 and 2 camera samples, v1). The
 texture feed's kernel equals `tex_feed_plain` on the card bit for bit, on
 every prim type at C = 1 and 4, and without a baked pair table the feed
-stays on the chain. With
+stays on the chain. The pair table's bake kernel writes the table that
+`_bake_tex_lut_plain` writes from the same layout bit for bit, on textures
+of any size and layer count. With
 tracing on
 (utils/profile.py), the megakernel routes render the film and counters of
 tracing off and count their lanes on the card."""
@@ -605,6 +607,59 @@ def test_tex_feed_kernel_matches_plain(dev, recipe, c_lanes):
     assert untextured > 0 and missed > 0
 
 
+def _baked_tex_ids(world, scene):
+    """The texture ids whose pair rows the bake writes: those of the
+    lambertians the texture feed serves (`_M_TEXF`), as the bake picks
+    them."""
+    texf = scene.mat_tab[mk._M_TEXF].cpu().numpy()
+    tex_id = world.mats.tex_id.cpu().numpy()
+    return sorted({max(int(tex_id[i]), 0) for i in range(int(world.mats.count))
+                   if texf[i]})
+
+
+@pytest.mark.parametrize("recipe", ["textured_cornell", "textured_fog",
+                                    "textured_sizes"])
+def test_tex_lut_bake_kernel_matches_plain(dev, recipe):
+    """tex_lut_bake_kernel (csrc/tex_feed.cu) writes the pair table and
+    `meta` of `_bake_tex_lut_plain` from the same layout on the same
+    device-resident world bit for bit (the f32 bits compared, so signed
+    zeros too), one launch a bake: the textured box and the fog box (an 8 x 8 one-layer and a
+    64 x 64 four-layer texture among five), and `textured_sizes` (a 1 x 13
+    strip, a four-layer texture with a flat-zero layer, a single texel in
+    two layers)."""
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device=dev)
+    launches = mk.TEX_LUT_LAUNCHES
+    scene = mk.build_mega_scene(world, cam, dev)
+    assert mk.TEX_LUT_LAUNCHES == launches + 1
+    got = scene.tex.lut
+    want = mk._bake_tex_lut_plain(world.bank, world.tex, mk._tex_lut_plan(
+        mk._layer_tables(world.tex), _baked_tex_ids(world, scene),
+        got["res"]), dev)
+    assert got["pairs"].shape == want["pairs"].shape
+    assert torch.equal(got["pairs"].view(torch.int32),
+                       want["pairs"].view(torch.int32))
+    assert torch.equal(got["meta"], want["meta"])
+    assert all(got[k] == want[k] for k in ("res", "lam_lo", "lam_hi"))
+    assert (got["pairs"] > 0).any()
+    mk.build_mega_scene(world, cam, dev)
+    assert mk.TEX_LUT_LAUNCHES == launches + 2
+
+
+def test_tex_lut_bake_over_the_cap_launches_nothing(dev, monkeypatch):
+    """Over TEX_LUT_MAX_TEXELS texels the layout refuses, and the bake
+    leaves the pair table out without a launch."""
+    monkeypatch.setattr(mk, "TEX_LUT_MAX_TEXELS", 0)
+    world = scenes.textured_sizes(SceneBuilder(), spectral).build(dev)
+    cam = make_projective_camera(**scenes.CORNELL_CAMERA, device=dev)
+    launches = mk.TEX_LUT_LAUNCHES
+    scene = mk.build_mega_scene(world, cam, dev)
+    assert scene.tex is not None and scene.tex.lut is None
+    assert mk.TEX_LUT_LAUNCHES == launches
+    assert mk._tex_lut_plan(mk._layer_tables(world.tex), _baked_tex_ids(
+        world, scene), 512) is None
+
+
 def test_tex_feed_without_a_table_stays_on_the_chain(dev, monkeypatch):
     """Over TEX_LUT_MAX_TEXELS texels the bake leaves the pair table out,
     and the feed runs `tex_feed_plain`'s `eval_texture` chain: no kernel
@@ -1109,6 +1164,9 @@ def test_tracing_on_the_card_changes_no_film(dev, integrator):
     # every texture feed of the PT render served by the kernel
     assert rec.total("tex_feeds") == rec.total("tex_feeds_kernel") == (
         r if integrator == "pt" else 0)
+    # the PT call's pair table baked once, by the kernel
+    assert rec.values("tex_lut_bakes") == rec.values(
+        "tex_lut_bakes_kernel") == ([1] if integrator == "pt" else [])
     live, launched = rec.values("lanes_live"), rec.values("lanes_launched")
     assert len(live) == len(launched) == r
     assert all(0 <= a <= b for a, b in zip(live, launched))

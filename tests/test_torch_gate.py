@@ -49,6 +49,7 @@ EXPECTED = {
     "nested_media": (None, None, None),
     "fog_cornell": (None, None, None),
     "textured_fog": (None, None, "out"),
+    "textured_sizes": (None, None, "out"),
     # scenes built below
     "17_media": (None, "media", None),
     "unused_uv_texture": ("out", "out", "out"),

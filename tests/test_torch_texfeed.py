@@ -23,9 +23,15 @@ Tolerances, and why:
 
 On CPU tensors `tex_feed` is its plain twin `tex_feed_plain` (equal, no
 kernel launched), and a traced render counts one `tex_feeds` a round and
-no `tex_feeds_kernel`; untraced, it records nothing.
+no `tex_feeds_kernel`; untraced, it records nothing. The pair table's
+layout (`_tex_lut_plan`) and the table that `_bake_tex_lut_plain` writes
+from it equal the JAX bake's on the port's own texture tables, as does
+the bake kernel's index map replayed in numpy from the layout, and the
+layout refuses where the JAX bake does; a traced CPU bake counts one
+`tex_lut_bakes` and no `tex_lut_bakes_kernel`.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -255,3 +261,119 @@ def test_texture_feed_counts(traced, monkeypatch):
         assert stats["rounds"] > 0 and profile.recorder() is None
         assert seen == []
     assert tm.TEX_FEED_LAUNCHES == launches
+
+
+def _baked(recipe):
+    """A CPU world of `recipe`, its bake, and the texture ids of its pair
+    table (the lambertians the texture feed serves)."""
+    world = getattr(scenes, recipe)(SceneBuilder(), spectral).build("cpu")
+    cam = make_projective_camera(**scenes.TEXTURED_CAMERA, device="cpu")
+    scene = tm.build_mega_scene(world, cam, "cpu")
+    texf = scene.mat_tab[tm._M_TEXF].numpy()
+    tex_id = world.mats.tex_id.numpy()
+    ids = sorted({max(int(tex_id[i]), 0) for i in range(int(world.mats.count))
+                  if texf[i]})
+    return world, scene, ids
+
+
+def _replay_bake_kernel(plan, atlas, values):
+    """`tex_lut_bake_kernel`'s index map in numpy: element r of the table
+    (the last texture whose base is <= r, its texel and knot) sums its
+    layers' weight x curve from +0 in f32, then lands in its own row's [0],
+    the row before's [1] (knot > 0) and, at the last knot, its own [1].
+    Slots no element writes stay NaN."""
+    texs, layers, n = plan["texs"], plan["layers"], plan["n_pairs"]
+    res = values.shape[1]
+    r = np.arange(n)
+    t = np.searchsorted(texs[:, 0], r, side="right") - 1
+    local = r - texs[t, 0]
+    texel, knot = local // res, local % res
+    assert (texel < texs[t, 1]).all()
+    acc = np.zeros(n, np.float32)
+    for j in range(int(texs[:, 3].max())):
+        on = j < texs[t, 3]
+        li = np.where(on, texs[t, 2] + j, 0)
+        term = atlas[layers[li, 0] + texel] * values[layers[li, 1], knot]
+        acc = np.where(on, acc + term, acc)
+    pairs = np.full((n, 2), np.nan, np.float32)
+    pairs[:, 0] = acc
+    pairs[r[knot > 0] - 1, 1] = acc[knot > 0]
+    pairs[r[knot == res - 1], 1] = acc[knot == res - 1]
+    return pairs
+
+
+@pytest.mark.parametrize("recipe", ["textured_cornell", "textured_sizes"])
+def test_tex_lut_plan_replays_the_twin(recipe):
+    """The pair table's layout (`_tex_lut_plan`) and its table, held
+    against the JAX package's `_bake_tex_lut` run on the port's own texture
+    tables: `meta` equal, and the bake's table, `_bake_tex_lut_plain`'s
+    from the layout, and the bake kernel's index map replayed from the
+    layout's host tables all equal to the JAX table bit for bit, every
+    slot written."""
+    world, scene, ids = _baked(recipe)
+    want = jm._bake_tex_lut(world.bank, world.tex, ids)
+    plan = tm._tex_lut_plan(tm._layer_tables(world.tex), ids, want["res"])
+    np.testing.assert_array_equal(plan["meta"], np.asarray(want["meta"]))
+    np.testing.assert_array_equal(plan["meta"], scene.tex.lut["meta"].numpy())
+    assert plan["n_pairs"] == np.asarray(want["pairs"]).shape[0]
+    assert plan["texs"][:, 3].sum() == plan["layers"].shape[0]
+    bits = np.asarray(want["pairs"]).view(np.int32)
+    twin = tm._bake_tex_lut_plain(world.bank, world.tex, plan, "cpu")
+    replay = _replay_bake_kernel(plan, world.tex.atlas.numpy(),
+                                 world.bank.values.numpy())
+    for name, got in (("bake", scene.tex.lut["pairs"].numpy()),
+                      ("twin", twin["pairs"].numpy()), ("replay", replay)):
+        np.testing.assert_array_equal(got.view(np.int32), bits, err_msg=name)
+    if recipe == "textured_sizes":
+        assert sorted(plan["texs"][:, 1].tolist()) == [1, 13, 15, 63]
+        assert sorted(plan["texs"][:, 3].tolist()) == [1, 2, 2, 4]
+
+
+@pytest.mark.parametrize("case", ["cap", "unequal_layers", "no_layers"])
+def test_tex_lut_plan_refuses_where_jax_does(case, monkeypatch):
+    """Over TEX_LUT_MAX_TEXELS texels, with a layer of another size, or a
+    texture without layers, the JAX package's bake and the port's leave
+    the pair table out."""
+    world, _, ids = _baked("textured_sizes")
+    lay = tm._layer_tables(world.tex)
+    lay.w, lay.count = lay.w.copy(), lay.count.copy()
+    quad = max(ids, key=lambda t: int(lay.count[t]))
+    if case == "cap":
+        for m in (jm, tm):
+            monkeypatch.setattr(m, "TEX_LUT_MAX_TEXELS", 63 + 15 + 13)
+    elif case == "unequal_layers":
+        lay.w[int(lay.start[quad]) + 3] += 1
+    else:
+        lay.count[quad] = 0
+    tex = dataclasses.replace(world.tex, **{
+        "layer_" + k: torch.as_tensor(getattr(lay, k))
+        for k in ("w", "count")})
+    assert jm._bake_tex_lut(world.bank, tex, ids) is None
+    assert tm._tex_lut_plan(lay, ids, 512) is None
+    assert tm._bake_tex_lut(world.bank, tex, ids, "cpu", lay) is None
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["traced", "off"])
+def test_tex_lut_bake_counts(traced, monkeypatch):
+    """A traced CPU bake of the textured box counts one pair table baked,
+    not by the kernel; untraced, nothing reaches a recorder."""
+    seen = []
+    count = profile.Recorder.count
+
+    def spy(self, name, value):
+        seen.append(name)
+        count(self, name, value)
+
+    monkeypatch.setattr(profile.Recorder, "count", spy)
+    launches = tm.TEX_LUT_LAUNCHES
+    if traced:
+        with profile.tracing() as rec:
+            _, scene, _ = _baked("textured_cornell")
+        rec.resolve()
+        assert rec.values("tex_lut_bakes") == [1]
+        assert rec.values("tex_lut_bakes_kernel") == [0]
+    else:
+        _, scene, _ = _baked("textured_cornell")
+        assert profile.recorder() is None and seen == []
+    assert scene.tex.lut is not None
+    assert tm.TEX_LUT_LAUNCHES == launches
